@@ -1,0 +1,89 @@
+"""NCHW primitives of the DDPM++ UNet — the port of the JAX
+`models/common.py` layers (`conv2d`, `mat1x1`, `linear`, the DDPM++ timestep
+embedding, nearest 2x upsample, the right/bottom-padded downsample conv and
+2x2 average pool).
+
+Weights are held in the reference's torch layouts (OIHW convs, [out, in]
+linears) and cast to the activation dtype at use, as the JAX layers cast
+their params. Convolutions and plain GEMMs go to `F.conv2d` / `F.linear`;
+GroupNorm and attention go to the kernels in `asyrp_official_torch.ops`.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from asyrp_official_torch.ops import groupnorm as _k1
+
+__all__ = [
+    "GroupNorm",
+    "conv2d",
+    "linear",
+    "mat1x1",
+    "timestep_embedding_ddpm",
+    "upsample_nearest_2x",
+    "downsample_pad_conv",
+    "avg_pool_2x",
+]
+
+
+class GroupNorm(nn.Module):
+    """32-group GroupNorm with the reference's `weight`/`bias` keys; the
+    forward is kernel K1, optionally fused with SiLU."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x, silu: bool = False):
+        return _k1.group_norm(x, self.weight, self.bias, groups=self.groups, eps=self.eps, silu=silu)
+
+
+def _cast(p, dtype):
+    return p if p.dtype == dtype else p.to(dtype)
+
+
+def conv2d(conv: nn.Conv2d, x, *, stride: int = 1, padding=1):
+    """Conv with the weight and bias cast to x's dtype (JAX `common.conv2d`)."""
+    return F.conv2d(x, _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype),
+                    stride=stride, padding=padding)
+
+
+def mat1x1(conv: nn.Conv2d, x):
+    """1x1 conv as a channel matmul (JAX `common.mat1x1`)."""
+    return F.conv2d(x, _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype))
+
+
+def linear(lin: nn.Linear, x):
+    return F.linear(x, _cast(lin.weight, x.dtype), _cast(lin.bias, x.dtype))
+
+
+def timestep_embedding_ddpm(t, dim: int):
+    """DDPM++ sinusoidal embedding: exponent /(half-1), concat(sin, cos)."""
+    half = dim // 2
+    emb = math.log(10000.0) / (half - 1)
+    freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device) * -emb)
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def upsample_nearest_2x(x):
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+def downsample_pad_conv(conv: nn.Conv2d, x):
+    """DDPM++ Downsample: zero-pad right and bottom by 1, then a 3x3
+    stride-2 valid conv."""
+    return conv2d(conv, F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+
+
+def avg_pool_2x(x):
+    return F.avg_pool2d(x, 2)
