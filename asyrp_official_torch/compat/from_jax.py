@@ -16,7 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from asyrp_official_tpu.compat.delta_ckpt import blocks_to_torch_sd
+from asyrp_official_torch.compat.delta_ckpt import blocks_to_torch_sd
 
 __all__ = ["ddpmpp_state_dict_from_jax", "delta_block_state_dict_from_jax"]
 

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from asyrp_official_torch.ops import ddim_step as k3
-from asyrp_official_tpu.core.schedule import Schedule
-from asyrp_official_tpu.core.steptable import StepTable
+from asyrp_official_torch.core.schedule import Schedule
+from asyrp_official_torch.core.steptable import StepTable
 
 __all__ = ["sample_chain"]
 

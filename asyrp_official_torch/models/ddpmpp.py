@@ -13,10 +13,13 @@ and every attention kernel K2.
 
 With an edit, the encoder runs once and the decoder twice (on h and on the
 edited h2): stacked into one 2B decode, or as two B decodes at batch 1 or
-with `decode_mode="split"` — the same math either way.
+with `decode_mode="split"` — the same math either way. The split decode is
+the training mode: the encoder, the middle block and the plain decode run
+under `torch.no_grad()`, and only the edited decode carries a graph.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -27,9 +30,9 @@ from torch import nn
 
 from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
-from asyrp_official_torch.models.hostinit import hostrng
 from asyrp_official_torch.models.delta import EditState, apply_edit
 from asyrp_official_torch.ops import attention as _k2
+from asyrp_official_torch.utils import hostrng
 
 __all__ = ["DDPMppConfig", "CELEBA_CONFIG", "DDPMpp", "init_params"]
 
@@ -234,15 +237,20 @@ class DDPMpp(nn.Module):
         if x_nhwc.shape[1] != self.cfg.resolution or x_nhwc.shape[2] != self.cfg.resolution:
             raise ValueError(f"expected {self.cfg.resolution}^2 input, got {tuple(x_nhwc.shape)}")
         x = x_nhwc.permute(0, 3, 1, 2).contiguous()
-        # the embedding MLP runs in f32; cast so a bf16 network stays bf16
-        temb = self.get_temb(t).to(x.dtype)
-        hs = self._encode(x, temb)
-        h = self._middle(hs[-1], temb)
+        split = edit is not None and (x.shape[0] == 1 or decode_mode == "split")
+        # split: only the edited decode, from h + Δh, carries a graph (what
+        # the DeltaBlock's gradient needs); the rest of the frozen network
+        # runs without one
+        with torch.no_grad() if split else contextlib.nullcontext():
+            # the embedding MLP runs in f32; cast so a bf16 network stays bf16
+            temb = self.get_temb(t).to(x.dtype)
+            hs = self._encode(x, temb)
+            h = self._middle(hs[-1], temb)
+            eps = self._decode(h, hs, temb) if split else None
         if edit is None:
             return _nhwc(self._decode(h, hs, temb)), None, None, _nhwc(h)
         h2, delta_h = apply_edit(edit, h, temb)
-        if x.shape[0] == 1 or decode_mode == "split":
-            eps = self._decode(h, hs, temb)
+        if split:
             eps_mod = self._decode(h2, hs, temb)
         else:
             out = self._decode(

@@ -15,11 +15,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from asyrp_official_torch.compat.from_jax import delta_block_state_dict_from_jax
 from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
-from asyrp_official_torch.models.hostinit import hostrng
+from asyrp_official_torch.utils import hostrng
 
-__all__ = ["DeltaBlock", "EditState", "apply_edit", "delta_block_init"]
+__all__ = ["DeltaBlock", "EditState", "apply_edit", "delta_block_init", "init_delta_blocks"]
 
 _NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, M2/M8)"
 
@@ -53,6 +54,22 @@ def delta_block_init(key: np.ndarray, ch: int, temb_ch: int, *, flavor: str = "d
         "norm2": hostinit.norm_init(ch),
         "conv2": hostinit.linear_init(ks[2], ch, ch),
     }
+
+
+def init_delta_blocks(seed: int, n: int, ch: int, temb_ch: int, *,
+                      flavor: str = "ddpm") -> Tuple[DeltaBlock, ...]:
+    """`n` DeltaBlocks, block i drawn from `hostrng.PRNGKey(seed + i)`: the
+    same weights, bit for bit, as the JAX runner's `delta_block_init` for
+    `--train_delta_block --get_h_num n`."""
+    if n < 1:
+        raise ValueError(f"need at least one DeltaBlock, got {n} (--get_h_num)")
+    blocks = []
+    for i in range(n):
+        block = DeltaBlock(ch, temb_ch)
+        block.load_state_dict(delta_block_state_dict_from_jax(
+            delta_block_init(hostrng.PRNGKey(seed + i), ch, temb_ch, flavor=flavor)))
+        blocks.append(block)
+    return tuple(blocks)
 
 
 @dataclasses.dataclass

@@ -1,6 +1,6 @@
 """Numpy initialisers that reproduce the JAX package's init draws bit for
 bit (the JAX `models/common.py` `conv_init` / `linear_init` / `norm_init`
-on a numpy key): every draw goes through the shared `utils/hostrng`
+on a numpy key): every draw goes through the port's `utils/hostrng`
 threefry, so a seed gives both packages the same weights. The trees are in
 the JAX layout (HWIO convs, [in, out] matrices); `compat/from_jax` turns
 them into the port's state dicts."""
@@ -10,9 +10,9 @@ import math
 
 import numpy as np
 
-from asyrp_official_tpu.utils import hostrng
+from asyrp_official_torch.utils import hostrng
 
-__all__ = ["hostrng", "conv_init", "linear_init", "norm_init"]
+__all__ = ["conv_init", "linear_init", "norm_init"]
 
 
 def _kaiming_uniform(key, shape, fan_in, a=math.sqrt(5)):

@@ -20,6 +20,15 @@ covers it.
 `ddim_step_plain`, a CUDA tensor launches the Triton kernel (and bumps
 `ddim_step.launches`), anything else raises. Triton is imported, and the
 kernel compiled, at the first CUDA call.
+
+When x, eps or eps_mod needs a gradient (the edited step of Δ-training),
+the update goes through `torch.autograd.Function`: the same forward, and the
+closed-form backward, elementwise in f32 (`ddim_step_backward`):
+
+    gx0  = g_x0_t + sqrt(a') * g_x_next
+    dx   = gx0 / sqrt(a)
+    deps_mod = -sqrt(1 - a) / sqrt(a) * gx0
+    deps = c2 * g_x_next   (sqrt(1 - a') * dt_lambda where apply_dt is set)
 """
 from __future__ import annotations
 
@@ -31,7 +40,7 @@ import torch
 
 from asyrp_official_torch.ops import _build
 
-__all__ = ["ddim_step", "ddim_step_plain"]
+__all__ = ["ddim_step", "ddim_step_plain", "ddim_step_backward"]
 
 _BLOCK = 1024
 
@@ -136,16 +145,73 @@ def _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_d
     return x_next, x0_t
 
 
+def ddim_step_backward(g_x_next, g_x0_t, at, at_next, eta, *, dt_lambda: float = 1.0,
+                       apply_dt=None):
+    """The closed-form gradient of `ddim_step` with respect to (x, eps,
+    eps_mod), in f32, from the cotangents of (x_next, x0_t); either may be
+    None (no gradient reaches that output)."""
+    g = g_x_next if g_x_next is not None else g_x0_t
+    b, nd = g.shape[0], g.dim()
+    shape = (b,) + (1,) * (nd - 1)
+    a = _per_sample(at, b, g.device).reshape(shape)
+    an = _per_sample(at_next, b, g.device).reshape(shape)
+    gx0 = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+    if g_x0_t is not None:
+        gx0 = gx0 + g_x0_t.float()
+    if g_x_next is None:
+        deps = torch.zeros_like(gx0)
+    else:
+        gxn = g_x_next.float()
+        gx0 = gx0 + torch.sqrt(an) * gxn
+        et = _per_sample(eta, b, g.device).reshape(shape)
+        c1 = et * torch.sqrt(torch.clamp((1.0 - a / an) * (1.0 - an) / (1.0 - a), min=0.0))
+        c_eps = torch.sqrt(torch.clamp((1.0 - an) - c1 * c1, min=0.0))
+        if apply_dt is not None:
+            use = _per_sample(apply_dt, b, g.device).reshape(shape) > 0
+            c_eps = torch.where(use, torch.sqrt(1.0 - an) * dt_lambda, c_eps)
+        deps = c_eps * gxn
+    return gx0 / torch.sqrt(a), deps, -torch.sqrt(1.0 - a) / torch.sqrt(a) * gx0
+
+
+class _DDIMStep(torch.autograd.Function):
+    """K3 with its gradient: the kernel's forward on CUDA (the plain version
+    on the CPU), the closed-form backward on both."""
+
+    @staticmethod
+    def forward(ctx, x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_dt):
+        if x.device.type == "cuda":
+            x_next, x0_t = _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda,
+                                           apply_dt)
+        else:
+            x_next, x0_t = ddim_step_plain(x, eps, eps_mod, at, at_next, eta, noise,
+                                           dt_lambda=dt_lambda, apply_dt=apply_dt)
+        ctx.coeffs = (at, at_next, eta, dt_lambda, apply_dt)
+        ctx.dtypes = (x.dtype, eps.dtype, eps_mod.dtype)
+        return x_next, x0_t
+
+    @staticmethod
+    def backward(ctx, g_x_next, g_x0_t):
+        at, at_next, eta, dt_lambda, apply_dt = ctx.coeffs
+        grads = ddim_step_backward(g_x_next, g_x0_t, at, at_next, eta, dt_lambda=dt_lambda,
+                                   apply_dt=apply_dt)
+        grads = [gr.to(dt) if need else None
+                 for gr, dt, need in zip(grads, ctx.dtypes, ctx.needs_input_grad)]
+        return (*grads, None, None, None, None, None, None)
+
+
 def ddim_step(x, eps, eps_mod, at, at_next, eta, noise: Optional[torch.Tensor] = None, *,
               dt_lambda: float = 1.0, apply_dt=None):
     """One DDIM update; `noise=None` means the eta term is known to vanish
     (or eta is 0). Returns (x_next, x0_t) in x's dtype."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ddim_step: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or eps.requires_grad
+                                    or eps_mod.requires_grad):
+        return _DDIMStep.apply(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_dt)
     if x.device.type == "cpu":
         return ddim_step_plain(x, eps, eps_mod, at, at_next, eta, noise,
                                dt_lambda=dt_lambda, apply_dt=apply_dt)
-    if x.device.type == "cuda":
-        return _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_dt)
-    raise ValueError(f"ddim_step: no kernel for device {x.device}")
+    return _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_dt)
 
 
 ddim_step.launches = 0

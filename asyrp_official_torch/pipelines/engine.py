@@ -20,8 +20,8 @@ import torch
 from asyrp_official_torch.core.sampler import sample_chain
 from asyrp_official_torch.models.delta import EditState
 from asyrp_official_torch.models.registry import ModelSpec
-from asyrp_official_tpu.core.schedule import Schedule
-from asyrp_official_tpu.core.steptable import StepTable, generation_table, inversion_table
+from asyrp_official_torch.core.schedule import Schedule
+from asyrp_official_torch.core.steptable import StepTable, generation_table, inversion_table
 
 __all__ = ["make_invert", "make_generate", "make_edit_generate", "make_invert_edit"]
 

@@ -15,7 +15,7 @@ import torch
 
 from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.pipelines import engine
-from asyrp_official_tpu.core.schedule import Schedule, uniform_seq
+from asyrp_official_torch.core.schedule import Schedule, uniform_seq
 
 __all__ = ["pairs_cache_path", "load_pairs_cache", "precompute_pairs"]
 
@@ -104,7 +104,7 @@ def precompute_pairs(
     pairs = {k: np.concatenate(v)[:n_img] if v else np.zeros((0,)) for k, v in out.items()}
     _atomic_savez(base + ".npz", **pairs)
     if save_imgs_dir:
-        from asyrp_official_tpu.data.imageio import save_image
+        from asyrp_official_torch.data.imageio import save_image
 
         for i in range(pairs["x0"].shape[0]):
             for tag, key in (("0_orig", "x0"), (f"1_lat_ninv{n_inv_step}", "x_lat"),

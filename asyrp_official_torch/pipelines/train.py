@@ -1,0 +1,115 @@
+"""The Δ-training step — the port of the JAX package's `pipelines/train.py`
+(`default_loss`, `make_optimizer`, `steplr_lr`, `make_train_step`).
+
+Per batch, a Python loop over the generation table of `seq_train`. At
+every timestep:
+  * the plain DDIM reference step without grad (or the cached x0_t_origin);
+  * the edited forward, whose graph starts at the DeltaBlock (the UNet is
+    frozen and `decode_mode="split"` runs the encoder, the middle block and
+    the plain decode without grad), and the DDIM update with eta 0;
+  * the loss, `backward`, and one SGD step on the trainable block — the
+    optimizer steps at EVERY timestep, with the lr set per call;
+  * the carry is detached, so each step's gradient flows only through its
+    own x0_t.
+
+Both DDIM updates launch K3 on CUDA; the edited one goes through K3's
+`autograd.Function`, whose closed-form backward takes x0_t's gradient to
+eps_mod (eta 0).
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+
+from asyrp_official_torch.core.schedule import Schedule
+from asyrp_official_torch.core.steptable import generation_table
+from asyrp_official_torch.models.delta import EditState
+from asyrp_official_torch.models.registry import ModelSpec
+from asyrp_official_torch.ops import ddim_step as k3
+
+__all__ = ["default_loss", "make_optimizer", "steplr_lr", "make_train_step"]
+
+
+def default_loss(x0_t, x0_t_origin, x0, *, l1_w: float = 3.0, cosine: float = 1.0,
+                 extra: Optional[Callable] = None):
+    """l1_w · L1(x0_t, x0_t_origin) · cosine, plus `extra(x0, x0_t,
+    x0_t_origin)` (the CLIP term, already weighted)."""
+    loss = l1_w * (x0_t - x0_t_origin).abs().mean() * cosine
+    if extra is not None:
+        loss = loss + extra(x0, x0_t, x0_t_origin)
+    return loss
+
+
+def make_optimizer(params, lr: float) -> torch.optim.SGD:
+    """Plain SGD, weight decay 0; `make_train_step`'s step sets the lr of
+    each call (the StepLR value of the outer iteration, `steplr_lr`)."""
+    return torch.optim.SGD(params, lr=lr, weight_decay=0.0)
+
+
+def steplr_lr(base_lr: float, it_out: int, step_size: int, gamma: float) -> float:
+    return base_lr * (gamma ** (it_out // step_size))
+
+
+def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: int,
+                    loss_fn: Callable = default_loss, compute_dtype=torch.float32,
+                    ignore_timesteps: bool = False, cached_origin: bool = False):
+    """Returns fn(model, edit, optimizer, x_lat, x0, lr[, origins]) ->
+    {"loss_per_step": [n], "loss": scalar}, training `edit.blocks` in place.
+
+    With `cached_origin=True` the fn takes the x0_t_origin stack
+    ([n_steps, B, H, W, C], from `fn.compute_origins(model, x_lat)`)
+    instead of running the plain reference step: it depends only on the
+    frozen UNet and x_lat, so it holds for every outer iteration."""
+    table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps)
+    acp_ext = torch.from_numpy(schedule.alphas_cumprod_ext)
+
+    def coeffs(i: int, x):
+        b = x.shape[0]
+        at = acp_ext[int(table.t[i]) + 1].to(x.device).expand(b)
+        at_next = acp_ext[int(table.t_next[i]) + 1].to(x.device).expand(b)
+        return torch.full((b,), float(table.t[i]), device=x.device), at, at_next
+
+    @torch.no_grad()
+    def plain_origin_step(model, x_orig, i):
+        t_b, at, at_next = coeffs(i, x_orig)
+        eps = spec.apply(model, x_orig.to(compute_dtype), t_b)[0].float()
+        return k3.ddim_step(x_orig, eps, eps, at, at_next, 0.0)
+
+    @torch.no_grad()
+    def compute_origins(model, x_lat):
+        x_orig, origins = x_lat, []
+        for i in range(table.num_steps):
+            x_orig, x0_t_origin = plain_origin_step(model, x_orig, i)
+            origins.append(x0_t_origin)
+        return torch.stack(origins)
+
+    def train_step(model, edit: EditState, optimizer, x_lat, x0, lr: float,
+                   origins: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        if cached_origin and origins is None:
+            raise ValueError("cached_origin=True: pass the x0_t_origin stack (fn.compute_origins)")
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        x_edit = x_orig = x_lat
+        losses = []
+        for i in range(table.num_steps):
+            if cached_origin:
+                x0_t_origin = origins[i]
+            else:
+                x_orig, x0_t_origin = plain_origin_step(model, x_orig, i)
+            t_b, at, at_next = coeffs(i, x_edit)
+            e = edit.at_step({"use_delta": float(table.use_delta[i])})
+            eps, eps_mod, _, _ = spec.apply(model, x_edit.to(compute_dtype), t_b, edit=e,
+                                            decode_mode="split")
+            x_next, x0_t = k3.ddim_step(x_edit, eps.float(), eps_mod.float(), at, at_next, 0.0)
+            loss = loss_fn(x0_t, x0_t_origin, x0)
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            optimizer.step()
+            x_edit = x_next.detach()
+            losses.append(loss.detach())
+        per_step = torch.stack(losses)
+        return {"loss_per_step": per_step, "loss": per_step.mean()}
+
+    train_step.compute_origins = compute_origins
+    return train_step

@@ -1,0 +1,163 @@
+"""The port stands alone: it imports nothing of the JAX package.
+
+  * a subprocess imports every module of `asyrp_official_torch`, runs the
+    tiny `--run_train` recipe and then a tiny `--run_test` with the trained
+    block on `--device cpu`, and finds neither `jax` nor any
+    `asyrp_official_tpu` module in `sys.modules`;
+  * an AST scan finds no import of either in the port's sources or in
+    `chip_smoke.py`;
+  * the data files the port copied (configs, assets) are byte-identical to
+    the JAX package's, and the copied host functions (schedules, step
+    tables, hostrng draws, interval selection, checkpoint names, the CLI
+    parser's defaults) equal their originals on a few inputs.
+"""
+import ast
+import json
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "asyrp_official_torch"
+JAXPKG = REPO / "asyrp_official_tpu"
+
+# runs the recipes of argv[1] (a JSON list of argv lists) in a process that
+# imports every module of the port first
+RUN = r'''
+import importlib, json, pkgutil, sys
+import asyrp_official_torch
+from asyrp_official_torch.cli.main import main
+
+for m in pkgutil.walk_packages(asyrp_official_torch.__path__, "asyrp_official_torch."):
+    importlib.import_module(m.name)
+for argv in json.loads(sys.argv[1]):
+    assert main(argv) == 0, argv
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "asyrp_official_tpu")))
+assert not bad, bad
+print("PORT_STANDS_ALONE")
+'''
+
+
+def test_port_trains_and_serves_without_the_jax_package(tmp_path):
+    from asyrp_official_tpu.utils.tinyws import tiny_base_argv, write_tiny_workspace
+
+    cfg, imgs = write_tiny_workspace(str(tmp_path))
+    exp = str(tmp_path / "runs" / "exp")
+    train = tiny_base_argv(cfg, imgs, str(tmp_path), exp, extra=[
+        "--run_train", "--train_delta_block", "--do_test", "0", "--n_iter", "2",
+        "--save_train_image", "0", "--device", "cpu"])
+    serve = tiny_base_argv(cfg, imgs, str(tmp_path), exp, extra=[
+        "--run_test", "--train_delta_block", "--n_iter", "2", "--do_train", "0",
+        "--device", "cpu"])
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", RUN, json.dumps([train, serve])], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "PORT_STANDS_ALONE" in out.stdout
+    assert (tmp_path / "checkpoint" / "exp_LC_CUSTOM_t999_ninv4_ngen4_1.pth").exists()
+    grids = list((tmp_path / "runs").rglob("test_*.png"))
+    assert len(grids) == 1, grids
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+def test_no_source_of_the_port_imports_jax_or_the_jax_package():
+    sources = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(sources) > 30
+    bad = [(str(p.relative_to(REPO)), m) for p in sources for m in _imports(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "asyrp_official_tpu")]
+    assert not bad, bad
+
+
+COPIED_FILES = sorted(
+    [f"configs/{p.name}" for p in (JAXPKG / "configs").glob("*.yml")]
+    + ["assets/calibration_tables.npz", "assets/src_trg_prompts.json",
+       "assets/clip_templates.json"])
+
+
+@pytest.mark.parametrize("rel", COPIED_FILES)
+def test_copied_data_file_is_byte_identical(rel):
+    assert (PORT / rel).read_bytes() == (JAXPKG / rel).read_bytes(), rel
+
+
+def _pairs():
+    """(name, port callable, JAX callable) over a few inputs each."""
+    from asyrp_official_torch.cli import args as p_args
+    from asyrp_official_torch.compat import delta_ckpt as p_ckpt
+    from asyrp_official_torch.core import schedule as p_sched, steptable as p_tab
+    from asyrp_official_torch.pipelines import interval as p_int
+    from asyrp_official_torch.utils import assets as p_assets, hostrng as p_rng
+    from asyrp_official_tpu.cli import main as j_cli
+    from asyrp_official_tpu.compat import delta_ckpt as j_ckpt
+    from asyrp_official_tpu.core import schedule as j_sched, steptable as j_tab
+    from asyrp_official_tpu.pipelines import interval as j_int
+    from asyrp_official_tpu.utils import assets as j_assets, hostrng as j_rng
+
+    def sched(m):
+        s = m.make_schedule(num_timesteps=1000, beta_start=1e-4, beta_end=0.02,
+                            var_type="fixedsmall")
+        return [s.betas, s.alphas_cumprod, s.alphas_cumprod_ext, s.logvar]
+
+    def tables(m):
+        seq = [0, 250, 500, 750, 999]
+        out = []
+        for t in (m.inversion_table(seq), m.generation_table(seq, t_edit=500, t_addnoise=250)):
+            out += [t.t, t.t_next, t.eta, t.use_delta, t.delta_idx, t.edit_prefix_len()]
+        return out
+
+    def rng(m):
+        k = m.PRNGKey(7)
+        ks = m.split(k, 5)
+        return [ks, m.random_bits(ks[1], (3, 4)), m.uniform(ks[2], (16,), minval=-1.0, maxval=1.0)]
+
+    def interval(m, a):
+        return [m.select_interval("celeba", c, lpips_edit_th=0.33, lpips_addnoise_th=0.1)
+                for c in (1.0, 0.8)] + [
+            m.select_interval("church", 0.9, user_defined_t_edit=400),
+            m.select_interval("celeba", 1.0, add_noise_from_xt=True,
+                              curve_x=a.lpips_curve("celeba", "x"))]
+
+    def defaults(m):
+        return sorted(vars(m.build_parser().parse_args(["--config", "custom.yml"])).items())
+
+    return {
+        "uniform_seq": (lambda: [p_sched.uniform_seq(n, 999) for n in (4, 40, 1000)],
+                        lambda: [j_sched.uniform_seq(n, 999) for n in (4, 40, 1000)]),
+        "train_seq": (lambda: [p_sched.train_seq(n, 999, te) for n, te in ((40, 513), (0, 900))],
+                      lambda: [j_sched.train_seq(n, 999, te) for n, te in ((40, 513), (0, 900))]),
+        "make_schedule": (lambda: sched(p_sched), lambda: sched(j_sched)),
+        "step_tables": (lambda: tables(p_tab), lambda: tables(j_tab)),
+        "hostrng": (lambda: rng(p_rng), lambda: rng(j_rng)),
+        "select_interval": (lambda: interval(p_int, p_assets), lambda: interval(j_int, j_assets)),
+        "checkpoint_name": (lambda: [p_ckpt.checkpoint_name("e", "CUSTOM", 999, 40, 40, 1, x)
+                                     for x in (None, 3)],
+                            lambda: [j_ckpt.checkpoint_name("e", "CUSTOM", 999, 40, 40, 1, x)
+                                     for x in (None, 3)]),
+        "parser_defaults": (lambda: defaults(p_args), lambda: defaults(j_cli)),
+        "src_trg_prompts": (lambda: p_assets.src_trg_prompts()["smiling"],
+                            lambda: j_assets.src_trg_prompts()["smiling"]),
+    }
+
+
+@pytest.mark.parametrize("name", ["uniform_seq", "train_seq", "make_schedule", "step_tables",
+                                  "hostrng", "select_interval", "checkpoint_name",
+                                  "parser_defaults", "src_trg_prompts"])
+def test_copied_function_equals_the_original(name):
+    port, ref = _pairs()[name]
+    got, want = port(), ref()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, np.ndarray):
+            np.testing.assert_array_equal(np.asarray(g), w, err_msg=name)
+        else:
+            assert g == w, (name, g, w)

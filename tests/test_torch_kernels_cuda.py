@@ -5,11 +5,14 @@ no jax, so it also runs where jax is not installed:
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
 
 `python3 chip_smoke.py` runs the same comparison at every shape of the
-full-width serving path.
+full-width serving and training paths.
 
 Tolerances: max error relative to scale 1e-5 in float32 (K1, K2: sums in
 another order), 2e-2 in bfloat16 (one bf16 ulp is 2^-8), 1e-6 for the
-float32 DDIM step (elementwise, ulp-level differences only).
+float32 DDIM step (elementwise, ulp-level differences only). The backward
+kernels (K1-bwd, K2-bwd) against `torch.autograd.grad` through the plain
+forward: 1e-4 in float32, 5e-2 in bfloat16 (the gradient passes through
+more roundings of the I/O type).
 """
 import pytest
 import torch
@@ -79,3 +82,68 @@ def test_ddim_step_kernel_matches_plain(cuda_device, case):
                            ("x_next", "x0_t")):
         close_to_scale(w.cpu().numpy(), g_.cpu().numpy(), f"{case} {name}", bound=1e-6)
     assert k3.ddim_step.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(_DDIM_CASES))
+def test_ddim_step_autograd_launches_the_kernel(cuda_device, case):
+    """The edited training step's path: the kernel's forward, the
+    closed-form backward, against autograd through the plain version."""
+    at, at_next, eta, with_noise, dt_lambda, apply_dt = _DDIM_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x, eps, eps_mod, noise, g_xn, g_x0 = (
+        torch.randn(2, 256, 256, 3, generator=g, device=cuda_device) for _ in range(6))
+    coeffs = (torch.full((2,), at, device=cuda_device), torch.full((2,), at_next, device=cuda_device),
+              eta, noise if with_noise else None)
+    kw = dict(dt_lambda=dt_lambda,
+              apply_dt=None if apply_dt is None else torch.tensor(apply_dt, device=cuda_device))
+    ins = [t.clone().requires_grad_() for t in (x, eps, eps_mod)]
+    want = torch.autograd.grad(k3.ddim_step_plain(*ins, *coeffs, **kw), ins, (g_xn, g_x0))
+    n = k3.ddim_step.launches
+    got = torch.autograd.grad(k3.ddim_step(*ins, *coeffs, **kw), ins, (g_xn, g_x0))
+    assert k3.ddim_step.launches == n + 1
+    for w, g_, name in zip(want, got, ("dx", "deps", "deps_mod")):
+        if w.abs().max() == 0:
+            assert g_.abs().max() == 0, name
+        else:
+            close_to_scale(w.cpu().numpy(), g_.cpu().numpy(), f"{case} {name}", bound=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,train_weight", [((1, 128, 64, 64), False), ((2, 512, 8, 8), True),
+                                                ((1, 1024, 16, 16), False)])
+def test_group_norm_backward_kernel_matches_autograd(cuda_device, shape, train_weight, dtype,
+                                                     bound):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype).requires_grad_()
+    w = (1 + 0.1 * torch.randn(shape[1], generator=g, device=cuda_device)).requires_grad_(
+        train_weight)
+    b = (0.1 * torch.randn(shape[1], generator=g, device=cuda_device)).requires_grad_(train_weight)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    ins = (x, w, b) if train_weight else (x,)
+    n = k1.group_norm.bwd_launches
+    for silu in (False, True):
+        want = torch.autograd.grad(k1.group_norm_plain(x, w, b, silu=silu), ins, dy)
+        got = torch.autograd.grad(k1.group_norm(x, w, b, silu=silu), ins, dy)
+        for ww, gg in zip(want, got):
+            close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                           "group_norm backward kernel", bound=bound)
+    assert k1.group_norm.bwd_launches == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape", [(1, 256, 512), (2, 64, 512), (1, 100, 96)])
+def test_attention_backward_kernel_matches_autograd(cuda_device, shape, dtype, bound):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_()
+               for _ in range(3))
+    d_o = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    n = k2.attention.bwd_launches
+    want = torch.autograd.grad(k2.attention_plain(q, k, v), (q, k, v), d_o)
+    got = torch.autograd.grad(k2.attention(q, k, v), (q, k, v), d_o)
+    for ww, gg in zip(want, got):
+        close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                       "attention backward kernel", bound=bound)
+    assert k2.attention.bwd_launches == n + 1

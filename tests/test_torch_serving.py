@@ -105,7 +105,7 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--run_train"], ["--lpips"], ["--diff_style"],
+    ["--run_train", "--train_delta_h"], ["--lpips"], ["--diff_style"],
     ["--run_test", "--train_delta_h"], ["--run_test", "--train_delta_block", "--dp", "2"],
     ["--run_test", "--train_delta_block", "--delta_interpolation"],
 ])
