@@ -1,6 +1,6 @@
 """Δ checkpoint IO — the port's copy of the JAX package's
-`compat/delta_ckpt.py` (with `load_state_dict_numpy` and the DDPM-flavor
-`convert_delta_block` of its `compat/torch_convert.py`). Reads and writes
+`compat/delta_ckpt.py` (with `load_state_dict_numpy` and `convert_delta_block`
+of its `compat/torch_convert.py`), both DeltaBlock flavors. Reads and writes
 the reference `.pth` format with torch:
 
   * key "i" (str) → DeltaBlock state_dict, for i in range(get_h_num)
@@ -8,8 +8,9 @@ the reference `.pth` format with torch:
   * key "t" (str timestep) → Δh tensor [C, h, w] (`--train_delta_h`), and
   * optional "optimizer" / "scheduler" states.
 
-Blocks travel in the JAX layout ({"conv1": {"w": [I, O], "b"}, ...}) as in
-the JAX package, so the two packages read each other's checkpoints;
+Blocks travel in the JAX layout ({"conv1": {"w": [I, O], "b"}, ...}, or
+{"in_norm": ..., "in_conv": ...} for the OpenAI flavor) as in the JAX
+package, so the two packages read each other's checkpoints;
 `compat/from_jax.delta_block_state_dict_from_jax` turns one into a
 `DeltaBlock` state dict.
 """
@@ -29,9 +30,6 @@ __all__ = [
     "save_delta_checkpoint",
     "blocks_to_torch_sd",
 ]
-
-_OPENAI_TODO = "the OpenAI DeltaBlock flavor is not ported yet (ROADMAP.md Queue 1, M8)"
-
 
 def checkpoint_name(
     exp: str, category: str, t_0: int, n_inv: int, n_gen: int, it: int,
@@ -82,8 +80,9 @@ def _norm(sd, prefix):
 
 
 def convert_delta_block(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str, Any]:
-    """A DDPM-flavor DeltaBlock state dict (conv1 / temb_proj / norm2 /
-    conv2) → the JAX-layout block."""
+    """A DeltaBlock state dict → the JAX-layout block, the flavor read off
+    the keys: DDPM conv1 / temb_proj / norm2 / conv2, OpenAI in_layers.{0,2}
+    / emb_layers.1 / out_layers.{0,3}."""
     p = prefix + "." if prefix and not prefix.endswith(".") else prefix
     if f"{p}conv1.weight" in sd:
         return {
@@ -93,7 +92,13 @@ def convert_delta_block(sd: Dict[str, np.ndarray], prefix: str = "") -> Dict[str
             "conv2": _mat(sd, f"{p}conv2"),
         }
     if f"{p}in_layers.0.weight" in sd:
-        raise NotImplementedError(_OPENAI_TODO)
+        return {
+            "in_norm": _norm(sd, f"{p}in_layers.0"),
+            "in_conv": _mat(sd, f"{p}in_layers.2"),
+            "emb": _lin(sd, f"{p}emb_layers.1"),
+            "out_norm": _norm(sd, f"{p}out_layers.0"),
+            "out_conv": _mat(sd, f"{p}out_layers.3"),
+        }
     raise KeyError(f"no DeltaBlock found at prefix {prefix!r}; keys: {sorted(sd)[:8]}...")
 
 
@@ -126,23 +131,40 @@ def load_delta_checkpoint(path: str) -> Dict[str, Any]:
     return out
 
 
+def _inv_mat(p):
+    """[I, O] channel matrix → torch 1x1 conv [O, I, 1, 1]."""
+    return {"weight": np.asarray(p["w"]).T[:, :, None, None], "bias": np.asarray(p["b"])}
+
+
+def _inv_lin(p):
+    return {"weight": np.asarray(p["w"]).T, "bias": np.asarray(p["b"])}
+
+
+def _inv_norm(p):
+    return {"weight": np.asarray(p["scale"]), "bias": np.asarray(p["bias"])}
+
+
 def blocks_to_torch_sd(block, flavor: str) -> Dict[str, np.ndarray]:
     """A JAX-layout DeltaBlock → torch state dict (numpy values) with the
     reference's key names."""
-    if flavor == "openai":
-        raise NotImplementedError(_OPENAI_TODO)
-    if flavor != "ddpm":
+    if flavor == "ddpm":
+        groups = {
+            "conv1": _inv_mat(block["conv1"]),
+            "temb_proj": _inv_lin(block["temb_proj"]),
+            "norm2": _inv_norm(block["norm2"]),
+            "conv2": _inv_mat(block["conv2"]),
+        }
+    elif flavor == "openai":
+        # the reference DeltaBlock's 1x1 convs are Conv2d: [O, I, 1, 1] kernels
+        groups = {
+            "in_layers.0": _inv_norm(block["in_norm"]),
+            "in_layers.2": _inv_mat(block["in_conv"]),
+            "emb_layers.1": _inv_lin(block["emb"]),
+            "out_layers.0": _inv_norm(block["out_norm"]),
+            "out_layers.3": _inv_mat(block["out_conv"]),
+        }
+    else:
         raise ValueError(f"unknown flavor {flavor}")
-    groups = {
-        "conv1": {"weight": np.asarray(block["conv1"]["w"]).T[:, :, None, None],
-                  "bias": np.asarray(block["conv1"]["b"])},
-        "temb_proj": {"weight": np.asarray(block["temb_proj"]["w"]).T,
-                      "bias": np.asarray(block["temb_proj"]["b"])},
-        "norm2": {"weight": np.asarray(block["norm2"]["scale"]),
-                  "bias": np.asarray(block["norm2"]["bias"])},
-        "conv2": {"weight": np.asarray(block["conv2"]["w"]).T[:, :, None, None],
-                  "bias": np.asarray(block["conv2"]["b"])},
-    }
     return {f"{g}.{k}": v for g, kv in groups.items() for k, v in kv.items()}
 
 

@@ -1,9 +1,10 @@
 """JAX-layout param trees (numpy) → the port's state dicts.
 
 The exact inverse of `asyrp_official_tpu/compat/torch_convert.py`'s
-`_conv` / `_mat` / `_lin` / `_norm`:
-  conv kxk: HWIO → OIHW;  1x1 channel matrix [I, O] → [O, I, 1, 1];
-  linear: [I, O] → [O, I];  GroupNorm: scale/bias → weight/bias.
+`_conv` / `_mat` / `_mat1d` / `_lin` / `_norm`:
+  conv kxk: HWIO → OIHW;  1x1 channel matrix [I, O] → [O, I, 1, 1] (a 1-D
+  conv's [O, I, 1] for the OpenAI attention);  linear: [I, O] → [O, I];
+  GroupNorm: scale/bias → weight/bias.
 
 The same bridge loads Δ checkpoints, since
 `compat/delta_ckpt.load_delta_checkpoint` returns JAX-layout blocks, and it
@@ -18,7 +19,8 @@ import torch
 
 from asyrp_official_torch.compat.delta_ckpt import blocks_to_torch_sd
 
-__all__ = ["ddpmpp_state_dict_from_jax", "delta_block_state_dict_from_jax"]
+__all__ = ["ddpmpp_state_dict_from_jax", "openai_unet_state_dict_from_jax",
+           "delta_block_state_dict_from_jax"]
 
 
 def _conv(p, prefix, out):
@@ -28,6 +30,11 @@ def _conv(p, prefix, out):
 
 def _mat(p, prefix, out):
     out[f"{prefix}.weight"] = np.asarray(p["w"], np.float32).T[:, :, None, None]
+    out[f"{prefix}.bias"] = np.asarray(p["b"], np.float32)
+
+
+def _mat1d(p, prefix, out):
+    out[f"{prefix}.weight"] = np.asarray(p["w"], np.float32).T[:, :, None]
     out[f"{prefix}.bias"] = np.asarray(p["b"], np.float32)
 
 
@@ -84,6 +91,58 @@ def ddpmpp_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor
     return _tensors(out)
 
 
-def delta_block_state_dict_from_jax(block: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """A DDPM-flavor DeltaBlock tree (JAX layout) → `DeltaBlock` state dict."""
-    return _tensors({k: np.asarray(v, np.float32) for k, v in blocks_to_torch_sd(block, "ddpm").items()})
+def _openai_layer(kind: str, p, prefix, out):
+    if kind == "res":
+        _norm(p["in_norm"], f"{prefix}.in_layers.0", out)
+        _conv(p["in_conv"], f"{prefix}.in_layers.2", out)
+        _lin(p["emb"], f"{prefix}.emb_layers.1", out)
+        _norm(p["out_norm"], f"{prefix}.out_layers.0", out)
+        _conv(p["out_conv"], f"{prefix}.out_layers.3", out)
+        if "skip_mat" in p:
+            _mat(p["skip_mat"], f"{prefix}.skip_connection", out)
+    elif kind == "attn":
+        _norm(p["norm"], f"{prefix}.norm", out)
+        _mat1d(p["qkv"], f"{prefix}.qkv", out)
+        _mat1d(p["proj_out"], f"{prefix}.proj_out", out)
+    elif kind == "conv":
+        _conv(p, prefix, out)
+    elif kind == "downsample":
+        _conv(p, f"{prefix}.op", out)
+    elif kind == "upsample":
+        _conv(p, f"{prefix}.conv", out)
+    else:
+        raise ValueError(kind)
+
+
+def openai_unet_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX `openai_unet` params → `OpenAIUNet` state dict, walking the
+    config's plan (the inverse of `convert_openai_unet` followed by
+    `openai_unet.params_from_torch`)."""
+    from asyrp_official_torch.models.openai_unet import build_plan  # the model imports this module
+
+    plan = build_plan(cfg)
+    out: Dict[str, np.ndarray] = {}
+    _lin(params["time_embed"]["dense0"], "time_embed.0", out)
+    _lin(params["time_embed"]["dense1"], "time_embed.2", out)
+    if "label_emb" in params:
+        out["label_emb.weight"] = np.asarray(params["label_emb"]["w"], np.float32)
+    for stem in ("input", "output"):
+        blocks = params[f"{stem}_blocks"]
+        if len(blocks) != len(plan[stem]):
+            raise ValueError(f"{stem}: the plan has {len(plan[stem])} blocks, the params "
+                             f"{len(blocks)}")
+        for bi, (specs, ps) in enumerate(zip(plan[stem], blocks)):
+            for li, (spec, p) in enumerate(zip(specs, ps)):
+                _openai_layer(spec["kind"], p, f"{stem}_blocks.{bi}.{li}", out)
+    for li, (spec, p) in enumerate(zip(plan["middle"], params["middle_block"])):
+        _openai_layer(spec["kind"], p, f"middle_block.{li}", out)
+    _norm(params["out_norm"], "out.0", out)
+    _conv(params["out_conv"], "out.2", out)
+    return _tensors(out)
+
+
+def delta_block_state_dict_from_jax(block: Dict[str, Any], flavor: str = "ddpm"
+                                    ) -> Dict[str, torch.Tensor]:
+    """A DeltaBlock tree (JAX layout) → the flavor's DeltaBlock state dict."""
+    return _tensors({k: np.asarray(v, np.float32)
+                     for k, v in blocks_to_torch_sd(block, flavor).items()})

@@ -1,20 +1,31 @@
-// K2: single-head spatial self-attention, softmax(q k^T * scale) v, over
-// row-major [B, T, C] maps, f32 or bf16 I/O, forward and backward (K2-bwd).
+// K2: spatial self-attention, softmax(q k^T * scale) v per head, over
+// row-major [B, T, C] maps, f32 or bf16 I/O; forward with H heads (K2), and
+// the single-head backward (K2-bwd).
 //
-// Replaces: the JAX function `models/common.py` `spatial_attention`
-// (num_heads=1, scale C^-0.5 on the logits) and the gradient XLA derives for
-// it (formerly the Pallas kernel `ops/attention.py` `_attn_kernel` and its
-// `jax.custom_vjp`, deleted in 4b63bc3).
+// Replaces: the JAX function `models/common.py` `spatial_attention` (formerly
+// the Pallas kernel `ops/attention.py` `_attn_kernel` and its
+// `jax.custom_vjp`, deleted in 4b63bc3): the DDPM++ flavor (num_heads=1,
+// scale C^-0.5 on the logits) and its gradient, and the OpenAI flavor
+// (num_heads=H, `legacy_scale`: d^-0.25 on q and on k, d = C / H).
 //
-// Forward math (same as the reference): logits in f32 (products of the I/O
-// type, f32 sums), times `scale`, softmax in f32 (exp(s - max) / sum), the
-// weights cast to the I/O type, then weights x v with f32 sums and one cast
-// back. With `lse` set, the forward also writes each row's log-sum-exp
-// max + log(sum) (f32, [B, T]) for the backward.
+// Heads: head h owns channels [h*d, (h+1)*d) of every row (the JAX layout),
+// and the output keeps that layout. A block reads its head's d columns with
+// row stride C (`ld`).
 //
-// Shapes on the DDPM++ path: T = 256 (16^2 levels) or 64 (mid block), C = 512.
-// One block owns BM = 16 query rows of one sample, 256 threads:
-//   1. the [BM, C] query tile goes to shared memory as f32;
+// Forward math (same as the reference): with `pre` != 1 (legacy_scale) q*pre
+// and k*pre are formed in f32 and rounded to the I/O type before the
+// product, as the JAX `q * scale` on a bf16 q rounds; logits in f32
+// (products of the I/O type, f32 sums), times `scale` (1 with legacy_scale),
+// softmax in f32 (exp(s - max) / sum), the weights cast to the I/O type,
+// then weights x v with f32 sums and one cast back. With `lse` set, the
+// forward also writes each row's log-sum-exp max + log(sum) (f32,
+// [B, H, T]) for the backward.
+//
+// Shapes: DDPM++ T = 256 (16^2 levels) or 64 (mid block), C = 512, one head;
+// the OpenAI UNets (AFHQ/FFHQ) the same T with C = 512 as 8 heads of d = 64,
+// and T = 1024 for IMAGENET's 32^2 level.
+// One block owns BM = 16 query rows of one (sample, head), 256 threads:
+//   1. the [BM, d] query tile goes to shared memory as f32;
 //   2. for each tile of BN = 64 keys, the key tile is staged through shared
 //      memory in BK = 64-channel chunks; each thread keeps 4 logits in
 //      registers, and the tile's logits land in a [BM, T] f32 row buffer;
@@ -22,15 +33,17 @@
 //      most a few thousand, so the row fits in shared memory and no online
 //      rescaling is needed);
 //   4. weights x v: each thread owns one column per 256-column pass and BM
-//      f32 accumulators; v is read straight from device memory, coalesced.
-// Bound: at T = 256, C = 512 a block does 2 * 16 * 256 * 512 FMAs from shared
-// memory and reads all of k and v (through L2): this simple version is bound
-// by shared-memory and L2 bandwidth, not by the tensor cores, which it does
-// not use. Dynamic shared memory: (BM*C + BN*(BK+1) + BM*T) * 4 bytes,
-// 65.8 KB at T = 256, C = 512.
+//      f32 accumulators; v is read straight from device memory, coalesced
+//      (at d = 64 a quarter of the threads do this pass).
+// Bound: at T = 256, C = 512 the call does 2 * T * T * C FMAs from shared
+// memory and reads k and v once per query tile (through L2): this simple
+// version is bound by shared-memory and L2 bandwidth, not by the tensor
+// cores, which it does not use. Dynamic shared memory: (BM*d + BN*(BK+1) +
+// BM*T) * 4 bytes, 65.8 KB at T = 256, d = 512; 36.9 KB at T = 256, d = 64;
+// 86.3 KB at T = 1024, d = 64.
 //
-// Backward (FlashAttention-2 style, from the saved lse; S = q k^T * scale,
-// P = exp(S - lse), D = rowsum(dO o O)):
+// Backward (one head; FlashAttention-2 style, from the saved lse;
+// S = q k^T * scale, P = exp(S - lse), D = rowsum(dO o O)):
 //   `attn_bwd_d`:  D, one warp per query row;
 //   `attn_bwd_dq`: one block per BM query rows recomputes S and dP = dO v^T
 //     for all keys (the same tile loop as the forward, two products at
@@ -68,25 +81,28 @@ __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-// rows [r0, r0 + BM) of the [t_len, ch] matrix at `src` → f32 smem tile
-// [BM][ch], zero past the last row
+// rows [r0, r0 + BM) of the [t_len, ch] matrix at `src` (row stride ld),
+// times `pre` rounded to the I/O type → f32 smem tile [BM][ch], zero past the
+// last row
 template <typename T>
-__device__ void load_tile(float* dst, const T* src, int r0, int rows, int ch) {
+__device__ void load_tile(float* dst, const T* src, int r0, int rows, int ch, int ld,
+                          float pre) {
   for (int i = threadIdx.x; i < BM * ch; i += kThreads) {
     const int r = i / ch, c = i % ch;
-    dst[i] = r < rows ? load_f(src, (int64_t)(r0 + r) * ch + c) : 0.f;
+    dst[i] = r < rows ? round_to(load_f(src, (int64_t)(r0 + r) * ld + c) * pre, src) : 0.f;
   }
 }
 
-// For the BN rows j0.. of the [t_len, ch] matrices X and Y: each thread
-// (row my_r = tid / 16 of the smem tiles A and B, rows j0 + my_j + 16 m of X
-// and Y) accumulates acc_a[m] = A[my_r] . X[j] and acc_b[m] = B[my_r] . Y[j],
-// staging X and Y through shared memory in BK-channel chunks. B and Y may be
+// For the BN rows j0.. of the [t_len, ch] matrices X and Y (row stride ld):
+// each thread (row my_r = tid / 16 of the smem tiles A and B, rows
+// j0 + my_j + 16 m of X and Y) accumulates acc_a[m] = A[my_r] . X[j] and
+// acc_b[m] = B[my_r] . Y[j], staging X (times `pre_x`, rounded to the I/O
+// type) and Y through shared memory in BK-channel chunks. B and Y may be
 // null (one product only).
 template <typename T>
 __device__ void tile_dots(const float* a_s, const float* b_s, const T* X, const T* Y, int j0,
-                          int t_len, int ch, float* xs, float* ys, float acc_a[4],
-                          float acc_b[4]) {
+                          int t_len, int ch, int ld, float pre_x, float* xs, float* ys,
+                          float acc_a[4], float acc_b[4]) {
   const int tid = threadIdx.x;
   const int my_r = tid / 16, my_j = tid % 16;
 #pragma unroll
@@ -97,8 +113,8 @@ __device__ void tile_dots(const float* a_s, const float* b_s, const T* X, const 
       const int jj = i / BK, cc = i % BK;
       const int j = j0 + jj, c = c0 + cc;
       const bool in = j < t_len && c < ch;
-      xs[jj * (BK + 1) + cc] = in ? load_f(X, (int64_t)j * ch + c) : 0.f;
-      if (Y != nullptr) ys[jj * (BK + 1) + cc] = in ? load_f(Y, (int64_t)j * ch + c) : 0.f;
+      xs[jj * (BK + 1) + cc] = in ? round_to(load_f(X, (int64_t)j * ld + c) * pre_x, X) : 0.f;
+      if (Y != nullptr) ys[jj * (BK + 1) + cc] = in ? load_f(Y, (int64_t)j * ld + c) : 0.f;
     }
     __syncthreads();
     const int cmax = min(BK, ch - c0);
@@ -123,26 +139,30 @@ __device__ void tile_dots(const float* a_s, const float* b_s, const T* X, const 
   }
 }
 
+// grid = (ceil(T / BM), B * H); blockIdx.y = b * H + h; d = ch, ld = H * d
 template <typename T>
 __global__ void attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                            int t_len, int ch, float scale) {
+                            int t_len, int ch, int heads, float scale, float pre) {
   extern __shared__ float smem[];
   float* qs = smem;                  // [BM][ch]
   float* ks = qs + BM * ch;          // [BN][BK + 1]
   float* ss = ks + BN * (BK + 1);    // [BM][t_len]
 
   const int tid = threadIdx.x;
-  const int64_t base = (int64_t)blockIdx.y * t_len * ch;
+  const int ld = heads * ch;
+  const int64_t b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int64_t base = b * t_len * ld + h * ch;
   const int r0 = blockIdx.x * BM;
   const int rows = min(BM, t_len - r0);
-  load_tile(qs, q + base, r0, rows, ch);
+  load_tile(qs, q + base, r0, rows, ch, ld, pre);
 
   // 2. logits
   const int my_r = tid / 16, my_j = tid % 16;
   for (int j0 = 0; j0 < t_len; j0 += BN) {
     float acc[4], unused[4];
-    tile_dots<T>(qs, nullptr, k + base, nullptr, j0, t_len, ch, ks, nullptr, acc, unused);
+    tile_dots<T>(qs, nullptr, k + base, nullptr, j0, t_len, ch, ld, pre, ks, nullptr, acc,
+                 unused);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int j = j0 + my_j + 16 * m;
@@ -180,11 +200,11 @@ __global__ void attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < BM; ++r) acc[r] = 0.f;
     for (int j = 0; j < t_len; ++j) {
-      const float vv = load_f(v, base + (int64_t)j * ch + c);
+      const float vv = load_f(v, base + (int64_t)j * ld + c);
 #pragma unroll
       for (int r = 0; r < BM; ++r) acc[r] += ss[r * t_len + j] * vv;
     }
-    for (int r = 0; r < rows; ++r) store_f(o, base + (int64_t)(r0 + r) * ch + c, acc[r]);
+    for (int r = 0; r < rows; ++r) store_f(o, base + (int64_t)(r0 + r) * ld + c, acc[r]);
   }
 }
 
@@ -219,8 +239,8 @@ __global__ void attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t base = bt * ch;
   const int r0 = blockIdx.x * BM;
   const int rows = min(BM, t_len - r0);
-  load_tile(qs, q + base, r0, rows, ch);
-  load_tile(dos, d_o + base, r0, rows, ch);
+  load_tile(qs, q + base, r0, rows, ch, ch, 1.f);
+  load_tile(dos, d_o + base, r0, rows, ch, ch, 1.f);
 
   const int my_r = tid / 16, my_j = tid % 16;
   const bool live = my_r < rows;
@@ -228,7 +248,7 @@ __global__ void attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const float d_i = live ? dd[bt + r0 + my_r] : 0.f;
   for (int j0 = 0; j0 < t_len; j0 += BN) {
     float acc_s[4], acc_dp[4];
-    tile_dots<T>(qs, dos, k + base, v + base, j0, t_len, ch, ks, vs, acc_s, acc_dp);
+    tile_dots<T>(qs, dos, k + base, v + base, j0, t_len, ch, ch, 1.f, ks, vs, acc_s, acc_dp);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int j = j0 + my_j + 16 * m;
@@ -272,14 +292,15 @@ __global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t base = bt * ch;
   const int r0 = blockIdx.x * BM;
   const int rows = min(BM, t_len - r0);
-  load_tile(kts, k + base, r0, rows, ch);
-  load_tile(vts, v + base, r0, rows, ch);
+  load_tile(kts, k + base, r0, rows, ch, ch, 1.f);
+  load_tile(vts, v + base, r0, rows, ch, ch, 1.f);
 
   const int my_r = tid / 16, my_j = tid % 16;
   const bool live = my_r < rows;
   for (int i0 = 0; i0 < t_len; i0 += BN) {
     float acc_s[4], acc_dp[4];  // S[i, key] and dP[i, key] for queries i = i0 + my_j + 16 m
-    tile_dots<T>(kts, vts, q + base, d_o + base, i0, t_len, ch, qs, dos, acc_s, acc_dp);
+    tile_dots<T>(kts, vts, q + base, d_o + base, i0, t_len, ch, ch, 1.f, qs, dos, acc_s,
+                 acc_dp);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int i = i0 + my_j + 16 * m;
@@ -313,15 +334,17 @@ __global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int t_len,
-           int ch, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)BM * ch + (size_t)BN * (BK + 1) + (size_t)BM * t_len);
+           int ch, int heads, float scale, float pre, cudaStream_t stream) {
+  if (heads < 1 || ch % heads != 0) return (int)cudaErrorInvalidValue;
+  const int d = ch / heads;
+  const size_t smem = sizeof(float) * ((size_t)BM * d + (size_t)BN * (BK + 1) + (size_t)BM * t_len);
   cudaError_t err = cudaFuncSetAttribute(attn_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t_len + BM - 1) / BM, batch);
+  const dim3 grid((t_len + BM - 1) / BM, batch * heads);
   attn_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), t_len, ch, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), t_len, d, heads, scale, pre);
   return (int)cudaGetLastError();
 }
 
@@ -360,14 +383,18 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, o are contiguous [batch, t_len, ch];
-// lse is a float32 [batch, t_len] output, or null.
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o are contiguous [batch, t_len, ch],
+// ch = heads * d with head h in channels [h*d, (h+1)*d); lse is a float32
+// [batch, heads, t_len] output, or null. `scale` multiplies the logits and
+// `pre` q and k (rounded to the I/O type): scale = d^-0.5, pre = 1 for the
+// DDPM++ flavor; scale = 1, pre = d^-0.25 for `legacy_scale`.
 extern "C" int asyrp_attention(const void* q, const void* k, const void* v, void* o, void* lse,
-                               int batch, int t_len, int ch, float scale, int dtype,
-                               void* stream) {
+                               int batch, int t_len, int ch, int heads, float scale, float pre,
+                               int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, lse, batch, t_len, ch, scale, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(q, k, v, o, lse, batch, t_len, ch, scale, s);
+  if (dtype == 0) return launch<float>(q, k, v, o, lse, batch, t_len, ch, heads, scale, pre, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, o, lse, batch, t_len, ch, heads, scale, pre, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,28 +1,28 @@
 """Datasets — the port's copy of the readers of the JAX package's
-`data/datasets.py` that the DDPM++ family reaches (PIL + numpy, NHWC
-float32 images in [-1, 1]):
+`data/datasets.py` (PIL + numpy, NHWC float32 images in [-1, 1]):
 
   * ImageFolderDataset — a folder of images in directory-listing order,
-    resized to (S, S) bilinear (the CUSTOM category);
+    resized to (S, S) bilinear (the CUSTOM category; FFHQ and MetFACE, the
+    last 500 files their test split);
+  * AFHQDataset — `{root}/{mode}/dog/*.png`;
   * CelebAHQLMDB / LSUNLMDB — stylegan2-layout LMDB readers (need the
     `lmdb` package);
   * CelebADialogDataset — paired images by attribute intensity.
 
-The OpenAI-family datasets (AFHQ, FFHQ, MetFACE, IMAGENET) are not ported
-yet and raise NotImplementedError.
+IMAGENET is not ported yet and raises NotImplementedError.
 """
 from __future__ import annotations
 
 import os
+from glob import glob
 from io import BytesIO
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 from PIL import Image
 
-__all__ = ["ImageFolderDataset", "CelebAHQLMDB", "LSUNLMDB", "CelebADialogDataset", "get_dataset"]
-
-_OPENAI_TODO = "datasets of the OpenAI-family UNets are not ported yet (ROADMAP.md Queue 1, M8)"
+__all__ = ["ImageFolderDataset", "AFHQDataset", "CelebAHQLMDB", "LSUNLMDB", "CelebADialogDataset",
+           "get_dataset"]
 
 
 def _to_pm1(img: Image.Image) -> np.ndarray:
@@ -47,6 +47,20 @@ class ImageFolderDataset:
         img = Image.open(os.path.join(self.img_dir, self.files[idx]))
         # torchvision Resize((S, S)) is bilinear
         img = img.convert("RGB").resize((self.image_size, self.image_size), self.resample)
+        return _to_pm1(img)
+
+
+class AFHQDataset:
+    def __init__(self, root: str, mode: str = "train", animal_class: str = "dog",
+                 image_size: int = 256):
+        self.paths = glob(os.path.join(root, mode, animal_class, "*.png"))
+        self.image_size = image_size
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, idx) -> np.ndarray:
+        img = Image.open(self.paths[idx]).resize((self.image_size, self.image_size))
         return _to_pm1(img)
 
 
@@ -168,6 +182,10 @@ def get_dataset(dataset_type: str, dataset_paths: Dict[str, str], *, category: s
     if category == "CUSTOM":
         return (ImageFolderDataset(dataset_paths["custom_train"], image_size),
                 ImageFolderDataset(dataset_paths["custom_test"], image_size))
+    if dataset_type == "AFHQ":
+        root = dataset_paths["AFHQ"]
+        return (AFHQDataset(root, "train", "dog", image_size),
+                AFHQDataset(root, "test", "dog", image_size))
     if dataset_type == "LSUN":
         root = dataset_paths["LSUN"]
         return (LSUNLMDB(os.path.join(root, f"{category}_train_lmdb"), image_size),
@@ -181,6 +199,13 @@ def get_dataset(dataset_type: str, dataset_paths: Dict[str, str], *, category: s
         val = os.path.exists(os.path.join(root, "val_attr_list.txt"))
         return (CelebADialogDataset(root, train=True, image_size=image_size),
                 CelebADialogDataset(root, train=False, image_size=image_size) if val else None)
-    if dataset_type in ("AFHQ", "IMAGENET", "MetFACE", "FFHQ"):
-        raise NotImplementedError(f"{dataset_type}: {_OPENAI_TODO}")
+    if dataset_type == "IMAGENET":
+        raise NotImplementedError("IMAGENET: its dataset reader is not ported yet (ROADMAP.md "
+                                  "Queue 1, M8)")
+    if dataset_type in ("MetFACE", "FFHQ"):
+        d = dataset_paths[dataset_type]
+        if dataset_type == "MetFACE":
+            d = os.path.join(d, "images")
+        return (ImageFolderDataset(d, image_size, test_nums=500, train=True),
+                ImageFolderDataset(d, image_size, test_nums=500, train=False))
     raise ValueError(f"unknown dataset type {dataset_type}")

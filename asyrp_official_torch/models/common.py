@@ -1,6 +1,6 @@
-"""NCHW primitives of the DDPM++ UNet — the port of the JAX
-`models/common.py` layers (`conv2d`, `mat1x1`, `linear`, the DDPM++ timestep
-embedding, nearest 2x upsample, the right/bottom-padded downsample conv and
+"""NCHW primitives of the UNets — the port of the JAX `models/common.py`
+layers (`conv2d`, `mat1x1`, `linear`, the DDPM++ and OpenAI timestep
+embeddings, nearest 2x upsample, the right/bottom-padded downsample conv and
 2x2 average pool).
 
 Weights are held in the reference's torch layouts (OIHW convs, [out, in]
@@ -24,6 +24,7 @@ __all__ = [
     "linear",
     "mat1x1",
     "timestep_embedding_ddpm",
+    "timestep_embedding_openai",
     "upsample_nearest_2x",
     "downsample_pad_conv",
     "avg_pool_2x",
@@ -70,6 +71,18 @@ def timestep_embedding_ddpm(t, dim: int):
     freqs = torch.exp(torch.arange(half, dtype=torch.float32, device=t.device) * -emb)
     args = t.float()[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(args), torch.cos(args)], dim=1)
+    if dim % 2 == 1:
+        emb = F.pad(emb, (0, 1))
+    return emb
+
+
+def timestep_embedding_openai(t, dim: int, max_period: int = 10000):
+    """OpenAI (iDDPM/ADM) embedding: exponent /half, concat(cos, sin)."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_period)
+                      * torch.arange(half, dtype=torch.float32, device=t.device) / half)
+    args = t.float()[:, None] * freqs[None, :]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb

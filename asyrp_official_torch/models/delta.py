@@ -1,8 +1,9 @@
-"""DeltaBlock (DDPM++ flavor), `EditState` and `apply_edit` — the port of
-the JAX `models/delta.py` for the `deltablock` edit mode.
+"""DeltaBlocks (DDPM++ and OpenAI flavors), `EditState` and `apply_edit` —
+the port of the JAX `models/delta.py` for the `deltablock` edit mode.
 
-The DeltaBlock keeps the reference's key names (conv1 / temb_proj / norm2 /
-conv2), so a released Δ `.pth` block loads with `load_state_dict`. Its
+Each DeltaBlock keeps the reference's key names (DDPM++: conv1 / temb_proj /
+norm2 / conv2; OpenAI: in_layers.{0,2} / emb_layers.1 / out_layers.{0,3}),
+so a released Δ `.pth` block loads with `load_state_dict`. Its
 GroupNorm+SiLU is kernel K1.
 """
 from __future__ import annotations
@@ -20,9 +21,10 @@ from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
 from asyrp_official_torch.utils import hostrng
 
-__all__ = ["DeltaBlock", "EditState", "apply_edit", "delta_block_init", "init_delta_blocks"]
+__all__ = ["DeltaBlock", "OpenAIDeltaBlock", "EditState", "apply_edit", "delta_block_init",
+           "delta_block_from_tree", "init_delta_blocks"]
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, M2/M8)"
+_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, M2)"
 
 
 class DeltaBlock(nn.Module):
@@ -43,33 +45,69 @@ class DeltaBlock(nn.Module):
         return cm.mat1x1(self.conv2, self.norm2(h, silu=True))
 
 
+class OpenAIDeltaBlock(nn.Module):
+    """GN32+SiLU → 1x1 → (+ emb) → GN32+SiLU → 1x1 on the bottleneck h (JAX
+    `delta_block_apply`, flavor 'openai'; the reference's ResBlock layout
+    without scale-shift). The parameterless slots keep the reference's key
+    indices."""
+
+    def __init__(self, ch: int, temb_ch: int):
+        super().__init__()
+        self.in_layers = nn.ModuleList([cm.GroupNorm(ch, eps=1e-5), nn.Identity(),
+                                        nn.Conv2d(ch, ch, 1)])
+        self.emb_layers = nn.ModuleList([nn.Identity(), nn.Linear(temb_ch, ch)])
+        self.out_layers = nn.ModuleList([cm.GroupNorm(ch, eps=1e-5), nn.Identity(),
+                                         nn.Identity(), nn.Conv2d(ch, ch, 1)])
+
+    def forward(self, x, temb=None):
+        h = cm.mat1x1(self.in_layers[2], self.in_layers[0](x, silu=True))
+        if temb is not None:
+            h = h + cm.linear(self.emb_layers[1], F.silu(temb))[:, :, None, None]
+        return cm.mat1x1(self.out_layers[3], self.out_layers[0](h, silu=True))
+
+
+_BLOCKS = {"ddpm": DeltaBlock, "openai": OpenAIDeltaBlock}
+
+
 def delta_block_init(key: np.ndarray, ch: int, temb_ch: int, *, flavor: str = "ddpm") -> Dict[str, Any]:
     """The JAX `delta_block_init` tree (JAX layout) for a numpy key."""
-    if flavor != "ddpm":
-        raise NotImplementedError(f"the {flavor!r} DeltaBlock flavor {_NOT_PORTED}")
     ks = hostrng.split(key, 4)
-    return {
-        "conv1": hostinit.linear_init(ks[0], ch, ch),
-        "temb_proj": hostinit.linear_init(ks[1], temb_ch, ch),
-        "norm2": hostinit.norm_init(ch),
-        "conv2": hostinit.linear_init(ks[2], ch, ch),
-    }
+    if flavor == "ddpm":
+        return {
+            "conv1": hostinit.linear_init(ks[0], ch, ch),
+            "temb_proj": hostinit.linear_init(ks[1], temb_ch, ch),
+            "norm2": hostinit.norm_init(ch),
+            "conv2": hostinit.linear_init(ks[2], ch, ch),
+        }
+    if flavor == "openai":
+        return {
+            "in_norm": hostinit.norm_init(ch),
+            "in_conv": hostinit.linear_init(ks[0], ch, ch),
+            "emb": hostinit.linear_init(ks[1], temb_ch, ch),
+            "out_norm": hostinit.norm_init(ch),
+            "out_conv": hostinit.linear_init(ks[2], ch, ch),
+        }
+    raise ValueError(f"unknown DeltaBlock flavor: {flavor}")
+
+
+def delta_block_from_tree(tree: Dict[str, Any], ch: int, temb_ch: int, *,
+                          flavor: str = "ddpm") -> nn.Module:
+    """A JAX-layout block tree → the flavor's DeltaBlock module."""
+    block = _BLOCKS[flavor](ch, temb_ch)
+    block.load_state_dict(delta_block_state_dict_from_jax(tree, flavor))
+    return block
 
 
 def init_delta_blocks(seed: int, n: int, ch: int, temb_ch: int, *,
-                      flavor: str = "ddpm") -> Tuple[DeltaBlock, ...]:
+                      flavor: str = "ddpm") -> Tuple[nn.Module, ...]:
     """`n` DeltaBlocks, block i drawn from `hostrng.PRNGKey(seed + i)`: the
     same weights, bit for bit, as the JAX runner's `delta_block_init` for
     `--train_delta_block --get_h_num n`."""
     if n < 1:
         raise ValueError(f"need at least one DeltaBlock, got {n} (--get_h_num)")
-    blocks = []
-    for i in range(n):
-        block = DeltaBlock(ch, temb_ch)
-        block.load_state_dict(delta_block_state_dict_from_jax(
-            delta_block_init(hostrng.PRNGKey(seed + i), ch, temb_ch, flavor=flavor)))
-        blocks.append(block)
-    return tuple(blocks)
+    return tuple(delta_block_from_tree(delta_block_init(hostrng.PRNGKey(seed + i), ch, temb_ch,
+                                                        flavor=flavor), ch, temb_ch, flavor=flavor)
+                 for i in range(n))
 
 
 @dataclasses.dataclass
@@ -78,7 +116,7 @@ class EditState:
     per-sample [B, k+1]; hs_coeff[0] scales the original h), and the per-step
     gate `use_delta` (1.0 where t >= t_edit)."""
 
-    blocks: Tuple[DeltaBlock, ...] = ()
+    blocks: Tuple[nn.Module, ...] = ()
     hs_coeff: Optional[torch.Tensor] = None
     use_delta: float = 1.0
     mode: str = "deltablock"
@@ -94,8 +132,6 @@ def apply_edit(edit: EditState, h, temb):
     `edit.use_delta`. h is NCHW."""
     if edit.mode != "deltablock":
         raise NotImplementedError(f"edit mode {edit.mode!r} {_NOT_PORTED}")
-    if edit.flavor != "ddpm":
-        raise NotImplementedError(f"the {edit.flavor!r} DeltaBlock flavor {_NOT_PORTED}")
     hs_coeff = edit.hs_coeff
     if hs_coeff is None:
         hs_coeff = torch.ones(len(edit.blocks) + 1)

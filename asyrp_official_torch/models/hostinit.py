@@ -21,7 +21,11 @@ def _kaiming_uniform(key, shape, fan_in, a=math.sqrt(5)):
     return hostrng.uniform(key, shape, np.float32, -bound, bound)
 
 
-def conv_init(key, kh, kw, cin, cout):
+def conv_init(key, kh, kw, cin, cout, zero=False):
+    """HWIO conv params; all zeros with `zero` (the OpenAI UNets'
+    `zero_module` leaves), drawing nothing."""
+    if zero:
+        return {"w": np.zeros((kh, kw, cin, cout), np.float32), "b": np.zeros((cout,), np.float32)}
     kw_, kb_ = hostrng.split(key)
     fan_in = cin * kh * kw
     bound = 1.0 / math.sqrt(fan_in)
@@ -31,7 +35,9 @@ def conv_init(key, kh, kw, cin, cout):
     }
 
 
-def linear_init(key, cin, cout):
+def linear_init(key, cin, cout, zero=False):
+    if zero:
+        return {"w": np.zeros((cin, cout), np.float32), "b": np.zeros((cout,), np.float32)}
     kw_, kb_ = hostrng.split(key)
     bound = 1.0 / math.sqrt(cin)
     return {

@@ -2,11 +2,15 @@
 
   K1 `groupnorm.group_norm`  — GroupNorm(+SiLU), CUDA C++ (`csrc/groupnorm.cu`);
                                its backward K1-bwd in the same source
-  K2 `attention.attention`   — single-head spatial attention, CUDA C++
-                               (`csrc/attention.cu`); its backward K2-bwd there too
+  K2 `attention.attention`   — spatial attention, one head (DDPM++) or several
+                               with the legacy q/k scale (OpenAI UNets), CUDA C++
+                               (`csrc/attention.cu`); its single-head backward
+                               K2-bwd there too
   K3 `ddim_step.ddim_step`   — the asymmetric DDIM update, Triton
+  `ddpm_step.ddpm_step`      — the DDPM ancestral update (`--sample_type ddpm`),
+                               Triton
 
 A wrapper takes its plain version for a CPU tensor and launches its kernel
 for a CUDA tensor; its `launches` attribute (and `bwd_launches` for K1 and
-K2) counts kernel launches.
+K2, `mh_launches` for K2 with several heads) counts kernel launches.
 """

@@ -16,6 +16,10 @@ reads and two writes per element, a few dozen FLOPs); there is no reuse, so
 shared memory, wgmma and TMA have nothing to offer and Triton's block model
 covers it.
 
+eps and eps_mod may be strided views: the first C channels of a `learn_sigma`
+model's [B, H, W, 2C] output (`core/sampler.py` splits it on the last axis).
+The kernel reads them in place, row by row (`row_stride`), in its one pass.
+
 `ddim_step` dispatches on the tensor's device: a CPU tensor takes
 `ddim_step_plain`, a CUDA tensor launches the Triton kernel (and bumps
 `ddim_step.launches`), anything else raises. Triton is imported, and the
@@ -40,7 +44,7 @@ import torch
 
 from asyrp_official_torch.ops import _build
 
-__all__ = ["ddim_step", "ddim_step_plain", "ddim_step_backward"]
+__all__ = ["ddim_step", "ddim_step_plain", "ddim_step_backward", "row_stride"]
 
 _BLOCK = 1024
 
@@ -49,6 +53,29 @@ def _per_sample(v, b: int, device) -> torch.Tensor:
     """Scalar or [B] → f32 [B] on `device`."""
     t = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
     return t.expand(b) if t.numel() == 1 else t
+
+
+def row_stride(t: torch.Tensor) -> int:
+    """The stride between rows of `t` read as rows of its last axis: the
+    last axis contiguous, one row per index of the leading axes, evenly
+    spaced. A contiguous tensor's is its last axis' size; the first C
+    channels of a contiguous [..., 2C] tensor give 2C. Raises for any other
+    layout."""
+    if t.dim() < 2 or (t.stride(-1) != 1 and t.shape[-1] > 1):
+        raise ValueError(f"need a last axis of unit stride, got strides {t.stride()}")
+    row, n_rows = None, 1  # n_rows: rows spanned by the axes inside the current one
+    for d in reversed(range(t.dim() - 1)):
+        if t.shape[d] != 1:
+            if row is None:
+                row = t.stride(d)
+            elif t.stride(d) != row * n_rows:
+                raise ValueError(f"rows of {tuple(t.shape)} with strides {t.stride()} are not "
+                                 "evenly spaced")
+        n_rows *= t.shape[d]
+    row = t.shape[-1] if row is None else row
+    if row < t.shape[-1]:
+        raise ValueError(f"rows of {tuple(t.shape)} with strides {t.stride()} overlap")
+    return row
 
 
 def ddim_step_plain(x, eps, eps_mod, at, at_next, eta, noise=None, *,
@@ -89,17 +116,19 @@ def _kernel():
 
     @triton.jit
     def ddim_kernel(x_ptr, eps_ptr, epsm_ptr, noise_ptr, at_ptr, atn_ptr, eta_ptr, dt_ptr,
-                    xn_ptr, x0_ptr, n_elem, per_sample, dt_lambda,
+                    xn_ptr, x0_ptr, n_elem, per_sample, inner, eps_row, epsm_row, dt_lambda,
                     HAS_NOISE: tl.constexpr, HAS_DT: tl.constexpr, BLOCK: tl.constexpr):
         offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
         mask = offs < n_elem
         s = offs // per_sample
+        row = offs // inner  # eps / eps_mod: row `row`, column offs - row * inner
+        col = offs - row * inner
         a = tl.load(at_ptr + s, mask=mask, other=0.5)
         an = tl.load(atn_ptr + s, mask=mask, other=0.5)
         eta = tl.load(eta_ptr + s, mask=mask, other=0.0)
         x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        e = tl.load(eps_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        em = tl.load(epsm_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        e = tl.load(eps_ptr + row * eps_row + col, mask=mask, other=0.0).to(tl.float32)
+        em = tl.load(epsm_ptr + row * epsm_row + col, mask=mask, other=0.0).to(tl.float32)
         x0 = (x - em * tl.sqrt(1.0 - a)) / tl.sqrt(a)
         ratio = tl.maximum((1.0 - a / an) * (1.0 - an) / (1.0 - a), 0.0)
         c1 = eta * tl.sqrt(ratio)
@@ -122,10 +151,11 @@ def _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_d
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"ddim_step kernel takes a float32 or bfloat16 carry, got {x.dtype}")
     for name, t in (("eps", eps), ("eps_mod", eps_mod), ("noise", noise)):
-        if t is not None and (t.shape != x.shape or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"ddim_step kernel: {name} must be contiguous, shaped and placed like x")
-    if not x.is_contiguous():
-        raise ValueError("ddim_step kernel needs a contiguous x")
+        if t is not None and (t.shape != x.shape or t.device != x.device):
+            raise ValueError(f"ddim_step kernel: {name} must be shaped and placed like x")
+    if not x.is_contiguous() or (noise is not None and not noise.is_contiguous()):
+        raise ValueError("ddim_step kernel needs a contiguous x and noise")
+    eps_row, epsm_row = row_stride(eps), row_stride(eps_mod)
     b = x.shape[0]
     a = _per_sample(at, b, x.device).contiguous()
     an = _per_sample(at_next, b, x.device).contiguous()
@@ -138,7 +168,7 @@ def _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_d
     with torch.cuda.device(x.device):  # the launch goes to the current device
         kernel[(cdiv(n, _BLOCK),)](
             x, eps, eps_mod, noise if noise is not None else x, a, an, et, dt, x_next, x0_t,
-            n, n // b, float(dt_lambda),
+            n, n // b, x.shape[-1], eps_row, epsm_row, float(dt_lambda),
             HAS_NOISE=noise is not None, HAS_DT=apply_dt is not None, BLOCK=_BLOCK,
         )
     ddim_step.launches += 1

@@ -2,8 +2,10 @@
 of the JAX `pipelines/engine.py`.
 
 Each maker returns a plain callable that runs under `torch.no_grad()`. The
-UNet runs in `compute_dtype` (float32 or bfloat16) while the DDIM update and
-the carry stay float32, as in the JAX package.
+UNet runs in `compute_dtype` (float32 or bfloat16) while the step update and
+the carry stay float32, as in the JAX package. Every chain splits a
+`learn_sigma` model's output channels (`spec.learn_sigma`); generation takes
+`sample_type` "ddim" or "ddpm", inversion is always DDIM.
 
 Calling conventions (the model takes the place of the JAX params):
   make_invert(...)        -> fn(model, x0)                       -> (x_lat, ys)
@@ -45,7 +47,8 @@ def _edited_eps(spec: ModelSpec, model, edit: EditState, compute_dtype):
 
 
 def _edited_chain(spec: ModelSpec, schedule: Schedule, table: StepTable, *, compute_dtype,
-                  dt_lambda: float = 1.0, dt_end: int = 999, collect: Tuple[str, ...] = ()):
+                  sample_type: str = "ddim", dt_lambda: float = 1.0, dt_end: int = 999,
+                  collect: Tuple[str, ...] = ()):
     """The edited generation over `table` as two segments: the steps with
     t >= t_edit (a prefix of the descending table) run the dual decode, the
     rest the single plain decode — the gated-off edit would give eps_mod ==
@@ -57,7 +60,8 @@ def _edited_chain(spec: ModelSpec, schedule: Schedule, table: StepTable, *, comp
     if k is None:
         raise ValueError("the t_edit gate of a generation table must be a prefix of its steps")
     n = table.num_steps
-    common = dict(dt_lambda=dt_lambda, dt_end=dt_end, collect=collect)
+    common = dict(sample_type=sample_type, learn_sigma=spec.learn_sigma, dt_lambda=dt_lambda,
+                  dt_end=dt_end, collect=collect)
 
     def run(model, edit, x, generator=None, noise_fn=None):
         parts = []
@@ -83,32 +87,36 @@ def make_invert(spec: ModelSpec, schedule: Schedule, seq, *, compute_dtype=torch
     @torch.no_grad()
     def run(model, x0):
         return sample_chain(_plain_eps(spec, model, compute_dtype), schedule, table, x0,
-                            collect=collect)
+                            learn_sigma=spec.learn_sigma, collect=collect)
 
     return run
 
 
 def make_generate(spec: ModelSpec, schedule: Schedule, seq, *, t_addnoise: int = -1,
-                  compute_dtype=torch.float32, collect: Tuple[str, ...] = ()) -> Callable:
+                  sample_type: str = "ddim", compute_dtype=torch.float32,
+                  collect: Tuple[str, ...] = ()) -> Callable:
     """Plain (un-edited) generation xT → x0."""
     table = generation_table(seq, t_addnoise=t_addnoise)
 
     @torch.no_grad()
     def run(model, x_lat, generator=None, noise_fn=None):
         return sample_chain(_plain_eps(spec, model, compute_dtype), schedule, table, x_lat,
-                            generator, collect=collect, noise_fn=noise_fn)
+                            generator, sample_type=sample_type, learn_sigma=spec.learn_sigma,
+                            collect=collect, noise_fn=noise_fn)
 
     return run
 
 
 def make_edit_generate(spec: ModelSpec, schedule: Schedule, seq, *, t_edit: int,
-                       t_addnoise: int = -1, dt_lambda: float = 1.0, dt_end: int = 999,
-                       compute_dtype=torch.float32, collect: Tuple[str, ...] = ()) -> Callable:
+                       t_addnoise: int = -1, sample_type: str = "ddim", dt_lambda: float = 1.0,
+                       dt_end: int = 999, compute_dtype=torch.float32,
+                       collect: Tuple[str, ...] = ()) -> Callable:
     """Asymmetric edited generation: Δ injected for t >= t_edit, eta=1
     noise for t < t_addnoise."""
     table = generation_table(seq, t_edit=t_edit, t_addnoise=t_addnoise)
     chain = _edited_chain(spec, schedule, table, compute_dtype=compute_dtype,
-                          dt_lambda=dt_lambda, dt_end=dt_end, collect=collect)
+                          sample_type=sample_type, dt_lambda=dt_lambda, dt_end=dt_end,
+                          collect=collect)
     return torch.no_grad()(chain)
 
 
@@ -122,7 +130,8 @@ def make_invert_edit(spec: ModelSpec, schedule: Schedule, seq_inv, seq_gen, *, t
 
     @torch.no_grad()
     def run(model, edit, x0, generator=None, noise_fn=None):
-        x_lat, _ = sample_chain(_plain_eps(spec, model, compute_dtype), schedule, inv_table, x0)
+        x_lat, _ = sample_chain(_plain_eps(spec, model, compute_dtype), schedule, inv_table, x0,
+                                learn_sigma=spec.learn_sigma)
         x_edit, _ = gen_chain(model, edit, x_lat, generator, noise_fn)
         return x_edit
 

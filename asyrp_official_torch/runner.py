@@ -1,9 +1,11 @@
 """AsyrpRunner — the port of the JAX `runner.py` for Δ-training of
 DeltaBlocks (`run_training` with `--train_delta_block`, the CLIP
-directional loss) and edit serving (`run_test` with `--train_delta_block`
-checkpoints), on one device.
+directional loss; the DDPM++ family) and edit serving (`run_test` with
+`--train_delta_block` checkpoints, `--sample_type ddim` or `ddpm`; the DDPM++
+and OpenAI families), on one device.
 
-Not ported yet (each raises `NotImplementedError`): the LPIPS stage,
+Not ported yet (each raises `NotImplementedError`): training the OpenAI
+family (it needs the multi-head attention backward), the LPIPS stage,
 DiffStyle, fidelity, `--train_delta_h` rows, the ID loss, multi-attribute
 mixing, delta-interpolation sweeps, mean-of-Δh harvesting, random-noise
 latents, process dumps and the multi-device flags (ROADMAP.md Queue 1).
@@ -19,15 +21,12 @@ import numpy as np
 import torch
 
 from asyrp_official_torch.compat import delta_ckpt
-from asyrp_official_torch.compat.from_jax import (
-    ddpmpp_state_dict_from_jax,
-    delta_block_state_dict_from_jax,
-)
+from asyrp_official_torch.compat.from_jax import delta_block_state_dict_from_jax
 from asyrp_official_torch.configs.paths import DATASET_PATHS
 from asyrp_official_torch.core.schedule import make_schedule, train_seq, uniform_seq
 from asyrp_official_torch.data import datasets as data
 from asyrp_official_torch.data.imageio import save_image
-from asyrp_official_torch.models.delta import DeltaBlock, EditState, init_delta_blocks
+from asyrp_official_torch.models.delta import EditState, delta_block_from_tree, init_delta_blocks
 from asyrp_official_torch.models.registry import spec_from_config
 from asyrp_official_torch.pipelines import engine, precompute as pc, train as tr
 from asyrp_official_torch.pipelines.interval import select_interval
@@ -105,9 +104,10 @@ class AsyrpRunner:
 
     # ------------------------------------------------------------------
     def load_pretrained(self):
-        """The frozen UNet: `--model_path` (a reference `.ckpt`, loaded by
-        key name), or `--allow_random_weights` (the JAX package's seeded
-        init, bridged), else an error naming what is missing."""
+        """The frozen UNet of the config's family: `--model_path` (a
+        reference `.ckpt`, or an iDDPM/ADM `.pt`, loaded by key name), or
+        `--allow_random_weights` (the JAX package's seeded init, bridged),
+        else an error naming what is missing."""
         if self._model is not None:
             return self._model
         a = self.args
@@ -123,7 +123,7 @@ class AsyrpRunner:
         elif getattr(a, "allow_random_weights", False):
             log.warning("--allow_random_weights: using RANDOM weights — outputs are NOT "
                         "meaningful edits")
-            sd = ddpmpp_state_dict_from_jax(self.spec.init(hostrng.PRNGKey(a.seed)))
+            sd = self.spec.state_dict_from_jax(self.spec.init(hostrng.PRNGKey(a.seed)))
         else:
             raise FileNotFoundError(
                 f"no pretrained diffusion weights for {_route_key(self.config)}: pass "
@@ -219,10 +219,10 @@ class AsyrpRunner:
             name = f"{exp_id}_{it}.pth" if extra is None else f"{exp_id}_{it}_{extra}.pth"
         return os.path.join(self._dir("checkpoint"), name)
 
-    def _load_blocks(self, path: str) -> DeltaBlock:
+    def _load_blocks(self, path: str) -> torch.nn.Module:
         loaded = delta_ckpt.load_delta_checkpoint(path)
-        block = DeltaBlock(self.spec.bottleneck_ch, self.spec.temb_ch)
-        block.load_state_dict(delta_block_state_dict_from_jax(loaded["blocks"][0]))
+        block = delta_block_from_tree(loaded["blocks"][0], self.spec.bottleneck_ch,
+                                      self.spec.temb_ch, flavor=self.spec.delta_flavor)
         return block.to(self.device).eval().requires_grad_(False)
 
     # ------------------------------------------------------------------
@@ -237,6 +237,10 @@ class AsyrpRunner:
         for flag, what in _UNPORTED_TRAIN_FLAGS.items():
             if getattr(a, flag, None):
                 raise NotImplementedError(f"{what} {_TODO}")
+        if self.spec.family == "openai" and not getattr(a, "just_precompute", False):
+            raise NotImplementedError(
+                "training on the OpenAI-family UNets needs the multi-head attention backward "
+                "(kernel K2-bwd with num_heads > 1), which is not ported yet (ROADMAP.md Queue 2)")
         if a.get_h_num < 1:
             # the reference's default 0 leaves its optimizer with no parameters
             raise ValueError("--train_delta_block needs --get_h_num >= 1 (the reference "
@@ -368,24 +372,25 @@ class AsyrpRunner:
         return edit
 
     @staticmethod
-    def _block_tree(block: DeltaBlock) -> Dict[str, Any]:
+    def _block_tree(block: torch.nn.Module) -> Dict[str, Any]:
         """A DeltaBlock → its JAX-layout tree (the checkpoint format)."""
         return delta_ckpt.convert_delta_block(
             {k: v.detach().cpu().numpy() for k, v in block.state_dict().items()})
 
-    def _save_delta(self, block: DeltaBlock, extra_blocks, path: str) -> None:
+    def _save_delta(self, block: torch.nn.Module, extra_blocks, path: str) -> None:
         """The trained block first, the untrained get_h_num > 1 extras after it."""
         delta_ckpt.save_delta_checkpoint(
             path, blocks=[self._block_tree(block)] + list(extra_blocks),
             flavor=self.spec.delta_flavor)
         log.info("saved %s", path)
 
-    def _apply_loaded_delta(self, block: DeltaBlock, path: str):
+    def _apply_loaded_delta(self, block: torch.nn.Module, path: str):
         """Load the checkpoint's first block into the trained `block`;
         returns the untrained extras saved after it."""
         loaded = delta_ckpt.load_delta_checkpoint(path)["blocks"]
         with torch.no_grad():
-            block.load_state_dict(delta_block_state_dict_from_jax(loaded[0]))
+            block.load_state_dict(delta_block_state_dict_from_jax(loaded[0],
+                                                                  self.spec.delta_flavor))
         return loaded[1:]
 
     def _test_sweep(self, model, edit: EditState, seq_test) -> None:
@@ -412,12 +417,13 @@ class AsyrpRunner:
             rows.append(np.asarray(x0))
         if a.save_x_origin:
             gen = self._cached_engine(
-                "gen", tuple(seq), t_addnoise=self.t_addnoise if a.origin_process_addnoise else -1)
+                "gen", tuple(seq), t_addnoise=self.t_addnoise if a.origin_process_addnoise else -1,
+                sample_type=a.sample_type)
             x, _ = gen(model, x_dev, self._generator())
             rows.append(x.cpu().numpy())
         run = self._cached_engine(
             "edit", tuple(seq), t_edit=self.t_edit, t_addnoise=self.t_addnoise,
-            dt_lambda=a.dt_lambda, dt_end=a.dt_end)
+            sample_type=a.sample_type, dt_lambda=a.dt_lambda, dt_end=a.dt_end)
         x, _ = run(model, edit, x_dev, self._generator())
         rows.append(x.cpu().numpy())
         out = os.path.join(folder, f"{file_name}_ngen{a.n_train_step}.png")
@@ -442,8 +448,6 @@ class AsyrpRunner:
         for flag, off in _UNPORTED_TEST_FLAGS.items():
             if getattr(a, flag, off) not in (off, None, False, 0, ""):
                 raise NotImplementedError(f"--{flag} {_TODO}")
-        if a.sample_type != "ddim":
-            raise NotImplementedError(f"--sample_type {a.sample_type} {_TODO} (M8)")
         if not a.train_delta_block:
             raise NotImplementedError(
                 f"run_test without --train_delta_block {_TODO}: the port serves DeltaBlock "
@@ -504,5 +508,6 @@ class AsyrpRunner:
 def _dataset_key(config) -> str:
     return {
         "CelebA_HQ": "celeba", "CUSTOM": "celeba", "CelebA_HQ_Dialog": "celeba",
-        "LSUN_church_outdoor": "church", "LSUN_bedroom": "bedroom",
+        "LSUN_church_outdoor": "church", "LSUN_bedroom": "bedroom", "AFHQ": "afhq",
+        "FFHQ": "afhq", "MetFACE": "metface", "CelebA_HQ_P2": "metface", "IMAGENET": "celeba",
     }.get(_route_key(config), "celeba")

@@ -46,6 +46,20 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      float32 one as the plain versions' bfloat16 gradient is. Also the L1
      term per dtype (how much of the bf16 loss is rounding), and one edited
      timestep's launches and torch.profiler breakdown per dtype.
+  8. the OpenAI-family serving path (iDDPM AFHQ/FFHQ, `afhq.yml`: 256^2,
+     93.6M params, 8-head attention at 16^2 and 8^2, learn_sigma) through
+     the port's CLI, in-process: a perturbed AFHQ `.pt` state dict under the
+     reference key names (the seeded init's all-zero output layers redrawn,
+     so eps is far from zero), two random 256^2 images as
+     `afhq/test/dog/*.png` and an OpenAI-flavor Δ checkpoint; `--run_test
+     --model_path <that .pt>`, 40 + 40 steps at batch 1, float32 and
+     --bf16, then 10 + 10 steps of `--sample_type ddpm` in float32. K1, the
+     multi-head K2 and K3 (and `ddpm_step` in the ddpm run) must launch;
+     then the float32 AFHQ invert+edit chain with the kernels against the
+     plain versions, and where the time goes in one AFHQ eval (as in 6).
+     Phase 3 also holds K1 at eps 1e-5, the multi-head K2 (and at T = 1024,
+     IMAGENET's 32^2 level), K3 on the strided learn_sigma channels and
+     `ddpm_step` against their plain versions at the AFHQ path's shapes.
 The float32 runs use full float32 convolutions and matmuls (TF32 off), as
 the port's runner sets it on CUDA.
 
@@ -70,13 +84,24 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 40
 CONFIG, IMAGE, DEVICE = "custom.yml", 256, "cuda"
+AFHQ_CONFIG, DDPM_STEPS = "afhq.yml", 10
 T_EDIT, T_ADDNOISE = 513, 167
 SEED = 1234
 TOL = {"group_norm": {"float32": 1e-5, "bfloat16": 2e-2},
        "attention": {"float32": 1e-5, "bfloat16": 2e-2},
+       "group_norm_afhq": {"float32": 1e-5, "bfloat16": 2e-2},
+       "attention_mh": {"float32": 1e-5, "bfloat16": 2e-2},
        "group_norm_bwd": {"float32": 1e-4, "bfloat16": 5e-2},
        "attention_bwd": {"float32": 1e-4, "bfloat16": 5e-2},
-       "ddim_step": {"float32": 1e-6}}
+       "ddim_step": {"float32": 1e-6}, "ddim_step_learn_sigma": 1e-6,
+       "ddpm_step": 1e-6}
+# the OpenAI UNet's eps on perturbed weights must be far from zero, or its
+# comparisons would hold zeros against zeros
+MIN_EPS_STD = 0.1
+# the multi-head K2 against the one-head plain version: a control that the
+# row's comparison sees a wrong head split
+CONTROL_MIN = 1e-2
+TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "ddim_step")
 CHAIN_TOL = 1e-3
 # the f32 trained block, kernels vs plain run: the whole block, and its update
 # from the init (which the L1 term's sign makes noisy, see train_phase)
@@ -144,18 +169,26 @@ def card_line() -> str:
 
 def counters():
     from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
+    from asyrp_official_torch.ops import ddpm_step as kddpm
 
     return {"group_norm": k1.group_norm.launches, "group_norm_bwd": k1.group_norm.bwd_launches,
-            "attention": k2.attention.launches, "attention_bwd": k2.attention.bwd_launches,
-            "ddim_step": k3.ddim_step.launches}
+            "attention": k2.attention.launches, "attention_mh": k2.attention.mh_launches,
+            "attention_bwd": k2.attention.bwd_launches, "ddim_step": k3.ddim_step.launches,
+            "ddpm_step": kddpm.ddpm_step.launches}
 
 
 def zero_counters() -> None:
     from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
+    from asyrp_official_torch.ops import ddpm_step as kddpm
 
     k1.group_norm.launches = k1.group_norm.bwd_launches = 0
-    k2.attention.launches = k2.attention.bwd_launches = 0
-    k3.ddim_step.launches = 0
+    k2.attention.launches = k2.attention.mh_launches = k2.attention.bwd_launches = 0
+    k3.ddim_step.launches = kddpm.ddpm_step.launches = 0
+
+
+def require_launches(counts, names, what: str) -> None:
+    if not all(counts[n] for n in names):
+        fail(f"{what} did not launch every kernel of its path {list(names)}: {counts}")
 
 
 def plain_versions():
@@ -165,11 +198,13 @@ def plain_versions():
     from unittest import mock
 
     from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
+    from asyrp_official_torch.ops import ddpm_step as kddpm
 
     stack = ExitStack()
     stack.enter_context(mock.patch.object(k1, "group_norm", k1.group_norm_plain))
     stack.enter_context(mock.patch.object(k2, "attention", k2.attention_plain))
     stack.enter_context(mock.patch.object(k3, "ddim_step", k3.ddim_step_plain))
+    stack.enter_context(mock.patch.object(kddpm, "ddpm_step", kddpm.ddpm_step_plain))
     return stack
 
 
@@ -226,6 +261,47 @@ def record_path_shapes(torch, dev):
     return seen
 
 
+def record_afhq_shapes(torch, dev):
+    """Shapes and call counts K1 and K2 see in one edited eval of the
+    full-width AFHQ UNet at batch 1 (the split dual decode, as served), and
+    IMAGENET's 32^2 attention (T = 1024), checked though not served here.
+    The plain versions stand in while recording."""
+    from unittest import mock
+
+    from asyrp_official_torch.models.delta import EditState, OpenAIDeltaBlock
+    from asyrp_official_torch.models.openai_unet import AFHQ_CONFIG, OpenAIUNet
+    from asyrp_official_torch.ops import attention as k2, groupnorm as k1
+
+    seen = {"group_norm_afhq": {}, "attention_mh": {}}
+
+    def bump(key, k):
+        seen[key][k] = seen[key].get(k, 0) + 1
+
+    def gn(x, w, b, **kw):
+        bump("group_norm_afhq", (tuple(x.shape), kw.get("silu", False), kw.get("eps", 1e-6)))
+        return k1.group_norm_plain(x, w, b, **kw)
+
+    def attn(q, k, v, num_heads=1, legacy_scale=False):
+        bump("attention_mh", (tuple(q.shape), num_heads, legacy_scale))
+        return k2.attention_plain(q, k, v, num_heads=num_heads, legacy_scale=legacy_scale)
+
+    torch.manual_seed(0)
+    cfg = AFHQ_CONFIG
+    model = OpenAIUNet(cfg).to(dev).eval().requires_grad_(False)
+    block = OpenAIDeltaBlock(cfg.bottleneck_ch, cfg.temb_ch).to(dev).eval().requires_grad_(False)
+    edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=dev),
+                     flavor="openai")
+    x = torch.randn(1, IMAGE, IMAGE, 3, device=dev)
+    t = torch.full((1,), 500.0, device=dev)
+    with mock.patch.object(k1, "group_norm", gn), mock.patch.object(k2, "attention", attn):
+        with torch.no_grad():
+            model.apply(x, t, edit=edit)
+    seen["attention_mh"][((1, 1024, 512), 8, True)] = 0
+    del model, block
+    torch.cuda.empty_cache()
+    return seen
+
+
 def gn_stats(x, groups: int = 32, eps: float = 1e-6):
     """Per-(sample, group) mean and rstd, the statistics K1-bwd reads."""
     import torch
@@ -240,36 +316,38 @@ def kernel_rows(torch, dev, seen):
     import torch.nn.functional as F
 
     from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
+    from asyrp_official_torch.ops import ddpm_step as kddpm
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    out = {n: {} for n in ("group_norm", "group_norm_bwd", "attention", "attention_bwd",
-                           "ddim_step")}
+    names = [n for n in ("group_norm", "group_norm_bwd", "attention", "attention_bwd",
+                         "group_norm_afhq", "attention_mh") if n in seen]
+    out = {n: {} for n in names + ["ddim_step", "ddim_step_learn_sigma", "ddpm_step"]}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         es = torch.tensor([], dtype=dtype).element_size()
-        for name in ("group_norm", "group_norm_bwd", "attention", "attention_bwd"):
+        for name in names:
             tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                    "max_abs_err": 0.0, "max_rel_err": 0.0, "calls": 0}
             bound_ms_by = {"bytes": 0.0, "operations": 0.0}
             for key, count in sorted(seen[name].items()):
-                if name == "group_norm":
-                    shape, silu = key
+                if name in ("group_norm", "group_norm_afhq"):
+                    shape, silu, gn_eps = key if len(key) == 3 else (*key, 1e-6)
                     x = (randn(*shape) * 2.0 + 0.5).to(dtype)
                     w, b = 1.0 + 0.1 * randn(shape[1]), 0.1 * randn(shape[1])
                     wl, bl = w.to(dtype), b.to(dtype)
-                    run_k = lambda: k1.group_norm(x, w, b, silu=silu)
-                    run_p = lambda: k1.group_norm_plain(x, w, b, silu=silu)
-                    lib = lambda: (F.silu(F.group_norm(x, 32, wl, bl, 1e-6)) if silu
-                                   else F.group_norm(x, 32, wl, bl, 1e-6))
+                    run_k = lambda: k1.group_norm(x, w, b, eps=gn_eps, silu=silu)
+                    run_p = lambda: k1.group_norm_plain(x, w, b, eps=gn_eps, silu=silu)
+                    lib = lambda: (F.silu(F.group_norm(x, 32, wl, bl, gn_eps)) if silu
+                                   else F.group_norm(x, 32, wl, bl, gn_eps))
                     got, want = [run_k()], [run_p()]
                     n = x.numel()
                     b_ms, b_by = bound(2 * n * es + 2 * shape[1] * 4, n * (8 + 4 * silu),
                                        PEAK_FLOPS["float32"])
-                    label = f"{list(shape)} silu={int(silu)}"
+                    label = f"{list(shape)} silu={int(silu)} eps={gn_eps:g}"
                 elif name == "group_norm_bwd":
                     shape, silu, wgrad = key
                     x = (randn(*shape) * 2.0 + 0.5).to(dtype).requires_grad_()
@@ -295,16 +373,23 @@ def kernel_rows(torch, dev, seen):
                     b_ms, b_by = bound(3 * n * es + (4 if wgrad else 2) * shape[1] * 4,
                                        n * (14 + 10 * silu + 3 * wgrad), PEAK_FLOPS["float32"])
                     label = f"{list(shape)} silu={int(silu)} dweight={int(wgrad)}"
-                elif name == "attention":
-                    q, kk, v = (randn(*key, dtype=dtype) for _ in range(3))
-                    bsz, t_len, c = key
-                    run_k = lambda: k2.attention(q, kk, v)
-                    run_p = lambda: k2.attention_plain(q, kk, v)
-                    lib = lambda: F.scaled_dot_product_attention(q, kk, v, scale=c ** -0.5)
+                elif name in ("attention", "attention_mh"):
+                    shape, heads, legacy = key if name == "attention_mh" else (key, 1, False)
+                    q, kk, v = (randn(*shape, dtype=dtype) for _ in range(3))
+                    bsz, t_len, c = shape
+                    hd = c // heads
+                    kw = dict(num_heads=heads, legacy_scale=legacy)
+                    run_k = lambda: k2.attention(q, kk, v, **kw)
+                    run_p = lambda: k2.attention_plain(q, kk, v, **kw)
+                    # the library call: [B, H, T, d] views, scale d^-0.5 on unscaled q, k
+                    q4, k4, v4 = (a.view(bsz, t_len, heads, hd).transpose(1, 2)
+                                  for a in (q, kk, v))
+                    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5)
                     got, want = [run_k()], [run_p()]
                     b_ms, b_by = bound(4 * bsz * t_len * c * es, 4 * bsz * t_len * t_len * c,
                                        PEAK_FLOPS[dname])
-                    label = f"{list(key)}"
+                    label = (f"{list(shape)}" if name == "attention"
+                             else f"{list(shape)} heads={heads} legacy_scale={int(legacy)}")
                 else:
                     q, kk, v = (randn(*key, dtype=dtype).requires_grad_() for _ in range(3))
                     d_o = randn(*key, dtype=dtype)
@@ -332,11 +417,19 @@ def kernel_rows(torch, dev, seen):
                 ms_k, ms_p, ms_l = time_ms(run_k), time_ms(run_p), time_ms(lib)
                 tol = TOL[name][dname]
                 ok = rel_err <= tol
-                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e} (tol {tol:g}) "
-                      f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, library {ms_l:.4f} ms, "
-                      f"bound {b_ms:.4f} ms ({b_by}){'' if ok else '  <-- FAIL'}")
+                control = ""
+                if name == "attention_mh":
+                    # the check must tell head splits apart: against the
+                    # one-head plain version the kernel's output is far off
+                    ctrl = errs(got[0].float(), k2.attention_plain(q, kk, v).float())[1]
+                    control = f", vs one head {ctrl:.3e} (must exceed {CONTROL_MIN:g})"
+                    ok = ok and ctrl > CONTROL_MIN
+                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e} (tol {tol:g}"
+                      f"{control}) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, library "
+                      f"{ms_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}){'' if ok else '  <-- FAIL'}")
                 if not ok:
-                    fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
+                    fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}"
+                         f"{control}")
                 for k_, v_ in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
                                ("bound_ms", b_ms)):
                     tot[k_] += v_ * count
@@ -385,6 +478,57 @@ def kernel_rows(torch, dev, seen):
         if not ok:
             fail(f"ddim_step {label} disagrees with its plain version: {rel_err:.3e}")
     out["ddim_step"]["float32"] = res
+
+    # The OpenAI path's elementwise steps. The carry is float32; eps (and
+    # eps_mod, and the learned log-variance) are strided views of a
+    # learn_sigma model's [1, 256, 256, 6] output, in the model's dtype.
+    a_t, an_t, one = (torch.tensor([v], device=dev) for v in (0.80, 0.85, 1.0))
+    bt = torch.tensor([0.02], device=dev)
+    raw, raw_mod = randn(*shape[:-1], 6), randn(*shape[:-1], 6)
+    raw[..., 3:] = -2.0 + 0.5 * raw[..., 3:]  # a log-variance's range
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        r, r_mod = raw.to(dtype), raw_mod.to(dtype)
+        n = x.numel()
+        steps = [  # (row, label, kernel, plain, bytes, flops)
+            ("ddim_step_learn_sigma", "eta=1", lambda: k3.ddim_step(
+                x, r[..., :3], r_mod[..., :3], a_t, an_t, one, noise),
+             lambda: k3.ddim_step_plain(x, r[..., :3], r_mod[..., :3], a_t, an_t, one, noise),
+             n * (4 + 2 * es + 4 + 8), 25 * n)]
+        for label, lv, t_ in (("learned logvar", r[..., 3:], 999.0),
+                              ("table logvar", torch.tensor([-3.9], device=dev), 999.0),
+                              ("learned logvar, t=0", r[..., 3:], 0.0)):
+            tt = torch.tensor([t_], device=dev)
+            per_elem = lv.dim() == 4
+            steps.append((
+                "ddpm_step", label,
+                lambda lv=lv, tt=tt: kddpm.ddpm_step(x, r[..., :3], lv, bt, a_t, tt, noise),
+                lambda lv=lv, tt=tt: kddpm.ddpm_step_plain(x, r[..., :3], lv, bt, a_t, tt, noise),
+                n * (4 + es + es * per_elem + 4 + 4), 12 * n))
+        for row, label, run_k, run_p, n_bytes, n_flops in steps:
+            got, want = run_k(), run_p()
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            abs_err = rel_err = 0.0
+            for g_, w_ in zip(got, want):
+                if not torch.isfinite(g_).all():
+                    fail(f"{row} {label} {dname}: non-finite output")
+                a_, r_ = errs(g_, w_)
+                abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
+            ms_k, ms_p = time_ms(run_k), time_ms(run_p)
+            b_ms, b_by = bound(n_bytes, n_flops, PEAK_FLOPS["float32"])
+            ok = rel_err <= TOL[row]
+            phase(f"  {row} {list(shape)} float32 carry, {dname} model output, {label}: rel err "
+                  f"{rel_err:.3e} (tol {TOL[row]:g}) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+                  f"library n/a, bound {b_ms:.4f} ms ({b_by}){'' if ok else '  <-- FAIL'}")
+            if not ok:
+                fail(f"{row} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
+            res = out[row].setdefault(dname, {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                              "library_ms": None, "calls": 1})
+            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
+            res["max_rel_err"] = max(res["max_rel_err"], rel_err)
+            if "ms" not in res:  # the row's time: its first case, the one the path runs most
+                res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -404,11 +548,11 @@ class _RunnerLog(logging.Handler):
             self.iters.append(msg)
 
 
-def write_images(ws: str, n: int = 2) -> str:
+def write_images(ws: str, n: int = 2, sub: str = "imgs") -> str:
     import numpy as np
     from PIL import Image
 
-    imgs = os.path.join(ws, "imgs")
+    imgs = os.path.join(ws, sub)
     os.makedirs(imgs, exist_ok=True)
     rng = np.random.RandomState(SEED)
     for i in range(n):
@@ -462,9 +606,8 @@ def main_path_phase(torch, card, log, ws_root):
         counts = counters()
         if rc != 0:
             fail(f"serving path ({dname}) exited {rc}")
-        fwd = {k: counts[k] for k in ("group_norm", "attention", "ddim_step")}
-        if not all(fwd.values()):
-            fail(f"serving path ({dname}) did not launch every kernel: {counts}")
+        require_launches(counts, ("group_norm", "attention", "ddim_step"),
+                         f"serving path ({dname})")
         grids = sorted(os.path.join(r, f) for r, _, fs in os.walk(os.path.join(ws, "runs"))
                        for f in fs if f.endswith(".png"))
         if len(grids) != 2:
@@ -491,8 +634,11 @@ def main_path_phase(torch, card, log, ws_root):
     return timings, launches
 
 
-def chain_phase(torch, dev, card, ws_root):
-    """The float32 serving chain with kernels vs plain versions on the card."""
+def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False):
+    """The float32 serving chain (invert + edit) with kernels vs plain
+    versions on the card, from the CLI run's first test image and the same
+    noise; then its time per dtype. With `eps_check`, one edited eval at
+    t = 999 must give eps far from zero and eps_mod apart from eps."""
     import numpy as np
 
     from asyrp_official_torch import uniform_seq
@@ -501,15 +647,26 @@ def chain_phase(torch, dev, card, ws_root):
     from asyrp_official_torch.pipelines import engine
     from asyrp_official_torch.runner import AsyrpRunner
 
-    ws = os.path.join(ws_root, "float32")
-    args = build_parser().parse_args(serve_argv(ws, False))
-    runner = AsyrpRunner(args, load_config(CONFIG), work_dir=ws)
+    args = build_parser().parse_args(argv)
+    runner = AsyrpRunner(args, load_config(config), work_dir=ws)
     model = runner.load_pretrained()
-    edit = EditState(blocks=(runner._load_blocks(os.path.join(ws, "checkpoint", "smoke_delta.pth")),),
-                     hs_coeff=torch.tensor([1.0, 1.0], device=dev))
-    x0 = np.load(os.path.join(ws, "precomputed",
-                              f"CUSTOM_test_t999_nim2_ninv{STEPS}_pairs.npz"))["x0"][:1]
+    edit = EditState(blocks=(runner._load_blocks(os.path.join(ws, "checkpoint", ckpt)),),
+                     hs_coeff=torch.tensor([1.0, 1.0], device=dev),
+                     flavor=runner.spec.delta_flavor)
+    x0 = np.load(os.path.join(ws, "precomputed", pairs))["x0"][:1]
     x0 = torch.from_numpy(x0).to(dev)
+    if eps_check:
+        with torch.no_grad():
+            eps, eps_mod, _, _ = runner.spec.apply(model, x0, torch.full((1,), 999.0, device=dev),
+                                                   edit=edit)
+        c = eps.shape[-1] // 2 if runner.spec.learn_sigma else eps.shape[-1]
+        std = float(eps[..., :c].std())
+        moved = float((eps_mod - eps)[..., :c].abs().max()) / float(eps[..., :c].abs().max())
+        phase(f"  one edited eval at t=999: eps std {std:.3f} (must exceed {MIN_EPS_STD:g}), "
+              f"max |eps_mod - eps| / max |eps| {moved:.3e}")
+        if not std > MIN_EPS_STD or not moved > 1e-3:
+            fail(f"eps std {std:.3f}, edit moved eps by {moved:.3e}: the comparison would prove "
+                 "nothing")
     seq = uniform_seq(STEPS, 999)
     run = engine.make_invert_edit(runner.spec, runner.schedule, seq, seq, t_edit=T_EDIT,
                                   t_addnoise=T_ADDNOISE)
@@ -680,8 +837,7 @@ def train_phase(torch, card, log, ws_root):
         counts = counters()
         if rc != 0:
             fail(f"training path ({dname}) exited {rc}")
-        if not all(counts.values()):
-            fail(f"training path ({dname}) did not launch every kernel: {counts}")
+        require_launches(counts, TRAIN_KERNELS, f"training path ({dname})")
         blocks[dname] = blk = trained_block(ws, exp)
         moved = max(float(np.abs(blk[g][k] - init[g][k]).max()) for g in init for k in init[g])
         if not moved > 0:
@@ -927,6 +1083,123 @@ def gradient_check(torch, ws: str, imgs: str, clip_ckpt: str):
     return out
 
 
+def perturbed(tree, seed: int):
+    """`tree` with every all-zero {"w", "b"} layer (the OpenAI init's
+    zero_module output layers) redrawn uniformly within its kaiming bound
+    1/sqrt(fan_in), from numpy RandomState(seed) in tree order; every other
+    leaf unchanged."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+
+    def walk(node):
+        if isinstance(node, dict):
+            if set(node) == {"w", "b"} and not (np.any(node["w"]) or np.any(node["b"])):
+                w = np.asarray(node["w"])
+                lim = 1.0 / math.sqrt(int(np.prod(w.shape[:-1])))
+                return {"w": rng.uniform(-lim, lim, w.shape).astype(np.float32),
+                        "b": rng.uniform(-lim, lim, np.shape(node["b"])).astype(np.float32)}
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(tree)
+
+
+def make_afhq_workspace(torch, root: str, data: str) -> str:
+    """Two random 256^2 images as `{data}/afhq/test/dog/*.png`, the
+    perturbed AFHQ UNet as a `.pt` state dict under the reference key names
+    and an OpenAI-flavor Δ checkpoint. Returns the `.pt` path."""
+    from asyrp_official_torch.cli.main import load_config
+    from asyrp_official_torch.compat import save_delta_checkpoint
+    from asyrp_official_torch.models.delta import delta_block_init
+    from asyrp_official_torch.models.registry import spec_from_config
+    from asyrp_official_torch.utils import hostrng
+
+    write_images(os.path.join(data, "afhq", "test"), sub="dog")
+    spec = spec_from_config(load_config(AFHQ_CONFIG))
+    sd = spec.state_dict_from_jax(perturbed(spec.init(hostrng.PRNGKey(SEED)), SEED))
+    n_params = sum(v.numel() for v in sd.values())
+    if n_params != 93_563_910:
+        fail(f"the afhq.yml UNet has {n_params} parameters, not the reference's 93,563,910")
+    model_path = os.path.join(root, "afhq_perturbed.pt")
+    torch.save(sd, model_path)
+    block = delta_block_init(hostrng.PRNGKey(7), spec.bottleneck_ch, spec.temb_ch, flavor="openai")
+    save_delta_checkpoint(os.path.join(root, "afhq_delta.pth"), blocks=[block], flavor="openai")
+    return model_path
+
+
+def afhq_argv(ws: str, model_path: str, bf16: bool = False, steps: int = STEPS,
+              sample_type: str = "ddim"):
+    argv = ["--config", AFHQ_CONFIG, "--exp", os.path.join(ws, "runs", "afhq"),
+            "--run_test", "--train_delta_block", "--model_path", model_path, "--device", DEVICE,
+            "--work_dir", ws, "--manual_checkpoint_name", "afhq_delta.pth",
+            "--n_inv_step", str(steps), "--n_test_step", str(steps),
+            "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
+            "--bs_train", "1", "--n_test_img", "2", "--do_train", "0", "--save_x_origin",
+            "--sample_type", sample_type, "--seed", str(SEED), "--ni"]
+    return argv + (["--bf16"] if bf16 else [])
+
+
+AFHQ_RUNS = (  # (label, --bf16, steps, --sample_type)
+    ("float32", False, STEPS, "ddim"), ("bfloat16", True, STEPS, "ddim"),
+    ("ddpm float32", False, DDPM_STEPS, "ddpm"))
+
+
+def afhq_phase(torch, card, log, root: str, model_path: str):
+    """Phase 8: OpenAI-family serving through the port's CLI, one run per
+    AFHQ_RUNS entry, each in a work dir of its own; the counters are zeroed
+    just before each run and read just after it."""
+    import numpy as np
+    from PIL import Image
+
+    from asyrp_official_torch.cli.main import main as cli_main
+
+    timings, launches = {}, {}
+    for label, bf16, steps, sample_type in AFHQ_RUNS:
+        ws = os.path.join(root, label.replace(" ", "_"))
+        os.makedirs(os.path.join(ws, "checkpoint"))
+        shutil.copy(os.path.join(root, "afhq_delta.pth"), os.path.join(ws, "checkpoint"))
+        zero_counters()
+        t0 = time.perf_counter()
+        rc = cli_main(afhq_argv(ws, model_path, bf16, steps, sample_type))
+        wall = time.perf_counter() - t0
+        counts = counters()
+        if rc != 0:
+            fail(f"AFHQ serving path ({label}) exited {rc}")
+        require_launches(counts, ("group_norm", "attention_mh", "ddim_step")
+                         + (("ddpm_step",) if sample_type == "ddpm" else ()),
+                         f"AFHQ serving path ({label})")
+        if counts["attention"]:
+            fail(f"AFHQ serving path ({label}) launched the single-head attention: {counts}")
+        grids = sorted(os.path.join(r, f) for r, _, fs in os.walk(os.path.join(ws, "runs"))
+                       for f in fs if f.endswith(".png"))
+        if len(grids) != 2:
+            fail(f"AFHQ serving path ({label}): expected 2 grids, found {grids}")
+        for g in grids:
+            arr = np.asarray(Image.open(g))
+            if arr.shape != (2 * IMAGE + 3, IMAGE + 2, 3):
+                fail(f"grid {g} has shape {arr.shape}")
+        pairs = np.load(os.path.join(ws, "precomputed",
+                                     f"AFHQ_test_t999_nim2_ninv{steps}_pairs.npz"))
+        for k in ("x_lat", "x_rec"):
+            if not np.isfinite(pairs[k]).all():
+                fail(f"AFHQ serving path ({label}): non-finite {k}")
+        _, n_grids, first_ms, last_ms, n_chain, _ = log.grids[-1]
+        per_step = last_ms / (2 * n_chain)
+        timings[label] = {"grid_ms_first": first_ms, "grid_ms": last_ms, "ms_per_step": per_step,
+                          "run_s": wall}
+        launches[label] = counts
+        phase(f"  AFHQ serving path {label} ({sample_type}) on {card}: rc 0, 2 grids, launches "
+              f"{counts}; per grid ({n_chain}-step plain + {n_chain}-step edited generation, bs "
+              f"1): first {first_ms:.1f} ms, second {last_ms:.1f} ms = {per_step:.2f} ms/step; "
+              f"whole CLI run incl. loading and 2x{steps}+{steps} precompute steps {wall:.1f} s")
+    return timings, launches
+
+
 def build_kernels() -> None:
     from asyrp_official_torch.ops import _build
 
@@ -950,6 +1223,9 @@ def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "asyrp_official_torch")):
         fail(f"no asyrp_official_torch package beside {__file__}: run from a checkout of the repo")
     sys.path.insert(0, REPO)
+    ws_root = os.path.join(REPO, "runs", f"chip_smoke_{os.getpid()}")
+    # the port's dataset paths read ASYRP_TPU_DATA once, when first imported
+    os.environ["ASYRP_TPU_DATA"] = os.path.join(ws_root, "afhq", "data")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -968,9 +1244,13 @@ def main() -> int:
           f"with a gradient, over {len(seen['group_norm_bwd'])} shapes), "
           f"{seen['train_attention']} attention calls "
           f"({sum(seen['attention_bwd'].values())} with a gradient)")
-    rows = kernel_rows(torch, dev, seen)
+    seen_afhq = record_afhq_shapes(torch, dev)
+    phase(f"  one edited AFHQ UNet eval at batch 1: {sum(seen_afhq['group_norm_afhq'].values())} "
+          f"group_norm calls over {len(seen_afhq['group_norm_afhq'])} shapes, "
+          f"{sum(seen_afhq['attention_mh'].values())} multi-head attention calls; plus the "
+          "T = 1024 attention of IMAGENET's 32^2 level (x0)")
+    rows = kernel_rows(torch, dev, {**seen, **seen_afhq})
 
-    ws_root = os.path.join(REPO, "runs", f"chip_smoke_{os.getpid()}")
     os.makedirs(ws_root)
     log = _RunnerLog()
     logging.getLogger("asyrp_official_torch.runner").addHandler(log)
@@ -978,7 +1258,10 @@ def main() -> int:
         phase("phase 4: serving path through the port's CLI (--run_test, custom.yml 256^2)")
         timings, serve_launches = main_path_phase(torch, card, log, ws_root)
         phase("phase 5: float32 serving chain, kernels vs plain versions")
-        chain_err, chain_ms, per_request, served = chain_phase(torch, dev, card, ws_root)
+        ws = os.path.join(ws_root, "float32")
+        chain_err, chain_ms, per_request, served = chain_phase(
+            torch, dev, card, ws, serve_argv(ws, False), CONFIG, "smoke_delta.pth",
+            f"CUSTOM_test_t999_nim2_ninv{STEPS}_pairs.npz")
         phase("phase 6: where the time goes in one UNet eval at batch 1 (torch.profiler)")
         profile = profile_phase(torch, dev, card, served)
         del served
@@ -986,38 +1269,68 @@ def main() -> int:
         phase("phase 7: training path through the port's CLI (--run_train --train_delta_block, "
               "CLIP directional loss, custom.yml 256^2)")
         training, train_launches = train_phase(torch, card, log, ws_root)
+        phase("phase 8: OpenAI-family serving through the port's CLI (--run_test, afhq.yml "
+              "256^2, --model_path of a perturbed AFHQ .pt)")
+        afhq_root = os.path.join(ws_root, "afhq")
+        model_path = make_afhq_workspace(torch, afhq_root, os.environ["ASYRP_TPU_DATA"])
+        afhq_timings, afhq_launches = afhq_phase(torch, card, log, afhq_root, model_path)
+        ws = os.path.join(afhq_root, "float32")
+        phase("  the float32 AFHQ serving chain, kernels vs plain versions:")
+        afhq_chain_err, afhq_chain_ms, afhq_per_request, afhq_served = chain_phase(
+            torch, dev, card, ws, afhq_argv(ws, model_path), AFHQ_CONFIG, "afhq_delta.pth",
+            f"AFHQ_test_t999_nim2_ninv{STEPS}_pairs.npz", eps_check=True)
+        phase("  where the time goes in one AFHQ UNet eval at batch 1 (torch.profiler):")
+        afhq_profile = profile_phase(torch, dev, card, afhq_served)
+        del afhq_served
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
-    meta = {
-        "group_norm": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
-                       "asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
-                       "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)",
+    runs = {"custom.yml serving float32": serve_launches,
+            "custom.yml training float32": train_launches,
+            **{f"afhq.yml serving {k}": v for k, v in afhq_launches.items()}}
+    afhq_f32, afhq_ddpm = afhq_launches["float32"], afhq_launches["ddpm float32"]
+    gn_ref = ("asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
+              "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)")
+    attn_ref = ("asyrp_official_tpu/models/common.py:238 (spatial_attention; former Pallas "
+                "ops/attention.py:82 at 4b63bc3^)")
+    meta = {  # row: (route, source, replaces, counter, launches of its path's run)
+        "group_norm": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu", gn_ref, "group_norm",
                        serve_launches),
         "group_norm_bwd": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
                            "asyrp_official_tpu/models/common.py:147 (group_norm's gradient; "
                            "former jax.custom_vjp ops/groupnorm.py:105-127 at 4b63bc3^)",
-                           train_launches),
-        "attention": ("cuda", "asyrp_official_torch/csrc/attention.cu",
-                      "asyrp_official_tpu/models/common.py:238 (spatial_attention; former "
-                      "Pallas ops/attention.py:82 at 4b63bc3^)", serve_launches),
+                           "group_norm_bwd", train_launches),
+        "attention": ("cuda", "asyrp_official_torch/csrc/attention.cu", attn_ref, "attention",
+                      serve_launches),
         "attention_bwd": ("cuda", "asyrp_official_torch/csrc/attention.cu",
                           "asyrp_official_tpu/models/common.py:238 (spatial_attention's gradient; "
                           "former jax.custom_vjp ops/attention.py:98-125 at 4b63bc3^)",
-                          train_launches),
+                          "attention_bwd", train_launches),
         "ddim_step": ("triton", "asyrp_official_torch/ops/ddim_step.py",
                       "asyrp_official_tpu/core/ddim.py:33 (ddim_step; XLA on the TPU)",
-                      serve_launches),
+                      "ddim_step", serve_launches),
+        "group_norm_afhq": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
+                            gn_ref[:-1] + "; eps 1e-5, and group_norm_1d at models/common.py:170 "
+                            "for the attention norms)", "group_norm", afhq_f32),
+        "attention_mh": ("cuda", "asyrp_official_torch/csrc/attention.cu",
+                         attn_ref[:-1] + " with num_heads=8, legacy_scale=True, called from "
+                         "models/openai_unet.py:286)", "attention_mh", afhq_f32),
+        "ddim_step_learn_sigma": ("triton", "asyrp_official_torch/ops/ddim_step.py",
+                                  "asyrp_official_tpu/core/ddim.py:33 (ddim_step on the learn_sigma "
+                                  "split of core/sampler.py:115-122; XLA on the TPU)", "ddim_step",
+                                  afhq_f32),
+        "ddpm_step": ("triton", "asyrp_official_torch/ops/ddpm_step.py",
+                      "asyrp_official_tpu/core/ddim.py:94 (ddpm_step; XLA on the TPU)",
+                      "ddpm_step", afhq_ddpm),
     }
     kernels = []
-    for name, (route, source, replaces, launches) in meta.items():
+    for name, (route, source, replaces, counter, launches) in meta.items():
         r = rows[name]
         f32 = r["float32"]
         kernels.append({
             "name": name, "route": route, "source": source, "replaces": replaces,
-            "launches": launches[name],
-            "launches_serving_f32": serve_launches[name],
-            "launches_training_f32": train_launches[name],
+            "launches": launches[counter],
+            "launches_by_run": {k: v[counter] for k, v in runs.items()},
             "max_abs_err": max(v["max_abs_err"] for v in r.values()),
             "max_rel_err_by_dtype": {d: v["max_rel_err"] for d, v in r.items()},
             "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
@@ -1029,6 +1342,11 @@ def main() -> int:
     summary = {"card": card, "serving": timings, "invert_edit_chain_ms_best_of_2": chain_ms,
                "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
                "profile": profile, "training": training,
+               "afhq": {"serving": afhq_timings, "launches": afhq_launches,
+                        "invert_edit_chain_ms_best_of_2": afhq_chain_ms,
+                        "chain_rel_err": afhq_chain_err,
+                        "launches_per_invert_edit_chain": afhq_per_request,
+                        "profile": afhq_profile},
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

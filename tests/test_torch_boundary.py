@@ -99,6 +99,7 @@ def _pairs():
     from asyrp_official_torch.utils import assets as p_assets, hostrng as p_rng
     from asyrp_official_tpu.cli import main as j_cli
     from asyrp_official_tpu.compat import delta_ckpt as j_ckpt
+    from asyrp_official_tpu.compat import torch_convert as j_conv
     from asyrp_official_tpu.core import schedule as j_sched, steptable as j_tab
     from asyrp_official_tpu.pipelines import interval as j_int
     from asyrp_official_tpu.utils import assets as j_assets, hostrng as j_rng
@@ -130,6 +131,23 @@ def _pairs():
     def defaults(m):
         return sorted(vars(m.build_parser().parse_args(["--config", "custom.yml"])).items())
 
+    def flat(d):
+        return [k for k in sorted(d)] + [np.asarray(d[k]) for k in sorted(d)]
+
+    def openai_block(ckpt, to_tree):
+        # an OpenAI-flavor DeltaBlock: JAX-layout tree -> torch keys -> tree
+        tree = {"in_norm": {"scale": np.linspace(0.5, 1.5, 32, dtype=np.float32),
+                            "bias": np.linspace(-1, 1, 32, dtype=np.float32)},
+                "in_conv": {"w": np.arange(32 * 32, dtype=np.float32).reshape(32, 32),
+                            "b": np.ones(32, np.float32)},
+                "emb": {"w": np.arange(64 * 32, dtype=np.float32).reshape(64, 32) / 7,
+                        "b": np.zeros(32, np.float32)},
+                "out_norm": {"scale": np.ones(32, np.float32), "bias": np.zeros(32, np.float32)},
+                "out_conv": {"w": -np.eye(32, dtype=np.float32), "b": np.full(32, 2, np.float32)}}
+        sd = ckpt.blocks_to_torch_sd(tree, "openai")
+        back = to_tree(sd)
+        return flat(sd) + flat({f"{g}.{k}": v for g, kv in back.items() for k, v in kv.items()})
+
     return {
         "uniform_seq": (lambda: [p_sched.uniform_seq(n, 999) for n in (4, 40, 1000)],
                         lambda: [j_sched.uniform_seq(n, 999) for n in (4, 40, 1000)]),
@@ -146,12 +164,14 @@ def _pairs():
         "parser_defaults": (lambda: defaults(p_args), lambda: defaults(j_cli)),
         "src_trg_prompts": (lambda: p_assets.src_trg_prompts()["smiling"],
                             lambda: j_assets.src_trg_prompts()["smiling"]),
+        "openai_delta_block": (lambda: openai_block(p_ckpt, p_ckpt.convert_delta_block),
+                               lambda: openai_block(j_ckpt, j_conv.convert_delta_block)),
     }
 
 
 @pytest.mark.parametrize("name", ["uniform_seq", "train_seq", "make_schedule", "step_tables",
                                   "hostrng", "select_interval", "checkpoint_name",
-                                  "parser_defaults", "src_trg_prompts"])
+                                  "parser_defaults", "src_trg_prompts", "openai_delta_block"])
 def test_copied_function_equals_the_original(name):
     port, ref = _pairs()[name]
     got, want = port(), ref()

@@ -165,3 +165,103 @@ def test_stochastic_chain_without_noise_source_raises(weights):
     gen = tengine.make_generate(SPEC, SCHED, uniform_seq(4, 999), t_addnoise=T_ADDNOISE)
     with pytest.raises(ValueError, match="generator"):
         gen(model, torch.from_numpy(_x()))
+
+
+# ---------------------------------------------------------------------------
+# the OpenAI family: learn_sigma (2C output channels), `sample_type` ddim and
+# ddpm, on the tiny OpenAI config with perturbed weights (the seeded init's
+# zero output layers redrawn: test_torch_openai.perturbed)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def oai():
+    from test_torch_openai import OPENAI_TINY_CONFIG, perturbed
+
+    from asyrp_official_tpu.runner import spec_from_config as jspec_from_config
+
+    spec, jspec = spec_from_config(OPENAI_TINY_CONFIG), jspec_from_config(OPENAI_TINY_CONFIG)
+    assert spec.learn_sigma and jspec.learn_sigma
+    params = perturbed(spec.init(hostrng.PRNGKey(2)))
+    model = spec.build()
+    model.load_state_dict(spec.state_dict_from_jax(params))
+    jblock = jdelta.delta_block_init(hostrng.PRNGKey(4), spec.bottleneck_ch, spec.temb_ch,
+                                     flavor="openai")
+    tblock = tdelta.delta_block_from_tree(jblock, spec.bottleneck_ch, spec.temb_ch, flavor="openai")
+    coeff = np.array([1.0, 1.5], np.float32)
+    jedit = jdelta.EditState(blocks=(jblock,), hs_coeff=jnp.asarray(coeff), flavor="openai")
+    tedit = tdelta.EditState(blocks=(tblock.eval(),), hs_coeff=torch.from_numpy(coeff),
+                             flavor="openai")
+    return spec, jspec, jax.tree.map(jnp.asarray, params), model.eval(), jedit, tedit
+
+
+def test_openai_invert_matches_jax(oai):
+    spec, jspec, jparams, model, _, _ = oai
+    seq = uniform_seq(4, 999)
+    x0 = _x(6)
+    want, _ = jengine.make_invert(jspec, SCHED, seq)(jparams, jnp.asarray(x0))
+    got, _ = tengine.make_invert(spec, SCHED, seq)(model, torch.from_numpy(x0))
+    close_to_scale(np.asarray(want), got.numpy(), "x_lat")
+    assert got.shape == (2, 32, 32, 3)
+    assert float((got - torch.from_numpy(x0)).std()) > 0.1  # eps is far from zero
+
+
+@pytest.mark.parametrize("sample_type", ["ddim", "ddpm"])
+def test_openai_generate_matches_jax(oai, sample_type):
+    """The plain generation; "ddpm" draws noise at every step (the learned
+    log-variance scales it), "ddim" only below t_addnoise."""
+    spec, jspec, jparams, model, _, _ = oai
+    seq = uniform_seq(6, 999)
+    x = _x(7)
+    rng = jax.random.PRNGKey(13)
+    want, jys = jengine.make_generate(jspec, SCHED, seq, t_addnoise=T_ADDNOISE,
+                                      sample_type=sample_type, collect=("x0_t",))(
+        jparams, jnp.asarray(x), rng)
+    draws = []
+    noise = _jax_noise(rng)
+
+    def noise_fn(step, shape):
+        draws.append(step)
+        return noise(step, shape)
+
+    got, tys = tengine.make_generate(spec, SCHED, seq, t_addnoise=T_ADDNOISE,
+                                     sample_type=sample_type, collect=("x0_t",))(
+        model, torch.from_numpy(x), noise_fn=noise_fn)
+    close_to_scale(np.asarray(want), got.numpy(), f"x_gen {sample_type}")
+    close_to_scale(np.asarray(jys["x0_t"]), tys["x0_t"].numpy(), f"x0_t {sample_type}")
+    table = generation_table(seq, t_addnoise=T_ADDNOISE)
+    stochastic = [i for i in range(6) if sample_type == "ddpm" or table.eta[i] != 0]
+    assert draws == stochastic and 0 < len(draws)
+
+
+@pytest.mark.parametrize("sample_type", ["ddim", "ddpm"])
+def test_openai_edit_generate_two_segment_matches_jax(oai, sample_type):
+    spec, jspec, jparams, model, jedit, tedit = oai
+    seq = uniform_seq(6, 999)
+    x = _x(8)
+    rng = jax.random.PRNGKey(17)
+    kw = dict(t_edit=T_EDIT, t_addnoise=T_ADDNOISE, sample_type=sample_type)
+    want, _ = jengine.make_edit_generate(jspec, SCHED, seq, **kw)(jparams, jedit, jnp.asarray(x),
+                                                                 rng)
+    got, _ = tengine.make_edit_generate(spec, SCHED, seq, **kw)(model, tedit, torch.from_numpy(x),
+                                                                noise_fn=_jax_noise(rng))
+    plain, _ = tengine.make_generate(spec, SCHED, seq, t_addnoise=T_ADDNOISE,
+                                     sample_type=sample_type)(model, torch.from_numpy(x),
+                                                              noise_fn=_jax_noise(rng))
+    close_to_scale(np.asarray(want), got.numpy(), f"x_edit {sample_type}")
+    if sample_type == "ddim":
+        assert float((got - plain).abs().max()) > 1e-3  # the edit moved the output
+    else:  # the JAX ancestral step reads eps, never eps_mod: the edit changes nothing
+        torch.testing.assert_close(got, plain, rtol=0, atol=0)
+
+
+def test_openai_invert_edit_matches_jax(oai):
+    spec, jspec, jparams, model, jedit, tedit = oai
+    seq = uniform_seq(4, 999)
+    x0 = _x(9, b=1)
+    rng = jax.random.PRNGKey(19)
+    want = jengine.make_invert_edit(jspec, SCHED, seq, seq, t_edit=T_EDIT, t_addnoise=T_ADDNOISE)(
+        jparams, jedit, jnp.asarray(x0), rng)
+    got = tengine.make_invert_edit(spec, SCHED, seq, seq, t_edit=T_EDIT, t_addnoise=T_ADDNOISE)(
+        model, tedit, torch.from_numpy(x0), noise_fn=_jax_noise(rng))
+    close_to_scale(np.asarray(want), got.numpy(), "x_edit")

@@ -9,7 +9,7 @@ full-width serving and training paths.
 
 Tolerances: max error relative to scale 1e-5 in float32 (K1, K2: sums in
 another order), 2e-2 in bfloat16 (one bf16 ulp is 2^-8), 1e-6 for the
-float32 DDIM step (elementwise, ulp-level differences only). The backward
+float32 DDIM and DDPM steps (elementwise, ulp-level differences only). The backward
 kernels (K1-bwd, K2-bwd) against `torch.autograd.grad` through the plain
 forward: 1e-4 in float32, 5e-2 in bfloat16 (the gradient passes through
 more roundings of the I/O type).
@@ -20,6 +20,7 @@ import torch
 from parity_utils import close_to_scale
 
 from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
+from asyrp_official_torch.ops import ddpm_step as kddpm
 
 _DDIM_CASES = {
     # name: (at, at_next, eta, with_noise, dt_lambda, apply_dt)
@@ -64,6 +65,59 @@ def test_attention_kernel_matches_plain(cuda_device, shape, dtype, bound):
     close_to_scale(k2.attention_plain(q, k, v).float().cpu().numpy(),
                    k2.attention(q, k, v).float().cpu().numpy(), "attention kernel", bound=bound)
     assert k2.attention.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,heads,legacy", [
+    ((1, 256, 512), 8, True), ((2, 64, 512), 8, True),  # AFHQ/FFHQ: 16^2 and the middle block
+    ((1, 1024, 512), 8, True),  # IMAGENET's 32^2 level
+    ((2, 100, 96), 3, True), ((1, 64, 128), 4, False)])
+def test_multihead_attention_kernel_matches_plain(cuda_device, shape, heads, legacy, dtype, bound):
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype) for _ in range(3))
+    n, n1 = k2.attention.mh_launches, k2.attention.launches
+    kw = dict(num_heads=heads, legacy_scale=legacy)
+    close_to_scale(k2.attention_plain(q, k, v, **kw).float().cpu().numpy(),
+                   k2.attention(q, k, v, **kw).float().cpu().numpy(),
+                   "multi-head attention kernel", bound=bound)
+    assert k2.attention.mh_launches == n + 1 and k2.attention.launches == n1
+
+
+@pytest.mark.cuda
+def test_ddim_step_kernel_reads_strided_learn_sigma_channels(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    x, noise = (torch.randn(1, 256, 256, 3, generator=g, device=cuda_device) for _ in range(2))
+    raw, raw_mod = (torch.randn(1, 256, 256, 6, generator=g, device=cuda_device)
+                    for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):  # the model's output dtype
+        eps, eps_mod = raw.to(dtype)[..., :3], raw_mod.to(dtype)[..., :3]
+        args = (x, eps, eps_mod, torch.full((1,), 0.8, device=cuda_device),
+                torch.full((1,), 0.85, device=cuda_device), 1.0, noise)
+        n = k3.ddim_step.launches
+        for w, g_, name in zip(k3.ddim_step_plain(*args), k3.ddim_step(*args), ("x_next", "x0_t")):
+            close_to_scale(w.cpu().numpy(), g_.cpu().numpy(), f"strided {dtype} {name}", bound=1e-6)
+        assert k3.ddim_step.launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learned", [True, False])
+@pytest.mark.parametrize("carry", [torch.float32, torch.bfloat16])
+def test_ddpm_step_kernel_matches_plain(cuda_device, learned, carry):
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    x, noise = (torch.randn(2, 256, 256, 3, generator=g, device=cuda_device).to(carry)
+                for _ in range(2))
+    raw = torch.randn(2, 256, 256, 6, generator=g, device=cuda_device)
+    raw[..., 3:] = -2.0 + 0.5 * raw[..., 3:]
+    logvar = raw[..., 3:] if learned else torch.tensor([-3.9, -6.1], device=cuda_device)
+    args = (x, raw[..., :3], logvar, torch.tensor([0.02, 0.008], device=cuda_device),
+            torch.tensor([4e-5, 0.1], device=cuda_device),
+            torch.tensor([999.0, 0.0], device=cuda_device), noise)  # a t = 0 row
+    n = kddpm.ddpm_step.launches
+    got = kddpm.ddpm_step(*args)
+    assert kddpm.ddpm_step.launches == n + 1 and got.dtype == carry
+    close_to_scale(kddpm.ddpm_step_plain(*args).float().cpu().numpy(), got.float().cpu().numpy(),
+                   f"ddpm_step learned={learned}", bound=1e-6 if carry == torch.float32 else 1e-2)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ import torch
 from parity_utils import close_to_scale
 
 from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
+from asyrp_official_torch.ops import ddpm_step as kddpm
 from asyrp_official_tpu.core import ddim as jddim
 from asyrp_official_tpu.models import common as jcm
 from asyrp_official_tpu.models import ddpmpp as jddpmpp
@@ -168,6 +169,53 @@ def test_attention_plain_bf16_matches_jax():
                    bound=1e-2)
 
 
+# the OpenAI UNets: AFHQ/FFHQ's 16^2 and 8^2 attention (C = 512 as 8 heads
+# of 64) and a tiny shape (4 heads of 8)
+_MH_SHAPES = [((1, 256, 512), 8), ((2, 64, 512), 8), ((2, 16, 32), 4)]
+
+
+@pytest.mark.parametrize("shape,heads", _MH_SHAPES)
+def test_attention_multihead_legacy_plain_matches_jax(shape, heads):
+    rng = np.random.RandomState(10)
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    want = jcm.spatial_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                 num_heads=heads, legacy_scale=True)
+    got = k2.attention(*(torch.from_numpy(a) for a in (q, k, v)), num_heads=heads,
+                       legacy_scale=True)
+    close_to_scale(np.asarray(want), got.numpy(), f"attention {shape}/{heads} legacy")
+
+
+@pytest.mark.parametrize("shape,heads", _MH_SHAPES)
+def test_attention_multihead_legacy_plain_bf16_matches_jax(shape, heads):
+    """JAX rounds the scale d^-0.25 and q*s, k*s to bf16 before the product;
+    the port's plain version does the same."""
+    rng = np.random.RandomState(11)
+    q, k, v = (rng.randn(*shape).astype(np.float32) for _ in range(3))
+    want = jcm.spatial_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)),
+                                 num_heads=heads, legacy_scale=True)
+    got = k2.attention(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)),
+                       num_heads=heads, legacy_scale=True)
+    assert got.dtype == torch.bfloat16
+    close_to_scale(np.asarray(want.astype(jnp.float32)), got.float().numpy(),
+                   f"attention bf16 {shape}/{heads} legacy", bound=1e-2)
+
+
+def test_attention_multihead_without_legacy_scale_matches_jax():
+    rng = np.random.RandomState(12)
+    q, k, v = (rng.randn(2, 16, 32).astype(np.float32) for _ in range(3))
+    want = jcm.spatial_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), num_heads=4)
+    got = k2.attention(*(torch.from_numpy(a) for a in (q, k, v)), num_heads=4)
+    close_to_scale(np.asarray(want), got.numpy(), "attention 4 heads, logit scale")
+
+
+def test_attention_multihead_backward_raises():
+    """The multi-head gradient is not ported (OpenAI-family training)."""
+    q = torch.randn(1, 16, 32, requires_grad=True)
+    out = k2.attention(q, q.detach(), q.detach(), num_heads=4, legacy_scale=True)
+    with pytest.raises(NotImplementedError, match="multi-head"):
+        out.sum().backward()
+
+
 def _attn_vjp(q, k, v, do):
     _, vjp = jax.vjp(jcm.spatial_attention, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     return [np.asarray(g) for g in vjp(jnp.asarray(do))]
@@ -283,6 +331,87 @@ def test_ddim_step_bf16_carry_keeps_f32_coefficients():
     np.testing.assert_array_equal(np.asarray(want[1].astype(jnp.float32)), x0.float().numpy())
 
 
+def test_ddim_step_on_strided_learn_sigma_channels_matches_jax():
+    """eps and eps_mod as the first C of a [B, H, W, 2C] model output (the
+    views the sampler hands K3 under learn_sigma)."""
+    rng = np.random.RandomState(13)
+    x, noise = (rng.randn(2, 8, 8, 3).astype(np.float32) for _ in range(2))
+    raw, raw_mod = (rng.randn(2, 8, 8, 6).astype(np.float32) for _ in range(2))
+    bj = lambda v: jnp.full((2,), v, jnp.float32)
+    want = jddim.ddim_step(jnp.asarray(x), jnp.asarray(raw[..., :3]), jnp.asarray(raw_mod[..., :3]),
+                           bj(0.8), bj(0.85), 1.0, jnp.asarray(noise))
+    eps, eps_mod = torch.from_numpy(raw)[..., :3], torch.from_numpy(raw_mod)[..., :3]
+    assert not eps.is_contiguous() and k3.row_stride(eps) == 6
+    got = k3.ddim_step(torch.from_numpy(x), eps, eps_mod, torch.full((2,), 0.8),
+                       torch.full((2,), 0.85), 1.0, torch.from_numpy(noise))
+    for w, g, name in zip(want, got, ("x_next", "x0_t")):
+        close_to_scale(np.asarray(w), g.numpy(), f"strided {name}")
+
+
+def test_row_stride():
+    """The row stride the K3 / ddpm_step wrappers hand their kernels."""
+    a = torch.zeros(2, 4, 4, 6)
+    assert k3.row_stride(a) == 6 and k3.row_stride(a[..., :3]) == 6
+    assert k3.row_stride(a[..., 3:]) == 6
+    assert k3.row_stride(torch.zeros(1, 1, 1, 3)) == 3
+    with pytest.raises(ValueError, match="unit stride"):
+        k3.row_stride(a.transpose(2, 3)[..., ::2])
+    with pytest.raises(ValueError, match="evenly spaced"):
+        k3.row_stride(a[:, :2])
+
+
+# ---------------------------------------------------------------------------
+# the DDPM ancestral step
+# ---------------------------------------------------------------------------
+
+_DDPM_CASES = {
+    # name: (t per sample, learned per-element logvar)
+    "learned_logvar": ([999.0, 400.0], True),
+    "table_logvar": ([999.0, 400.0], False),
+    "t0_row_learned": ([10.0, 0.0], True),
+    "t0_row_table": ([0.0, 10.0], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_DDPM_CASES))
+def test_ddpm_step_plain_matches_jax(case):
+    t, learned = _DDPM_CASES[case]
+    rng = np.random.RandomState(14)
+    x, noise = (rng.randn(2, 8, 8, 3).astype(np.float32) for _ in range(2))
+    raw = rng.randn(2, 8, 8, 6).astype(np.float32)  # eps | learned logvar
+    raw[..., 3:] = -2.0 + 0.5 * raw[..., 3:]
+    bt = np.array([0.02, 0.008], np.float32)
+    at = np.array([4e-5, 0.1], np.float32)
+    table_lv = np.array([-3.9, -6.1], np.float32)
+    want = jddim.ddpm_step(jnp.asarray(x), jnp.asarray(raw[..., :3]),
+                           jnp.asarray(raw[..., 3:] if learned else table_lv), jnp.asarray(bt),
+                           jnp.asarray(at), jnp.asarray(t), jnp.asarray(noise))
+    traw = torch.from_numpy(raw)
+    got = kddpm.ddpm_step(torch.from_numpy(x), traw[..., :3],
+                          traw[..., 3:] if learned else torch.from_numpy(table_lv),
+                          torch.from_numpy(bt), torch.from_numpy(at), torch.tensor(t),
+                          torch.from_numpy(noise))
+    close_to_scale(np.asarray(want), got.numpy(), f"ddpm_step {case}")
+    for i, ti in enumerate(t):  # no noise where t == 0
+        if ti == 0:
+            mean = (x[i] - bt[i] / np.sqrt(1 - at[i]) * raw[i, ..., :3]) / np.sqrt(1 - bt[i])
+            np.testing.assert_allclose(got[i].numpy(), mean, rtol=1e-5, atol=1e-5)
+
+
+def test_ddpm_step_bf16_carry_matches_jax():
+    rng = np.random.RandomState(15)
+    x, eps, noise = (rng.randn(1, 8, 8, 3).astype(np.float32) for _ in range(3))
+    bf = lambda a: jnp.asarray(a, jnp.bfloat16)
+    want = jddim.ddpm_step(bf(x), bf(eps), jnp.asarray([-4.0]), jnp.asarray([0.02]),
+                           jnp.asarray([0.9999]), jnp.asarray([5.0]), bf(noise))
+    tb = lambda a: torch.from_numpy(a).to(torch.bfloat16)
+    got = kddpm.ddpm_step(tb(x), tb(eps), torch.tensor([-4.0]), torch.tensor([0.02]),
+                          torch.tensor([0.9999]), torch.tensor([5.0]), tb(noise))
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    close_to_scale(np.asarray(want.astype(jnp.float32)), got.float().numpy(), "ddpm bf16",
+                   bound=1e-2)
+
+
 # ---------------------------------------------------------------------------
 # dispatch: CPU tensors take the plain path; no counter moves
 # ---------------------------------------------------------------------------
@@ -290,7 +419,8 @@ def test_ddim_step_bf16_carry_keeps_f32_coefficients():
 
 def _counts():
     return (k1.group_norm.launches, k1.group_norm.bwd_launches, k2.attention.launches,
-            k2.attention.bwd_launches, k3.ddim_step.launches)
+            k2.attention.mh_launches, k2.attention.bwd_launches, k3.ddim_step.launches,
+            kddpm.ddpm_step.launches)
 
 
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
@@ -302,6 +432,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     q = torch.randn(1, 16, 8)
     torch.testing.assert_close(k2.attention(q, q, q), k2.attention_plain(q, q, q), rtol=0, atol=0)
     k3.ddim_step(q, q, q, 0.5, 0.6, 0.0)
+    torch.testing.assert_close(k2.attention(q, q, q, num_heads=2, legacy_scale=True),
+                               k2.attention_plain(q, q, q, num_heads=2, legacy_scale=True),
+                               rtol=0, atol=0)
+    kddpm.ddpm_step(q, q, q, 0.02, 0.5, 3.0, q)
     xg = x.clone().requires_grad_()
     k1.group_norm(xg, torch.ones(32), torch.zeros(32), silu=True).sum().backward()
     qg = q.clone().requires_grad_()
@@ -318,6 +452,8 @@ def test_unsupported_device_raises():
         k2.attention(x[0], x[0], x[0])
     with pytest.raises(ValueError, match="no kernel"):
         k3.ddim_step(x, x, x, 0.5, 0.6, 0.0)
+    with pytest.raises(ValueError, match="no kernel"):
+        kddpm.ddpm_step(x, x, x, 0.02, 0.5, 3.0, x)
 
 
 def test_device_cuda_without_cuda_raises():
@@ -335,6 +471,7 @@ def test_package_imports_no_jax():
             "import asyrp_official_torch, asyrp_official_torch.runner, asyrp_official_torch.cli.main\n"
             "import asyrp_official_torch.ops.groupnorm, asyrp_official_torch.ops.attention\n"
             "import asyrp_official_torch.ops.ddim_step, asyrp_official_torch.pipelines.precompute\n"
+            "import asyrp_official_torch.ops.ddpm_step, asyrp_official_torch.models.openai_unet\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "assert 'triton' not in sys.modules, 'triton imported at module import'\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
