@@ -1,6 +1,6 @@
 // K2: spatial self-attention, softmax(q k^T * scale) v per head, over
-// row-major [B, T, C] maps, f32 or bf16 I/O; forward with H heads (K2), and
-// the single-head backward (K2-bwd).
+// row-major [B, T, C] maps, f32 or bf16 I/O; forward (K2) and backward
+// (K2-bwd), both with H heads.
 //
 // Replaces: the JAX function `models/common.py` `spatial_attention` (formerly
 // the Pallas kernel `ops/attention.py` `_attn_kernel` and its
@@ -42,21 +42,30 @@
 // BM*T) * 4 bytes, 65.8 KB at T = 256, d = 512; 36.9 KB at T = 256, d = 64;
 // 86.3 KB at T = 1024, d = 64.
 //
-// Backward (one head; FlashAttention-2 style, from the saved lse;
-// S = q k^T * scale, P = exp(S - lse), D = rowsum(dO o O)):
-//   `attn_bwd_d`:  D, one warp per query row;
-//   `attn_bwd_dq`: one block per BM query rows recomputes S and dP = dO v^T
-//     for all keys (the same tile loop as the forward, two products at
-//     once), forms dS = P o (dP - D), and writes dQ = scale * dS k;
+// Backward (FlashAttention-2 style, from the saved lse; per (sample, head),
+// q' = q*pre and k' = k*pre rounded to the I/O type as in the forward,
+// S = q' k'^T * scale, P = exp(S - lse), D = rowsum(dO o O) over the head's
+// d columns only):
+//   `attn_bwd_d`:  D, one warp per (sample, head, query row);
+//   `attn_bwd_dq`: one block per BM query rows of one (sample, head)
+//     recomputes S and dP = dO v^T for all keys (the same tile loop as the
+//     forward, two products at once), forms dS = P o (dP - D), and writes
+//     dQ = pre * rnd(scale * dS k');
 //   `attn_bwd_dkv`: one block per BM key rows recomputes S^T and dP^T for
-//     all queries, and writes dV = P^T dO and dK = scale * dS^T q.
-// As in the reference's rounding, dP is rounded to the I/O type (the
-// gradient of the weights' cast) and, in bf16, P is cast to v's type before
-// the dV product, as the forward casts the weights before weights x v.
-// The backward recomputes S twice and does five [T, T, C] products, all with
+//     all queries, and writes dV = P^T dO and dK = pre * rnd(scale * dS^T q').
+// rnd() rounds to the I/O type. As in the reference's rounding (the
+// gradient XLA derives for `spatial_attention`): dP is rounded to the I/O
+// type (the gradient of the weights' cast); P is cast to v's type before
+// the dV product, as the forward casts the weights before weights x v; and
+// with `legacy_scale` the cotangent of q' (k') is rounded to the I/O type
+// before it is multiplied by pre, as the product q * pre in the I/O type
+// differentiates. Every output element is written by one thread of one
+// block, with no atomics, so the backward is deterministic run to run.
+// It recomputes S twice and does five [T, T, d] products per head, all with
 // FMAs from shared memory; it is bound like the forward. Dynamic shared
-// memory: (2*BM*C + 2*BN*(BK+1) + 2*BM*T) * 4 bytes, 131.6 KB at T = 256,
-// C = 512.
+// memory: (2*BM*d + 2*BN*(BK+1) + 2*BM*T) * 4 bytes, 131.6 KB at T = 256,
+// d = 512 (DDPM++); 74.2 KB at T = 256, d = 64 (8 heads); 172.5 KB at
+// T = 1024, d = 64.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -208,39 +217,45 @@ __global__ void attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// D[row] = sum_c dO[row, c] * O[row, c]; one warp per row, grid = B*T / 8
+// D[b, h, i] = sum over the head's d columns of dO[b, i, .] * O[b, i, .];
+// one warp per (sample, head, query row), grid = B*H*T / 8
 template <typename T>
 __global__ void attn_bwd_d(const T* __restrict__ o, const T* __restrict__ d_o,
-                           float* __restrict__ d, int64_t n_rows, int ch) {
+                           float* __restrict__ d, int64_t n_rows, int t_len, int ch, int heads) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= n_rows) return;
+  const int64_t bh = row / t_len, i = row % t_len;
+  const int64_t at = ((bh / heads) * t_len + i) * heads * ch + (bh % heads) * ch;
   float s = 0.f;
-  for (int c = lane; c < ch; c += 32) s += load_f(d_o, row * ch + c) * load_f(o, row * ch + c);
+  for (int c = lane; c < ch; c += 32) s += load_f(d_o, at + c) * load_f(o, at + c);
   for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) d[row] = s;
 }
 
-// dQ for BM query rows: grid = (ceil(T / BM), B)
+// dQ for BM query rows of one (sample, head): grid = (ceil(T / BM), B * H),
+// blockIdx.y = b * H + h; d = ch, ld = H * d
 template <typename T>
 __global__ void attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
                             const T* __restrict__ v, const T* __restrict__ d_o,
                             const float* __restrict__ lse, const float* __restrict__ dd,
-                            T* __restrict__ dq, int t_len, int ch, float scale) {
+                            T* __restrict__ dq, int t_len, int ch, int heads, float scale,
+                            float pre) {
   extern __shared__ float smem[];
-  float* qs = smem;                   // [BM][ch]
+  float* qs = smem;                   // [BM][ch]: q' = q * pre, I/O-rounded
   float* dos = qs + BM * ch;          // [BM][ch]
   float* ks = dos + BM * ch;          // [BN][BK + 1]
   float* vs = ks + BN * (BK + 1);     // [BN][BK + 1]
   float* ds = vs + BN * (BK + 1);     // [BM][t_len]: dS
 
   const int tid = threadIdx.x;
-  const int64_t bt = (int64_t)blockIdx.y * t_len;
-  const int64_t base = bt * ch;
+  const int ld = heads * ch;
+  const int64_t bt = (int64_t)blockIdx.y * t_len;  // row of (b, h) in lse and D
+  const int64_t base = (int64_t)(blockIdx.y / heads) * t_len * ld + (blockIdx.y % heads) * ch;
   const int r0 = blockIdx.x * BM;
   const int rows = min(BM, t_len - r0);
-  load_tile(qs, q + base, r0, rows, ch, ch, 1.f);
-  load_tile(dos, d_o + base, r0, rows, ch, ch, 1.f);
+  load_tile(qs, q + base, r0, rows, ch, ld, pre);
+  load_tile(dos, d_o + base, r0, rows, ch, ld, 1.f);
 
   const int my_r = tid / 16, my_j = tid % 16;
   const bool live = my_r < rows;
@@ -248,7 +263,7 @@ __global__ void attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   const float d_i = live ? dd[bt + r0 + my_r] : 0.f;
   for (int j0 = 0; j0 < t_len; j0 += BN) {
     float acc_s[4], acc_dp[4];
-    tile_dots<T>(qs, dos, k + base, v + base, j0, t_len, ch, ch, 1.f, ks, vs, acc_s, acc_dp);
+    tile_dots<T>(qs, dos, k + base, v + base, j0, t_len, ch, ld, pre, ks, vs, acc_s, acc_dp);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int j = j0 + my_j + 16 * m;
@@ -264,23 +279,25 @@ __global__ void attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < BM; ++r) acc[r] = 0.f;
     for (int j = 0; j < t_len; ++j) {
-      const float kv = load_f(k, base + (int64_t)j * ch + c);
+      const float kv = round_to(load_f(k, base + (int64_t)j * ld + c) * pre, k);
 #pragma unroll
       for (int r = 0; r < BM; ++r) acc[r] += ds[r * t_len + j] * kv;
     }
-    for (int r = 0; r < rows; ++r) store_f(dq, base + (int64_t)(r0 + r) * ch + c, acc[r] * scale);
+    // the cotangent of q' is rounded to the I/O type before the pre-scale
+    for (int r = 0; r < rows; ++r)
+      store_f(dq, base + (int64_t)(r0 + r) * ld + c, round_to(acc[r] * scale, q) * pre);
   }
 }
 
-// dK, dV for BM key rows: grid = (ceil(T / BM), B)
+// dK, dV for BM key rows of one (sample, head): grid = (ceil(T / BM), B * H)
 template <typename T>
 __global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
                              const T* __restrict__ v, const T* __restrict__ d_o,
                              const float* __restrict__ lse, const float* __restrict__ dd,
-                             T* __restrict__ dk, T* __restrict__ dv, int t_len, int ch,
-                             float scale) {
+                             T* __restrict__ dk, T* __restrict__ dv, int t_len, int ch, int heads,
+                             float scale, float pre) {
   extern __shared__ float smem[];
-  float* kts = smem;                  // [BM][ch]: this block's key rows
+  float* kts = smem;                  // [BM][ch]: this block's key rows k' = k * pre
   float* vts = kts + BM * ch;         // [BM][ch]: its value rows
   float* qs = vts + BM * ch;          // [BN][BK + 1]
   float* dos = qs + BN * (BK + 1);    // [BN][BK + 1]
@@ -288,18 +305,19 @@ __global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   float* ds = ps + BM * t_len;        // [BM][t_len]: dS^T
 
   const int tid = threadIdx.x;
+  const int ld = heads * ch;
   const int64_t bt = (int64_t)blockIdx.y * t_len;
-  const int64_t base = bt * ch;
+  const int64_t base = (int64_t)(blockIdx.y / heads) * t_len * ld + (blockIdx.y % heads) * ch;
   const int r0 = blockIdx.x * BM;
   const int rows = min(BM, t_len - r0);
-  load_tile(kts, k + base, r0, rows, ch, ch, 1.f);
-  load_tile(vts, v + base, r0, rows, ch, ch, 1.f);
+  load_tile(kts, k + base, r0, rows, ch, ld, pre);
+  load_tile(vts, v + base, r0, rows, ch, ld, 1.f);
 
   const int my_r = tid / 16, my_j = tid % 16;
   const bool live = my_r < rows;
   for (int i0 = 0; i0 < t_len; i0 += BN) {
     float acc_s[4], acc_dp[4];  // S[i, key] and dP[i, key] for queries i = i0 + my_j + 16 m
-    tile_dots<T>(kts, vts, q + base, d_o + base, i0, t_len, ch, ch, 1.f, qs, dos, acc_s,
+    tile_dots<T>(kts, vts, q + base, d_o + base, i0, t_len, ch, ld, pre, qs, dos, acc_s,
                  acc_dp);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
@@ -317,8 +335,8 @@ __global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < BM; ++r) acc_v[r] = acc_k[r] = 0.f;
     for (int i = 0; i < t_len; ++i) {
-      const float dov = load_f(d_o, base + (int64_t)i * ch + c);
-      const float qv = load_f(q, base + (int64_t)i * ch + c);
+      const float dov = load_f(d_o, base + (int64_t)i * ld + c);
+      const float qv = round_to(load_f(q, base + (int64_t)i * ld + c) * pre, q);
 #pragma unroll
       for (int r = 0; r < BM; ++r) {
         acc_v[r] += ps[r * t_len + i] * dov;
@@ -326,8 +344,8 @@ __global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     for (int r = 0; r < rows; ++r) {
-      store_f(dv, base + (int64_t)(r0 + r) * ch + c, acc_v[r]);
-      store_f(dk, base + (int64_t)(r0 + r) * ch + c, acc_k[r] * scale);
+      store_f(dv, base + (int64_t)(r0 + r) * ld + c, acc_v[r]);
+      store_f(dk, base + (int64_t)(r0 + r) * ld + c, round_to(acc_k[r] * scale, q) * pre);
     }
   }
 }
@@ -351,21 +369,23 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o,
                const void* lse, void* d, void* dq, void* dk, void* dv, int batch, int t_len,
-               int ch, float scale, cudaStream_t stream) {
+               int ch, int heads, float scale, float pre, cudaStream_t stream) {
+  if (heads < 1 || ch % heads != 0) return (int)cudaErrorInvalidValue;
+  const int hd = ch / heads;
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k);
   const T *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(d_o);
   const float* lf = static_cast<const float*>(lse);
   float* df = static_cast<float*>(d);
-  const int64_t n_rows = (int64_t)batch * t_len;
+  const int64_t n_rows = (int64_t)batch * heads * t_len;
   const int rows_per_block = kThreads / 32;
   attn_bwd_d<T><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), kThreads, 0,
-                  stream>>>(static_cast<const T*>(o), dot, df, n_rows, ch);
+                  stream>>>(static_cast<const T*>(o), dot, df, n_rows, t_len, hd, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   const size_t smem =
-      sizeof(float) * (2 * (size_t)BM * ch + 2 * (size_t)BN * (BK + 1) + 2 * (size_t)BM * t_len);
-  const dim3 grid((t_len + BM - 1) / BM, batch);
+      sizeof(float) * (2 * (size_t)BM * hd + 2 * (size_t)BN * (BK + 1) + 2 * (size_t)BM * t_len);
+  const dim3 grid((t_len + BM - 1) / BM, batch * heads);
   err = cudaFuncSetAttribute(attn_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -373,11 +393,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dq<T><<<grid, kThreads, smem, stream>>>(qt, kt, vt, dot, lf, df, static_cast<T*>(dq),
-                                                   t_len, ch, scale);
+                                                   t_len, hd, heads, scale, pre);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   attn_bwd_dkv<T><<<grid, kThreads, smem, stream>>>(qt, kt, vt, dot, lf, df, static_cast<T*>(dk),
-                                                    static_cast<T*>(dv), t_len, ch, scale);
+                                                    static_cast<T*>(dv), t_len, hd, heads, scale,
+                                                    pre);
   return (int)cudaGetLastError();
 }
 
@@ -399,17 +420,20 @@ extern "C" int asyrp_attention(const void* q, const void* k, const void* v, void
 }
 
 // The backward: q, k, v, o (the forward's output), d_o and the outputs dq,
-// dk, dv are contiguous [batch, t_len, ch] in the I/O dtype; lse is the
-// forward's float32 [batch, t_len]; d is float32 [batch, t_len] scratch.
+// dk, dv are contiguous [batch, t_len, ch] in the I/O dtype, ch = heads * d
+// with head h in channels [h*d, (h+1)*d); lse is the forward's float32
+// [batch, heads, t_len]; d is float32 [batch, heads, t_len] scratch.
+// `scale` and `pre` as for the forward.
 extern "C" int asyrp_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const void* d_o, const void* lse, void* d, void* dq, void* dk,
-                                   void* dv, int batch, int t_len, int ch, float scale,
-                                   int dtype, void* stream) {
+                                   void* dv, int batch, int t_len, int ch, int heads, float scale,
+                                   float pre, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch, scale, s);
+    return launch_bwd<float>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch, heads, scale,
+                             pre, s);
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch,
-                                     scale, s);
+                                     heads, scale, pre, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
-"""K2: spatial self-attention, forward (one or several heads) and the
-single-head backward — the hand-written CUDA kernels of `csrc/attention.cu`
-and their plain PyTorch versions.
+"""K2: spatial self-attention, forward and backward, with one or several
+heads — the hand-written CUDA kernels of `csrc/attention.cu` and their
+plain PyTorch versions.
 
 Stands for the JAX `models/common.py` `spatial_attention` and the gradient
 XLA derives for it. q, k, v are contiguous `[B, T, C]` maps; head h owns
@@ -15,12 +15,12 @@ weights are cast to v's dtype before the second product.
 `attention` dispatches on the tensor's device: a CPU tensor takes the plain
 versions, a CUDA tensor launches the kernels, anything else raises. When a
 gradient is needed it goes through `torch.autograd.Function`: the forward
-also keeps each row's log-sum-exp (f32 [B, T]), and the backward recomputes
-the weights from it — `attention_backward_plain` on the CPU, kernel K2-bwd
-on CUDA. The backward is single-head only: several heads raise
-NotImplementedError there (the OpenAI UNets do not train yet).
-`attention.launches` counts single-head forward launches,
-`attention.mh_launches` multi-head ones and `attention.bwd_launches` K2-bwd.
+also keeps each (head, row)'s log-sum-exp (f32 [B, H*T]), and the backward
+recomputes the weights from it — `attention_backward_plain` on the CPU,
+kernel K2-bwd on CUDA. `attention.launches` counts single-head forward
+launches, `attention.mh_launches` multi-head ones, `attention.bwd_launches`
+single-head backward launches and `attention.mh_bwd_launches` multi-head
+ones.
 """
 from __future__ import annotations
 
@@ -36,8 +36,6 @@ __all__ = ["attention", "attention_plain", "attention_backward", "attention_back
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _BM, _BN, _BK = 16, 64, 64  # tile sizes of csrc/attention.cu
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
-_MH_TODO = ("the multi-head attention backward is not ported yet (OpenAI-family training, "
-            "ROADMAP.md Queue 2)")
 
 
 def _scales(d: int, legacy_scale: bool, dtype):
@@ -48,8 +46,15 @@ def _scales(d: int, legacy_scale: bool, dtype):
     return 1.0, float(torch.tensor(1.0 / math.sqrt(math.sqrt(d))).to(dtype))
 
 
+def _acc(dtype):
+    """The plain versions' accumulation dtype: f32, or f64 for f64 inputs
+    (which only the plain versions take, e.g. under gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def _plain_with_lse(q, k, v, num_heads: int = 1, legacy_scale: bool = False):
     b, t, c = q.shape
+    acc = _acc(q.dtype)
     d = c // num_heads
     scale, pre = _scales(d, legacy_scale, q.dtype)
 
@@ -59,11 +64,11 @@ def _plain_with_lse(q, k, v, num_heads: int = 1, legacy_scale: bool = False):
     qh, kh, vh = heads(q), heads(k), heads(v)
     if legacy_scale:
         qh, kh = qh * pre, kh * pre
-    logits = torch.matmul(qh.float(), kh.float().transpose(-1, -2))
+    logits = torch.matmul(qh.to(acc), kh.to(acc).transpose(-1, -2))
     if not legacy_scale:
         logits = logits * scale
     w = torch.softmax(logits, dim=-1).to(v.dtype)
-    o = torch.matmul(w.float(), vh.float()).to(v.dtype)
+    o = torch.matmul(w.to(acc), vh.to(acc)).to(v.dtype)
     return o.transpose(1, 2).reshape(b, t, c), torch.logsumexp(logits, dim=-1).reshape(b, -1)
 
 
@@ -72,25 +77,46 @@ def attention_plain(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
     return _plain_with_lse(q, k, v, num_heads, legacy_scale)[0]
 
 
-def attention_backward_plain(q, k, v, o, d_o, lse):
-    """The backward from the forward's output `o` and row log-sum-exp `lse`
-    (FlashAttention-2 form), with S = q k^T * C^-0.5:
+def attention_backward_plain(q, k, v, o, d_o, lse, *, num_heads: int = 1,
+                             legacy_scale: bool = False):
+    """The backward from the forward's output `o` and log-sum-exp `lse`
+    ([B, H*T], head-major), FlashAttention-2 form, per head: with q' = q*s,
+    k' = k*s rounded to the I/O dtype (s = d^-0.25 with `legacy_scale`,
+    else 1) and S = q' k'^T * scale (scale = 1 with `legacy_scale`, else
+    d^-0.5),
 
-        P  = exp(S - lse);  D = rowsum(dO * O)
+        P  = exp(S - lse);  D = rowsum(dO * O) over the head's d columns
         dP = dO v^T  (rounded to the I/O dtype, the gradient of the weights' cast)
         dS = P * (dP - D)
-        dQ = C^-0.5 dS k;  dK = C^-0.5 dS^T q;  dV = P^T dO  (P cast to v's dtype)
+        dQ = s * rnd(scale dS k');  dK = s * rnd(scale dS^T q');  dV = P^T dO
+        (P cast to v's dtype)
 
-    Returns (dq, dk, dv) in the I/O dtype."""
-    scale = q.shape[-1] ** -0.5
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), d_o.float()
-    p = torch.exp(torch.matmul(qf, kf.transpose(1, 2)) * scale - lse[..., None])
-    dp = torch.matmul(dof, vf.transpose(1, 2)).to(v.dtype).float()
-    ds = p * (dp - (dof * o.float()).sum(dim=-1, keepdim=True))
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(1, 2), qf) * scale
-    dv = torch.matmul(p.to(v.dtype).float().transpose(1, 2), dof)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    where rnd() rounds to the I/O dtype, as JAX's gradient of `q * s` in a
+    bf16 q rounds the einsum's cotangent first. Returns (dq, dk, dv) in the
+    I/O dtype, [B, T, C]."""
+    b, t, c = q.shape
+    d = c // num_heads
+    scale, pre = _scales(d, legacy_scale, q.dtype)
+
+    def heads(a):  # [B, T, C] -> [B, H, T, d]
+        return a.reshape(b, t, num_heads, d).transpose(1, 2)
+
+    def back(a):  # [B, H, T, d] -> [B, T, C]
+        return a.transpose(1, 2).reshape(b, t, c)
+
+    acc = _acc(q.dtype)
+    qh, kh = heads(q), heads(k)
+    if legacy_scale:
+        qh, kh = qh * pre, kh * pre
+    qf, kf, vf, dof = (a.to(acc) for a in (qh, kh, heads(v), heads(d_o)))
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
+                  - lse.reshape(b, num_heads, t)[..., None])
+    dp = torch.matmul(dof, vf.transpose(-1, -2)).to(v.dtype).to(acc)
+    ds = p * (dp - (dof * heads(o).to(acc)).sum(dim=-1, keepdim=True))
+    dq = (torch.matmul(ds, kf) * scale).to(q.dtype) * pre
+    dk = (torch.matmul(ds.transpose(-1, -2), qf) * scale).to(k.dtype) * pre
+    dv = torch.matmul(p.to(v.dtype).to(acc).transpose(-1, -2), dof)
+    return back(dq), back(dk), back(dv.to(v.dtype))
 
 
 def _fn(name: str, argtypes):
@@ -103,7 +129,7 @@ def _fn(name: str, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 5 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
-_BWD_ARGS = [_P] * 10 + [_I, _I, _I, ctypes.c_float, _I, _P]
+_BWD_ARGS = [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 
 
 def _check(q, k, v, n_tiles: int, num_heads: int = 1):
@@ -147,32 +173,43 @@ def _attention_cuda(q, k, v, with_lse: bool, num_heads: int = 1, legacy_scale: b
     return o, lse
 
 
-def _attention_bwd_cuda(q, k, v, o, d_o, lse):
-    b, t, c = _check(q, k, v, 2)
+def _attention_bwd_cuda(q, k, v, o, d_o, lse, num_heads: int, legacy_scale: bool):
+    b, t, c = _check(q, k, v, 2, num_heads)
     d_o = d_o.contiguous()  # the caller's transposes may leave it strided
     if d_o.dtype != q.dtype or d_o.shape != q.shape:
         raise ValueError(f"attention backward: dO {d_o.dtype}{tuple(d_o.shape)} does not match "
                          f"q {q.dtype}{tuple(q.shape)}")
-    d = torch.empty(b, t, device=q.device, dtype=torch.float32)
+    scale, pre = _scales(c // num_heads, legacy_scale, q.dtype)
+    d = torch.empty(b, num_heads * t, device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         code = _fn("asyrp_attention_bwd", _BWD_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
-            lse.data_ptr(), d.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, t, c,
-            float(c ** -0.5), _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.contiguous().data_ptr(), d_o.data_ptr(),
+            lse.contiguous().data_ptr(), d.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, t, c, num_heads, scale, pre, _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(code, "attention backward kernel")
-    attention.bwd_launches += 1
+    if num_heads == 1:
+        attention.bwd_launches += 1
+    else:
+        attention.mh_bwd_launches += 1
     return dq, dk, dv
 
 
-def attention_backward(q, k, v, o, d_o, lse):
-    """K2-bwd: (dq, dk, dv) from the forward's output and `lse` — the plain
-    version for a CPU tensor, the kernels for a CUDA tensor."""
+def attention_backward(q, k, v, o, d_o, lse, *, num_heads: int = 1, legacy_scale: bool = False):
+    """K2-bwd: (dq, dk, dv) from the forward's output and `lse` ([B, H*T])
+    — the plain version for a CPU tensor, the kernels for a CUDA tensor."""
+    b, t, _ = q.shape
+    if lse.dtype != _acc(q.dtype) or tuple(lse.shape) != (b, num_heads * t):
+        raise ValueError(f"attention backward with {num_heads} head(s) needs the forward's "
+                         f"{_acc(q.dtype)} lse of shape {(b, num_heads * t)}, got {lse.dtype}"
+                         f"{tuple(lse.shape)}")
     if q.device.type == "cpu":
-        return attention_backward_plain(q, k, v, o, d_o, lse)
+        return attention_backward_plain(q, k, v, o, d_o, lse, num_heads=num_heads,
+                                        legacy_scale=legacy_scale)
     if q.device.type == "cuda":
-        return _attention_bwd_cuda(q, k, v, o, d_o, lse)
+        return _attention_bwd_cuda(q, k, v, o, d_o, lse, num_heads, legacy_scale)
     raise ValueError(f"attention_backward: no kernel for device {q.device}")
 
 
@@ -187,15 +224,14 @@ class _Attention(torch.autograd.Function):
         else:
             o, lse = _plain_with_lse(q, k, v, num_heads, legacy_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.num_heads = num_heads
+        ctx.num_heads, ctx.legacy_scale = num_heads, legacy_scale
         return o
 
     @staticmethod
     def backward(ctx, d_o):
-        if ctx.num_heads != 1:
-            raise NotImplementedError(_MH_TODO)
         q, k, v, o, lse = ctx.saved_tensors
-        return (*attention_backward(q, k, v, o, d_o, lse), None, None)
+        return (*attention_backward(q, k, v, o, d_o, lse, num_heads=ctx.num_heads,
+                                    legacy_scale=ctx.legacy_scale), None, None)
 
 
 def attention(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
@@ -211,3 +247,4 @@ def attention(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
 attention.launches = 0
 attention.mh_launches = 0
 attention.bwd_launches = 0
+attention.mh_bwd_launches = 0

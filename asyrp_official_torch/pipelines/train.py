@@ -14,7 +14,11 @@ every timestep:
 
 Both DDIM updates launch K3 on CUDA; the edited one goes through K3's
 `autograd.Function`, whose closed-form backward takes x0_t's gradient to
-eps_mod (eta 0).
+eps_mod (eta 0). K3 takes the model's outputs in the model's dtype and
+computes in f32. A `learn_sigma` model (the OpenAI family) outputs 2C
+channels: both updates read the first C, as strided views of the output
+that K3 takes without a copy; autograd scatters eps_mod's contiguous
+gradient back into the 2C-channel output.
 """
 from __future__ import annotations
 
@@ -55,7 +59,8 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
                     loss_fn: Callable = default_loss, compute_dtype=torch.float32,
                     ignore_timesteps: bool = False, cached_origin: bool = False):
     """Returns fn(model, edit, optimizer, x_lat, x0, lr[, origins]) ->
-    {"loss_per_step": [n], "loss": scalar}, training `edit.blocks` in place.
+    {"loss_per_step": [n], "loss": scalar, "x_next": the carry after the
+    last step}, training `edit.blocks` in place.
 
     With `cached_origin=True` the fn takes the x0_t_origin stack
     ([n_steps, B, H, W, C], from `fn.compute_origins(model, x_lat)`)
@@ -63,6 +68,12 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
     frozen UNet and x_lat, so it holds for every outer iteration."""
     table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps)
     acp_ext = torch.from_numpy(schedule.alphas_cumprod_ext)
+
+    def eps_of(out):
+        """The eps channels of a model output, in the model's dtype: the
+        first C of a learn_sigma model's 2C, as a strided view. K3 reads
+        either dtype and computes in f32."""
+        return out[..., : out.shape[-1] // 2] if spec.learn_sigma else out
 
     def coeffs(i: int, x):
         b = x.shape[0]
@@ -73,7 +84,7 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
     @torch.no_grad()
     def plain_origin_step(model, x_orig, i):
         t_b, at, at_next = coeffs(i, x_orig)
-        eps = spec.apply(model, x_orig.to(compute_dtype), t_b)[0].float()
+        eps = eps_of(spec.apply(model, x_orig.to(compute_dtype), t_b)[0])
         return k3.ddim_step(x_orig, eps, eps, at, at_next, 0.0)
 
     @torch.no_grad()
@@ -101,7 +112,7 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
             e = edit.at_step({"use_delta": float(table.use_delta[i])})
             eps, eps_mod, _, _ = spec.apply(model, x_edit.to(compute_dtype), t_b, edit=e,
                                             decode_mode="split")
-            x_next, x0_t = k3.ddim_step(x_edit, eps.float(), eps_mod.float(), at, at_next, 0.0)
+            x_next, x0_t = k3.ddim_step(x_edit, eps_of(eps), eps_of(eps_mod), at, at_next, 0.0)
             loss = loss_fn(x0_t, x0_t_origin, x0)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -109,7 +120,7 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
             x_edit = x_next.detach()
             losses.append(loss.detach())
         per_step = torch.stack(losses)
-        return {"loss_per_step": per_step, "loss": per_step.mean()}
+        return {"loss_per_step": per_step, "loss": per_step.mean(), "x_next": x_edit}
 
     train_step.compute_origins = compute_origins
     return train_step

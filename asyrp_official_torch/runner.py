@@ -1,11 +1,10 @@
 """AsyrpRunner — the port of the JAX `runner.py` for Δ-training of
 DeltaBlocks (`run_training` with `--train_delta_block`, the CLIP
-directional loss; the DDPM++ family) and edit serving (`run_test` with
-`--train_delta_block` checkpoints, `--sample_type ddim` or `ddpm`; the DDPM++
-and OpenAI families), on one device.
+directional loss) and edit serving (`run_test` with `--train_delta_block`
+checkpoints, `--sample_type ddim` or `ddpm`), for the DDPM++ and the
+OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device.
 
-Not ported yet (each raises `NotImplementedError`): training the OpenAI
-family (it needs the multi-head attention backward), the LPIPS stage,
+Not ported yet (each raises `NotImplementedError`): the LPIPS stage,
 DiffStyle, fidelity, `--train_delta_h` rows, the ID loss, multi-attribute
 mixing, delta-interpolation sweeps, mean-of-Δh harvesting, random-noise
 latents, process dumps and the multi-device flags (ROADMAP.md Queue 1).
@@ -237,10 +236,6 @@ class AsyrpRunner:
         for flag, what in _UNPORTED_TRAIN_FLAGS.items():
             if getattr(a, flag, None):
                 raise NotImplementedError(f"{what} {_TODO}")
-        if self.spec.family == "openai" and not getattr(a, "just_precompute", False):
-            raise NotImplementedError(
-                "training on the OpenAI-family UNets needs the multi-head attention backward "
-                "(kernel K2-bwd with num_heads > 1), which is not ported yet (ROADMAP.md Queue 2)")
         if a.get_h_num < 1:
             # the reference's default 0 leaves its optimizer with no parameters
             raise ValueError("--train_delta_block needs --get_h_num >= 1 (the reference "

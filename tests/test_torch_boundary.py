@@ -2,8 +2,10 @@
 
   * a subprocess imports every module of `asyrp_official_torch`, runs the
     tiny `--run_train` recipe and then a tiny `--run_test` with the trained
-    block on `--device cpu`, and finds neither `jax` nor any
-    `asyrp_official_tpu` module in `sys.modules`;
+    block on `--device cpu`, then the tiny OpenAI-family `--run_train` (a
+    learn_sigma UNet with 4-head attention, from a perturbed `.pt`), and
+    finds neither `jax` nor any `asyrp_official_tpu` module in
+    `sys.modules`;
   * an AST scan finds no import of either in the port's sources or in
     `chip_smoke.py`;
   * the data files the port copied (configs, assets) are byte-identical to
@@ -42,6 +44,29 @@ print("PORT_STANDS_ALONE")
 '''
 
 
+def _openai_workspace(root: pathlib.Path) -> list:
+    """The tiny OpenAI yml and a perturbed `.pt` of it (so eps is not zero);
+    returns the training argv."""
+    import torch
+    import yaml
+
+    from asyrp_official_torch.models.registry import spec_from_config
+    from asyrp_official_torch.utils import hostrng
+    from asyrp_official_tpu.utils.tinyws import tiny_base_argv, write_tiny_workspace
+    from test_torch_openai import OPENAI_TINY_CONFIG, perturbed
+
+    _, imgs = write_tiny_workspace(str(root))
+    cfg = str(root / "oai.yml")
+    with open(cfg, "w") as f:
+        yaml.safe_dump(OPENAI_TINY_CONFIG, f)
+    spec = spec_from_config(OPENAI_TINY_CONFIG)
+    torch.save(spec.state_dict_from_jax(perturbed(spec.init(hostrng.PRNGKey(5)))),
+               root / "oai_unet.pt")
+    return tiny_base_argv(cfg, imgs, str(root), str(root / "runs" / "oai"), extra=[
+        "--run_train", "--train_delta_block", "--do_test", "0", "--save_train_image", "0",
+        "--model_path", str(root / "oai_unet.pt"), "--device", "cpu"])
+
+
 def test_port_trains_and_serves_without_the_jax_package(tmp_path):
     from asyrp_official_tpu.utils.tinyws import tiny_base_argv, write_tiny_workspace
 
@@ -53,12 +78,14 @@ def test_port_trains_and_serves_without_the_jax_package(tmp_path):
     serve = tiny_base_argv(cfg, imgs, str(tmp_path), exp, extra=[
         "--run_test", "--train_delta_block", "--n_iter", "2", "--do_train", "0",
         "--device", "cpu"])
+    train_oai = _openai_workspace(tmp_path / "oai")
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", RUN, json.dumps([train, serve])], cwd=REPO,
-                         env=env, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", RUN, json.dumps([train, serve, train_oai])],
+                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "PORT_STANDS_ALONE" in out.stdout
     assert (tmp_path / "checkpoint" / "exp_LC_CUSTOM_t999_ninv4_ngen4_1.pth").exists()
+    assert (tmp_path / "oai" / "checkpoint" / "oai_LC_CUSTOM_t999_ninv4_ngen4_0.pth").exists()
     grids = list((tmp_path / "runs").rglob("test_*.png"))
     assert len(grids) == 1, grids
 

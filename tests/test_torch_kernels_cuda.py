@@ -10,9 +10,9 @@ full-width serving and training paths.
 Tolerances: max error relative to scale 1e-5 in float32 (K1, K2: sums in
 another order), 2e-2 in bfloat16 (one bf16 ulp is 2^-8), 1e-6 for the
 float32 DDIM and DDPM steps (elementwise, ulp-level differences only). The backward
-kernels (K1-bwd, K2-bwd) against `torch.autograd.grad` through the plain
-forward: 1e-4 in float32, 5e-2 in bfloat16 (the gradient passes through
-more roundings of the I/O type).
+kernels (K1-bwd, K2-bwd with one head or several) against
+`torch.autograd.grad` through the plain forward: 1e-4 in float32, 5e-2 in
+bfloat16 (the gradient passes through more roundings of the I/O type).
 """
 import pytest
 import torch
@@ -188,6 +188,26 @@ def test_group_norm_backward_kernel_matches_autograd(cuda_device, shape, train_w
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape", [(1, 1024, 16, 16), (1, 768, 32, 32), (1, 256, 128, 128)])
+def test_group_norm_backward_kernel_at_openai_decoder_shapes(cuda_device, shape, dtype, bound):
+    """The AFHQ decoder's GroupNorm32 (eps 1e-5) on concatenated skip
+    inputs, with SiLU (in_layers) and without (the scale-shift branch)."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype).requires_grad_()
+    w, b = (1 + 0.1 * torch.randn(shape[1], generator=g, device=cuda_device),
+            0.1 * torch.randn(shape[1], generator=g, device=cuda_device))
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    n = k1.group_norm.bwd_launches
+    for silu in (False, True):
+        want = torch.autograd.grad(k1.group_norm_plain(x, w, b, eps=1e-5, silu=silu), x, dy)[0]
+        got = torch.autograd.grad(k1.group_norm(x, w, b, eps=1e-5, silu=silu), x, dy)[0]
+        close_to_scale(want.float().cpu().numpy(), got.float().cpu().numpy(),
+                       f"group_norm backward eps 1e-5 silu={silu}", bound=bound)
+    assert k1.group_norm.bwd_launches == n + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("shape", [(1, 256, 512), (2, 64, 512), (1, 100, 96)])
 def test_attention_backward_kernel_matches_autograd(cuda_device, shape, dtype, bound):
     g = torch.Generator(device=cuda_device).manual_seed(4)
@@ -201,3 +221,24 @@ def test_attention_backward_kernel_matches_autograd(cuda_device, shape, dtype, b
         close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
                        "attention backward kernel", bound=bound)
     assert k2.attention.bwd_launches == n + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,heads,legacy", [
+    ((1, 256, 512), 8, True), ((2, 64, 512), 8, True), ((1, 1024, 512), 8, True),
+    ((2, 100, 96), 3, True), ((1, 64, 128), 4, False)])
+def test_multihead_attention_backward_kernel_matches_autograd(cuda_device, shape, heads, legacy,
+                                                              dtype, bound):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_()
+               for _ in range(3))
+    d_o = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    kw = dict(num_heads=heads, legacy_scale=legacy)
+    n, n1 = k2.attention.mh_bwd_launches, k2.attention.bwd_launches
+    want = torch.autograd.grad(k2.attention_plain(q, k, v, **kw), (q, k, v), d_o)
+    got = torch.autograd.grad(k2.attention(q, k, v, **kw), (q, k, v), d_o)
+    for ww, gg in zip(want, got):
+        close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                       "multi-head attention backward kernel", bound=bound)
+    assert k2.attention.mh_bwd_launches == n + 1 and k2.attention.bwd_launches == n1

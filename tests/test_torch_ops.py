@@ -209,11 +209,15 @@ def test_attention_multihead_without_legacy_scale_matches_jax():
 
 
 def test_attention_multihead_backward_raises():
-    """The multi-head gradient is not ported (OpenAI-family training)."""
-    q = torch.randn(1, 16, 32, requires_grad=True)
-    out = k2.attention(q, q.detach(), q.detach(), num_heads=4, legacy_scale=True)
-    with pytest.raises(NotImplementedError, match="multi-head"):
-        out.sum().backward()
+    """The multi-head backward takes the forward's lse of every head
+    ([B, H*T]); one head's lse ([B, T]) is refused, so a backward that
+    reads the heads as one cannot run silently."""
+    q = torch.randn(1, 16, 32)
+    o, lse = k2._plain_with_lse(q, q, q, 4, True)
+    with pytest.raises(ValueError, match="4 head"):
+        k2.attention_backward(q, q, q, o, q, lse[:, :16], num_heads=4, legacy_scale=True)
+    assert all(g.shape == q.shape for g in k2.attention_backward(q, q, q, o, q, lse, num_heads=4,
+                                                                 legacy_scale=True))
 
 
 def _attn_vjp(q, k, v, do):
@@ -242,6 +246,79 @@ def test_attention_autograd_matches_jax_vjp():
     k2.attention(*ins).backward(torch.from_numpy(do))
     for w, t, name in zip(want, ins, ("dq", "dk", "dv")):
         close_to_scale(w, t.grad.numpy(), f"attention autograd {name}")
+
+
+def _mh_inputs(b, t, c, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, t, c).astype(np.float32) for _ in range(4)]
+
+
+def _mh_vjp(q, k, v, do, heads, dtype=jnp.float32):
+    """jax.vjp of the OpenAI-flavor `spatial_attention` (XLA's gradient)."""
+    f = lambda a, b_, c: jcm.spatial_attention(a, b_, c, num_heads=heads, legacy_scale=True)
+    _, vjp = jax.vjp(f, *(jnp.asarray(a, dtype) for a in (q, k, v)))
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, dtype))]
+
+
+def _mh_port_bwd(q, k, v, do, heads, dtype=torch.float32):
+    qt, kt, vt, dot = (torch.from_numpy(a).to(dtype) for a in (q, k, v, do))
+    o, lse = k2._plain_with_lse(qt, kt, vt, heads, True)
+    return [g.float().numpy() for g in k2.attention_backward_plain(
+        qt, kt, vt, o, dot, lse, num_heads=heads, legacy_scale=True)]
+
+
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("t", [16, 64])
+@pytest.mark.parametrize("heads", [1, 4, 8])
+def test_attention_backward_plain_multihead_legacy_matches_jax_vjp(heads, t, d):
+    """K2-bwd's spec with heads and the legacy scale: per-head D and P, the
+    pre-scale s = d^-0.25 on q and k, against XLA's gradient, 1e-5 of scale
+    (float32 sums in another order)."""
+    q, k, v, do = _mh_inputs(2, t, heads * d, 20 + heads)
+    want = _mh_vjp(q, k, v, do, heads)
+    got = _mh_port_bwd(q, k, v, do, heads)
+    for w, g, name in zip(want, got, ("dq", "dk", "dv")):
+        close_to_scale(w, g, f"{heads} heads T={t} d={d} {name}", bound=1e-5)
+
+
+@pytest.mark.parametrize("shape,heads", [((2, 64, 512), 8), ((2, 16, 64), 4)])
+def test_attention_backward_plain_multihead_legacy_bf16_matches_jax_vjp(shape, heads):
+    """bf16: the port rounds where JAX's gradient rounds (dP, the weights'
+    cast, the cotangent of q*s and k*s before the multiply by s), but takes
+    D = rowsum(dO * O) from the bf16 output (FlashAttention-2, what the
+    kernel computes) where XLA sums dP * P in f32. Each lands 0.3-0.9e-2 of
+    scale from the f32 JAX gradient; the port must stay within 2x JAX bf16's
+    own distance (measured 1.0-1.69x over 12 cases; with XLA's D the two
+    agree to 4e-4 of scale, so D's form is the whole gap)."""
+    q, k, v, do = _mh_inputs(*shape, 30)
+    want32 = _mh_vjp(q, k, v, do, heads)
+    want = _mh_vjp(q, k, v, do, heads, jnp.bfloat16)
+    got = _mh_port_bwd(q, k, v, do, heads, torch.bfloat16)
+    for w32, w, g, name in zip(want32, want, got, ("dq", "dk", "dv")):
+        jax_own = float(np.abs(w32 - w).max())
+        assert float(np.abs(w32 - g).max()) <= 2.0 * jax_own, (name, jax_own)
+
+
+@pytest.mark.parametrize("heads,legacy", [(4, True), (2, False), (1, True)])
+def test_attention_autograd_multihead_gradcheck(heads, legacy):
+    """`attention` under autograd with heads (the plain forward and
+    backward, float64) against finite differences."""
+    g = torch.Generator().manual_seed(heads)
+    ins = [torch.randn(1, 6, 4 * heads, generator=g, dtype=torch.float64, requires_grad=True)
+           for _ in range(3)]
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: k2.attention(q, k, v, num_heads=heads, legacy_scale=legacy), ins)
+
+
+def test_attention_autograd_multihead_matches_jax_vjp():
+    """The OpenAI block's path: `attention` with 4 heads of 16 under
+    autograd against jax.vjp, through `_Attention`."""
+    q, k, v, do = _mh_inputs(2, 64, 64, 9)
+    want = _mh_vjp(q, k, v, do, 4)
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    k2.attention(*ins, num_heads=4, legacy_scale=True).backward(torch.from_numpy(do))
+    for w, t, name in zip(want, ins, ("dq", "dk", "dv")):
+        close_to_scale(w, t.grad.numpy(), f"multi-head attention autograd {name}", bound=1e-5)
 
 
 # ---------------------------------------------------------------------------
