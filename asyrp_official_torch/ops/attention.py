@@ -25,6 +25,7 @@ ones.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -34,10 +35,17 @@ from asyrp_official_torch.ops import _build
 __all__ = ["attention", "attention_plain", "attention_backward", "attention_backward_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_BM, _BN, _BK = 16, 64, 64  # tile sizes of csrc/attention.cu
 _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
+# the forward kernel (csrc/attention.cu `fwd::attn_fwd`): bytes of one staged
+# chunk of 64 rows x 64 channels, and the stages of its ring, per dtype; a
+# head of d channels is a cluster of ceil(d / 64) blocks, at most 8
+_CHUNK_BYTES = {torch.float32: 64 * 68 * 4, torch.bfloat16: 64 * 128}
+_STAGES = {torch.float32: 4, torch.bfloat16: 8}
+_MAX_D = 512
+_BM, _BN, _BK = 16, 64, 64  # tile sizes of the backward kernels
 
 
+@functools.lru_cache(maxsize=None)
 def _scales(d: int, legacy_scale: bool, dtype):
     """(logit scale, pre-scale of q and k): (d^-0.5, 1), or (1, d^-0.25
     rounded to the I/O dtype) with `legacy_scale`."""
@@ -132,7 +140,10 @@ _FWD_ARGS = [_P] * 5 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 _BWD_ARGS = [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 
 
-def _check(q, k, v, n_tiles: int, num_heads: int = 1):
+def _check_inputs(q, k, v, num_heads: int):
+    """What both kernels take: q, k, v of one float32 or bfloat16 dtype, one
+    contiguous [B, T, C] shape and one device, C split into `num_heads`
+    heads. Returns (B, T, C)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -146,16 +157,54 @@ def _check(q, k, v, n_tiles: int, num_heads: int = 1):
     b, t, c = q.shape
     if num_heads < 1 or c % num_heads:
         raise ValueError(f"attention kernel: {c} channels do not split into {num_heads} heads")
+    return b, t, c
+
+
+def _check(q, k, v, num_heads: int = 1):
+    """The forward kernel's contract, on any device: `_check_inputs`, B, T
+    >= 1, a head width d that is a multiple of 16 up to 512 (a cluster of
+    at most 8 blocks), and at most 65535 (sample, head) pairs. Returns (B,
+    T, C)."""
+    b, t, c = _check_inputs(q, k, v, num_heads)
+    if b < 1 or t < 1:
+        raise ValueError(f"attention kernel: empty input {tuple(q.shape)}")
     d = c // num_heads
-    # forward: one tile of each kind; backward: two
-    smem = 4 * n_tiles * (_BM * d + _BN * (_BK + 1) + _BM * t)
+    if d % 16 or d > _MAX_D:
+        raise ValueError(f"attention kernel: head width {d} is not a multiple of 16 up to "
+                         f"{_MAX_D}")
+    if b * num_heads > 65535:
+        raise ValueError(f"attention kernel: {b} x {num_heads} (sample, head) pairs exceed the "
+                         "grid's 65535")
+    if _fwd_smem_bytes(q.dtype) > _SMEM_LIMIT:
+        raise ValueError(f"attention kernel: {_fwd_smem_bytes(q.dtype)} bytes of shared memory")
+    return b, t, c
+
+
+def _fwd_smem_bytes(dtype) -> int:
+    """The forward kernel's dynamic shared memory, whatever T and d: its q'
+    chunk and ring of chunks, the partial and the summed logits of a key
+    tile (64 x 64 f32 each), one mbarrier per stage and one for q', and
+    1 KB of alignment."""
+    stages = _STAGES[dtype]
+    return (1 + stages) * _CHUNK_BYTES[dtype] + 2 * 64 * 64 * 4 + 8 * (stages + 1) + 1024
+
+
+def _check_bwd(q, k, v, num_heads: int):
+    """`_check_inputs`, and the backward kernels' shared memory, which grows
+    with T."""
+    b, t, c = _check_inputs(q, k, v, num_heads)
+    d = c // num_heads
+    smem = 4 * 2 * (_BM * d + _BN * (_BK + 1) + _BM * t)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"attention kernel: T={t}, d={d} needs {smem} bytes of shared memory")
+        raise ValueError(f"attention backward kernel: T={t}, d={d} needs {smem} bytes of shared "
+                         "memory")
     return b, t, c
 
 
 def _attention_cuda(q, k, v, with_lse: bool, num_heads: int = 1, legacy_scale: bool = False):
-    b, t, c = _check(q, k, v, 1, num_heads)
+    b, t, c = _check(q, k, v, num_heads)
+    if any(a.data_ptr() % 16 for a in (q, k, v)):
+        raise ValueError("attention kernel needs 16-byte aligned q, k, v")
     scale, pre = _scales(c // num_heads, legacy_scale, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty(b, num_heads * t, device=q.device, dtype=torch.float32) if with_lse else None
@@ -174,7 +223,7 @@ def _attention_cuda(q, k, v, with_lse: bool, num_heads: int = 1, legacy_scale: b
 
 
 def _attention_bwd_cuda(q, k, v, o, d_o, lse, num_heads: int, legacy_scale: bool):
-    b, t, c = _check(q, k, v, 2, num_heads)
+    b, t, c = _check_bwd(q, k, v, num_heads)
     d_o = d_o.contiguous()  # the caller's transposes may leave it strided
     if d_o.dtype != q.dtype or d_o.shape != q.shape:
         raise ValueError(f"attention backward: dO {d_o.dtype}{tuple(d_o.shape)} does not match "

@@ -176,6 +176,59 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, runs: int = 20) -> float:
+    """Device time per call, back to back: `torch.cuda._sleep` holds the
+    stream while the host queues `runs` calls behind it, so the CUDA events
+    around them time the device alone, without the host's time between
+    launches (which `time_ms` includes). The sleep is lengthened until the
+    host has queued every call before it ends."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if queued_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / runs
+        cycles *= 4
+    fail("the host could not queue the timed calls within the device's sleep")
+
+
+def profiled_device_ms(fn, runs: int = 10):
+    """Device time per call from torch.profiler's device events (kernels and
+    copies): for a call whose host time is not the kernels' own, e.g. the
+    autograd engine's backward of SDPA. A profile that records no device
+    event is repeated, at most twice; then None (not measured)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA)
+        if busy > 0.0:
+            return busy / runs / 1e3
+    return None
+
+
 def bound(n_bytes: float, n_flops: float, flops_per_s: float):
     """(ms, "bytes" | "operations"): the larger of bytes over the memory rate
     and operations over the peak rate."""
@@ -283,6 +336,9 @@ def record_path_shapes(torch, dev):
             model.apply(x, t, edit=edit)
         training[0] = True
         model.apply(x, t, edit=edit, decode_mode="split")
+    # shapes off the eval (count 0): ragged T, batch 8, T = 1024
+    for shape in ((1, 200, 512), (8, 256, 512), (1, 1024, 512)):
+        seen["attention"][shape] = 0
     del model, block
     torch.cuda.empty_cache()
     return seen
@@ -343,7 +399,9 @@ def record_afhq_shapes(torch, dev):
         training[0] = True
         block.train().requires_grad_(True)
         model.apply(x, t, edit=edit, decode_mode="split")
-    seen["attention_mh"][((1, 1024, 512), 8, True)] = 0
+    # shapes off the eval (count 0): IMAGENET's 32^2 level, ragged T, batch 8
+    for shape in ((1, 1024, 512), (2, 100, 512), (8, 256, 512)):
+        seen["attention_mh"][(shape, 8, True)] = 0
     for shape in ((1, 64, 512), (1, 1024, 512)):
         seen["attention_bwd_mh"].setdefault((shape, 8, True), 0)
     del model, block
@@ -437,7 +495,12 @@ def kernel_rows(torch, dev, seen):
                     q4, k4, v4 = (a.view(bsz, t_len, heads, hd).transpose(1, 2)
                                   for a in (q, kk, v))
                     lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5)
-                    got, want = [run_k()], [run_p()]
+                    # o from the wrapper, then o and the lse K2-bwd reads from the
+                    # with-lse launch, against the plain version's
+                    o_p, lse_p = k2._plain_with_lse(q, kk, v, heads, legacy)
+                    got = [run_k(), *k2._attention_cuda(q, kk, v, True, heads, legacy)]
+                    want = [o_p, o_p, lse_p]
+                    parts = ("o", "o (with lse)", "lse")
                     b_ms, b_by = bound(4 * bsz * t_len * c * es, 4 * bsz * t_len * t_len * c,
                                        PEAK_FLOPS[dname])
                     label = (f"{list(shape)}" if name == "attention"
@@ -461,18 +524,26 @@ def kernel_rows(torch, dev, seen):
                                        for a in (q, kk, v, d_o))
                     o_lib = F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5)
                     lib = lambda: torch.autograd.grad(o_lib, (q, kk, v), do4, retain_graph=True)
+                    parts = ("dq", "dk", "dv")
                     b_ms, b_by = bound(8 * bsz * t_len * c * es + 4 * bsz * heads * t_len,
                                        10 * bsz * t_len * t_len * c, PEAK_FLOPS[dname])
                     label = (f"{list(shape)}" if name == "attention_bwd"
                              else f"{list(shape)} heads={heads} legacy_scale={int(legacy)}")
                 torch.cuda.synchronize()
                 abs_err = rel_err = 0.0
+                part_errs = []
                 for g_, w_ in zip(got, want):
                     if not torch.isfinite(g_.float()).all():
                         fail(f"{name} {label} {dname}: non-finite output")
                     a_, r_ = errs(g_.float(), w_.float())
                     abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
+                    part_errs.append(r_)
                 ms_k, ms_p, ms_l = time_ms(run_k), time_ms(run_p), time_ms(lib)
+                dev_t = ()
+                if name.startswith("attention"):
+                    dev_t = (device_ms(run_k), device_ms(run_p), device_ms(lib))
+                if name.startswith("attention_bwd"):  # the library's backward, profiled
+                    dev_t += (profiled_device_ms(lib),)
                 tol = TOL[name][dname]
                 ok = rel_err <= tol
                 control = ""
@@ -489,15 +560,32 @@ def kernel_rows(torch, dev, seen):
                     ctrl = max(errs(g_.float(), w_.float())[1] for g_, w_ in zip(got, one))
                     control = f", vs one head {ctrl:.3e} (must exceed {CONTROL_MIN:g})"
                     ok = ok and ctrl > CONTROL_MIN
-                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e} (tol {tol:g}"
-                      f"{control}) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, library "
-                      f"{ms_l:.4f} ms, bound {b_ms:.4f} ms ({b_by}){'' if ok else '  <-- FAIL'}")
+                by_part = ""
+                if name.startswith("attention"):
+                    by_part = " [" + ", ".join(f"{p_} {e_:.3e}" for p_, e_ in
+                                               zip(parts, part_errs)) + "]"
+                timing = (f"kernel {ms_k:.4f} ms per call ({ms_k * count:.4f} per eval), plain "
+                          f"{ms_p:.4f} ms, library {ms_l:.4f} ms")
+                if dev_t:
+                    timing += (f"; device time per call, back to back: kernel {dev_t[0]:.4f} "
+                               f"ms ({dev_t[0] * count:.4f} per eval), plain {dev_t[1]:.4f} ms, "
+                               f"library {dev_t[2]:.4f} ms")
+                if len(dev_t) > 3:
+                    timing += (" (its device events in torch.profiler: "
+                               + ("not measured" if dev_t[3] is None else f"{dev_t[3]:.4f} ms")
+                               + ")")
+                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e}{by_part} (tol "
+                      f"{tol:g}{control}) {timing}, bound {b_ms:.4f} ms ({b_by})"
+                      f"{'' if ok else '  <-- FAIL'}")
                 if not ok:
                     fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}"
                          f"{control}")
+                dev_keys = ("device_ms", "plain_device_ms", "library_device_ms",
+                            "library_profiled_ms")
                 for k_, v_ in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
-                               ("bound_ms", b_ms)):
-                    tot[k_] += v_ * count
+                               ("bound_ms", b_ms), *zip(dev_keys, dev_t)):
+                    if v_ is not None:
+                        tot[k_] = tot.get(k_, 0.0) + v_ * count
                 tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
                 tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
                 bound_ms_by[b_by] += b_ms * count
@@ -505,9 +593,16 @@ def kernel_rows(torch, dev, seen):
             # what bounds most of the eval's bound time
             tot["bound_by"] = max(bound_ms_by, key=bound_ms_by.get)
             out[name][dname] = tot
+            dev_sum = ""
+            if "device_ms" in tot:
+                dev_sum = (f"; device time {tot['device_ms']:.3f} ms (kernel) vs "
+                           f"{tot['plain_device_ms']:.3f} ms (plain), "
+                           f"{tot['library_device_ms']:.3f} ms (library)")
+            if "library_profiled_ms" in tot:
+                dev_sum += f", the library's profiled {tot['library_profiled_ms']:.3f} ms"
             phase(f"  {name} {dname}: {tot['calls']} calls per eval take {tot['ms']:.3f} ms "
                   f"(kernel) vs {tot['plain_ms']:.3f} ms (plain), {tot['library_ms']:.3f} ms "
-                  f"(library), bound {tot['bound_ms']:.3f} ms")
+                  f"(library), bound {tot['bound_ms']:.3f} ms{dev_sum}")
 
     shape = (1, 256, 256, 3)
     x, eps, eps_mod, noise = (randn(*shape) for _ in range(4))
@@ -1384,7 +1479,47 @@ def afhq_phase(torch, card, log, root: str, model_path: str):
     return timings, launches
 
 
-def build_kernels() -> None:
+def _ptxas_by_entry(log: str):
+    """{mangled entry name: {"registers": n, "spills": ptxas's spill line}}
+    from nvcc's -Xptxas -v output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            out[name]["spills"] = ln.strip()
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
+def sass_counts(lib: str):
+    """{mangled function name: {"HGMMA": n, "HMMA": n}} from `cuobjdump -sass`."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump -sass {lib}: {proc.stderr.strip()[-500:]}")
+    out, name = {}, None
+    for ln in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {"HGMMA": 0, "HMMA": 0}
+        elif name and re.search(r"\bHGMMA\b", ln):
+            out[name]["HGMMA"] += 1
+        elif name and re.search(r"\bHMMA\b", ln):
+            out[name]["HMMA"] += 1
+    return out
+
+
+def build_kernels():
+    """Phase 2: nvcc for every source at once; then the attention forward's
+    instructions per entry (tensor-core HGMMA from wgmma, HMMA from
+    mma.sync) with its registers and spills. Fails if a bf16 forward entry
+    has no HGMMA. Returns {entry label: counts}."""
     from asyrp_official_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1397,6 +1532,25 @@ def build_kernels() -> None:
                  if "registers" in ln or "spill" in ln]
         phase(f"phase 2: built csrc/{name}.cu for sm_90a; ptxas: {' | '.join(ptxas)}")
     phase(f"phase 2: nvcc builds took {time.perf_counter() - t0:.1f} s")
+    ptxas = _ptxas_by_entry(_build.build_log("attention"))
+    entries = {}
+    for fn, counts in sass_counts(_build._lib_path("attention")).items():
+        m = re.search(r"attn_fwdI(13__nv_bfloat16|f)E", fn)
+        if not m:
+            continue
+        dname = "bfloat16" if m.group(1) != "f" else "float32"
+        label = f"attn_fwd {dname}"
+        info = ptxas.get(fn, {})
+        entries[label] = {**counts, "registers": info.get("registers"),
+                          "spills": info.get("spills")}
+        phase(f"  {label}: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA in its SASS; "
+              f"{info.get('registers')} registers; {info.get('spills')}")
+        if dname == "bfloat16" and not counts["HGMMA"]:
+            fail(f"{label} has no HGMMA: the bf16 forward does not run on wgmma")
+    if len(entries) != 2:
+        fail(f"expected 2 attention forward entries (f32, bf16) in the SASS, found "
+             f"{sorted(entries)}")
+    return entries
 
 
 def main() -> int:
@@ -1417,7 +1571,7 @@ def main() -> int:
 
     card = card_line()
     phase(f"phase 1: card {card}; torch {torch.__version__} cuda {torch.version.cuda}")
-    build_kernels()
+    sass = build_kernels()
 
     phase("phase 3: kernels against their plain versions (ms = median of 25 CUDA-event runs)")
     seen = record_path_shapes(torch, dev)
@@ -1549,9 +1703,12 @@ def main() -> int:
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
             "calls_per_eval": f32["calls"],
             "by_dtype": {d: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                               "library_ms")} for d, v in r.items()},
+                                               "library_ms", "device_ms", "plain_device_ms",
+                                               "library_device_ms", "library_profiled_ms")
+                             if k in v} for d, v in r.items()},
         })
-    summary = {"card": card, "serving": timings, "invert_edit_chain_ms_best_of_2": chain_ms,
+    summary = {"card": card, "attention_fwd_sass": sass, "serving": timings,
+               "invert_edit_chain_ms_best_of_2": chain_ms,
                "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
                "profile": profile, "training": training,
                "afhq": {"serving": afhq_timings, "launches": afhq_launches,

@@ -55,9 +55,23 @@ def test_group_norm_kernel_matches_plain(cuda_device, shape, dtype, bound):
     assert k1.group_norm.launches == n + 2
 
 
+def _check_lse(q, k, v, heads, legacy, bound):
+    """The with-lse launch: o and the log-sum-exp K2-bwd reads, against the
+    plain version's."""
+    o, lse = k2._attention_cuda(q, k, v, True, heads, legacy)
+    o_p, lse_p = k2._plain_with_lse(q, k, v, heads, legacy)
+    close_to_scale(o_p.float().cpu().numpy(), o.float().cpu().numpy(), "attention o", bound=bound)
+    assert lse.dtype == torch.float32 and lse.shape == lse_p.shape
+    close_to_scale(lse_p.cpu().numpy(), lse.cpu().numpy(), "attention lse", bound=bound)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape", [(1, 256, 512), (2, 64, 512), (1, 100, 96)])
+@pytest.mark.parametrize("shape", [
+    (1, 256, 512), (2, 64, 512), (1, 100, 96),
+    (1, 200, 512),  # ragged T
+    (8, 256, 512),  # batch 8
+    (1, 1024, 512)])
 def test_attention_kernel_matches_plain(cuda_device, shape, dtype, bound):
     g = torch.Generator(device=cuda_device).manual_seed(1)
     q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype) for _ in range(3))
@@ -65,6 +79,7 @@ def test_attention_kernel_matches_plain(cuda_device, shape, dtype, bound):
     close_to_scale(k2.attention_plain(q, k, v).float().cpu().numpy(),
                    k2.attention(q, k, v).float().cpu().numpy(), "attention kernel", bound=bound)
     assert k2.attention.launches == n + 1
+    _check_lse(q, k, v, 1, False, bound)
 
 
 @pytest.mark.cuda
@@ -72,7 +87,9 @@ def test_attention_kernel_matches_plain(cuda_device, shape, dtype, bound):
 @pytest.mark.parametrize("shape,heads,legacy", [
     ((1, 256, 512), 8, True), ((2, 64, 512), 8, True),  # AFHQ/FFHQ: 16^2 and the middle block
     ((1, 1024, 512), 8, True),  # IMAGENET's 32^2 level
-    ((2, 100, 96), 3, True), ((1, 64, 128), 4, False)])
+    ((2, 100, 96), 3, True), ((1, 64, 128), 4, False),
+    ((2, 100, 512), 8, True),  # ragged T
+    ((8, 256, 512), 8, True)])  # batch 8
 def test_multihead_attention_kernel_matches_plain(cuda_device, shape, heads, legacy, dtype, bound):
     g = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype) for _ in range(3))
@@ -82,6 +99,7 @@ def test_multihead_attention_kernel_matches_plain(cuda_device, shape, heads, leg
                    k2.attention(q, k, v, **kw).float().cpu().numpy(),
                    "multi-head attention kernel", bound=bound)
     assert k2.attention.mh_launches == n + 1 and k2.attention.launches == n1
+    _check_lse(q, k, v, heads, legacy, bound)
 
 
 @pytest.mark.cuda
