@@ -5,8 +5,8 @@ coefficients are f32 whatever the carry dtype: alpha-bar near 1 rounds to
 exactly 1.0 in bf16. `t_next == -1` is read by the caller through
 `alphas_cumprod_ext[t_next + 1]`.
 
-The DDPM ancestral step (`ddpm_step`) serves only the OpenAI-family UNets
-and is not ported yet (ROADMAP.md Queue 2)."""
+The DDPM ancestral step (`ddpm_step`, `--sample_type ddpm`) is its own
+Triton kernel, `ops/ddpm_step.py`, which `core/sampler.py` calls."""
 from __future__ import annotations
 
 from asyrp_official_torch.ops.ddim_step import ddim_step

@@ -72,287 +72,76 @@
 // (bf16) or 17 KB (f32), 32 KB of partial and summed logits, the
 // mbarriers and 1 KB of alignment: 105 KB in bf16, 118 KB in f32.
 //
-// Backward (FlashAttention-2 style, from the saved lse; per (sample, head),
-// q' = q*pre and k' = k*pre rounded to the I/O type as in the forward,
-// S = q' k'^T * scale, P = exp(S - lse), D = rowsum(dO o O) over the head's
-// d columns only):
-//   `attn_bwd_d`:  D, one warp per (sample, head, query row);
-//   `attn_bwd_dq`: one block per BM = 16 query rows of one (sample, head),
-//     256 threads, recomputes S and dP = dO v^T for all keys (`tile_dots`:
-//     BN = 64-key tiles staged through shared memory in BK = 64-channel
-//     chunks as f32, two products at once, 4 of each per thread), forms
-//     dS = P o (dP - D) in a [BM, T] f32 row buffer, and writes
-//     dQ = pre * rnd(scale * dS k');
-//   `attn_bwd_dkv`: one block per BM key rows recomputes S^T and dP^T for
-//     all queries, and writes dV = P^T dO and dK = pre * rnd(scale * dS^T q').
-// rnd() rounds to the I/O type. As in the reference's rounding (the
-// gradient XLA derives for `spatial_attention`): dP is rounded to the I/O
-// type (the gradient of the weights' cast); P is cast to v's type before
-// the dV product, as the forward casts the weights before weights x v; and
-// with `legacy_scale` the cotangent of q' (k') is rounded to the I/O type
-// before it is multiplied by pre, as the product q * pre in the I/O type
-// differentiates. Every output element is written by one thread of one
-// block, with no atomics, so the backward is deterministic run to run.
-// It recomputes S twice and does five [T, T, d] products per head, all with
-// FMAs that read an operand from shared memory, and no tensor cores: it is
-// bound by shared-memory and L2 bandwidth. Dynamic shared
-// memory: (2*BM*d + 2*BN*(BK+1) + 2*BM*T) * 4 bytes, 131.6 KB at T = 256,
-// d = 512 (DDPM++); 74.2 KB at T = 256, d = 64 (8 heads); 172.5 KB at
-// T = 1024, d = 64.
+// Backward (K2-bwd; replaces the gradient XLA derives for `models/common.py`
+// `spatial_attention`, formerly the Pallas kernel's `jax.custom_vjp`
+// backward, `ops/attention.py:98-125` at 4b63bc3^), from the forward's lse
+// and output, per (sample, head): q' = rnd(q*pre) and k' = rnd(k*pre) as in
+// the forward, S = q'k'^T * scale, P = exp(S - lse), D = rowsum(dO o O) over
+// the head's d columns only, dP = rnd(dO v^T), dS = P o (dP - D), and
+//   dV = rnd(P)^T dO,  dQ = pre * rnd(scale * dS k'),  dK = pre * rnd(scale * dS^T q').
+// rnd() rounds to the I/O type, as in the reference's rounding: dP is the
+// gradient of the weights' cast, P is cast to v's type before weights x v,
+// and with `legacy_scale` the cotangent of q' (k') is rounded before the
+// multiply by pre, as the product q * pre in the I/O type differentiates.
+// dS stays f32, as XLA multiplies the f32 cotangent of its f32-accumulated
+// product by the bf16 k' and q'.
+//
+// Kernels: `attn_bwd_d` (D, one warp per query row) and `attn_bwd`, which
+// is FlashAttention-2's split in one launch: grid (2 * ceil(T/64), nc, B*H),
+// nc = ceil(d/64), one warpgroup (128 threads) per block. The first
+// ceil(T/64) blocks along x own 64 keys (wgmma's M) of dK and dV, the rest 64
+// queries of dQ; blockIdx.y picks the block's 64 output channels (chunk c).
+// A block walks the other side's 64-row tiles; per tile it sums two 64 x 64
+// products over all nc channel chunks of the head, X = A1 B1^T and Y =
+// A2 B2^T (dK/dV blocks: X = S^T from k' and q', Y = dP^T from v and dO; dQ
+// blocks: X = S, Y = dP), forms P and dS in registers (lse and D by column
+// or by row), then accumulates in registers dV += rnd(P)^T dO and
+// dK += dS^T q' (dQ: dQ += dS k') over its 64 channels, reading the tile's
+// chunk c. Each output element is written by one thread of one block, with
+// no atomics: the backward is deterministic run to run. S and dP are
+// computed twice (by the dK/dV and the dQ blocks), and at d = 512 by each of
+// the 8 channel blocks: no exchange between blocks (the forward's cluster
+// exchange took 57% of a one-head block's cycles, and the backward would
+// need two per tile). `attn_bwd` is a programmatic dependent launch: its
+// blocks start while `attn_bwd_d` runs and wait for it before they read D.
+//   - Loads: A1 and A2 (the block's own rows) and B1 and B2 (the tile's).
+//     bf16: the block's A1, A2 chunks (all nc of each) stay resident, and a
+//     ring of 4 stages, 3 ahead, holds the tile's B1, B2 chunks of one
+//     channel chunk each, by TMA over [B, T, H, d] tensor maps (zero past T
+//     and d). f32 (2 * nc chunks of 17 KB would not fit): 3 stages, 2
+//     ahead, each the A1, B1, A2, B2 chunks, by cp.async into padded rows.
+//     A tile's chunks come in the order c + 1, ..., c, so the chunk the
+//     output products read is the tile's last stage, still in place. The
+//     legacy pre-scale rounds A1 and B1 (q' and k') in shared memory after
+//     they land.
+//   - bf16: wgmma m64n64k16 for all four products (f32 accumulators). X and
+//     Y read K-major chunks; the output products take P, dS from registers
+//     (the accumulator layout repacked as the A fragment, as the forward
+//     feeds P) and an MN-major chunk. dS goes in as two bf16 halves, hi =
+//     rnd(dS) and lo = rnd(dS - hi), two wgmmas into one accumulator: about
+//     16 bits of dS, where one bf16 operand would add a rounding the
+//     reference does not have.
+//   - f32: 3xTF32 on mma.sync from padded rows, a fresh accumulator per
+//     8-deep step (the forward's helpers).
+// Bound: one head at [1, 256, 512] moves 8*T*C elements plus lse and D (2.1
+// MB in bf16: 0.63 us at 3.35 TB/s) and does 10*T*T*C = 335 MFLOP (0.34 us
+// on the bf16 tensor cores; 5.0 us on the f32 CUDA cores): bytes bound in
+// bf16, operations bound in f32. The design puts every product on the
+// tensor cores and keeps P, dP and dS in registers; what it spends is the
+// recomputed S and dP (per tile a d = 512 dK/dV block does 16 chunk
+// products for S^T and dP^T against 2 for its outputs), and the serial
+// chain of one warpgroup per tile (wait, products, P and dS, products: no
+// overlap between them), which leaves it slower than SDPA's backward at 8
+// heads and T >= 1024.
+// Dynamic shared memory, whatever T: bf16 2 * nc resident chunks and 4
+// stages of 2 (8 KB each), f32 3 stages of 4 (17 KB each), the mbarriers,
+// 512 bytes of lse and D, 1 KB of alignment: 82 KB at d = 64 and 194 KB at
+// d = 512 in bf16, 206 KB in f32.
 #include <cooperative_groups.h>
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int BM = 16;
-constexpr int BN = 64;
-constexpr int BK = 64;
-
-__device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, int64_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, int64_t i, float v) {
-  p[i] = __float2bfloat16(v);
-}
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// rows [r0, r0 + BM) of the [t_len, ch] matrix at `src` (row stride ld),
-// times `pre` rounded to the I/O type → f32 smem tile [BM][ch], zero past the
-// last row
-template <typename T>
-__device__ void load_tile(float* dst, const T* src, int r0, int rows, int ch, int ld,
-                          float pre) {
-  for (int i = threadIdx.x; i < BM * ch; i += kThreads) {
-    const int r = i / ch, c = i % ch;
-    dst[i] = r < rows ? round_to(load_f(src, (int64_t)(r0 + r) * ld + c) * pre, src) : 0.f;
-  }
-}
-
-// For the BN rows j0.. of the [t_len, ch] matrices X and Y (row stride ld):
-// each thread (row my_r = tid / 16 of the smem tiles A and B, rows
-// j0 + my_j + 16 m of X and Y) accumulates acc_a[m] = A[my_r] . X[j] and
-// acc_b[m] = B[my_r] . Y[j], staging X (times `pre_x`, rounded to the I/O
-// type) and Y through shared memory in BK-channel chunks. B and Y may be
-// null (one product only).
-template <typename T>
-__device__ void tile_dots(const float* a_s, const float* b_s, const T* X, const T* Y, int j0,
-                          int t_len, int ch, int ld, float pre_x, float* xs, float* ys,
-                          float acc_a[4], float acc_b[4]) {
-  const int tid = threadIdx.x;
-  const int my_r = tid / 16, my_j = tid % 16;
-#pragma unroll
-  for (int m = 0; m < 4; ++m) acc_a[m] = acc_b[m] = 0.f;
-  for (int c0 = 0; c0 < ch; c0 += BK) {
-    __syncthreads();
-    for (int i = tid; i < BN * BK; i += kThreads) {
-      const int jj = i / BK, cc = i % BK;
-      const int j = j0 + jj, c = c0 + cc;
-      const bool in = j < t_len && c < ch;
-      xs[jj * (BK + 1) + cc] = in ? round_to(load_f(X, (int64_t)j * ld + c) * pre_x, X) : 0.f;
-      if (Y != nullptr) ys[jj * (BK + 1) + cc] = in ? load_f(Y, (int64_t)j * ld + c) : 0.f;
-    }
-    __syncthreads();
-    const int cmax = min(BK, ch - c0);
-    const float* arow = a_s + my_r * ch + c0;
-    if (Y == nullptr) {
-      for (int cc = 0; cc < cmax; ++cc) {
-        const float av = arow[cc];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) acc_a[m] += av * xs[(my_j + 16 * m) * (BK + 1) + cc];
-      }
-    } else {
-      const float* brow = b_s + my_r * ch + c0;
-      for (int cc = 0; cc < cmax; ++cc) {
-        const float av = arow[cc], bv = brow[cc];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          acc_a[m] += av * xs[(my_j + 16 * m) * (BK + 1) + cc];
-          acc_b[m] += bv * ys[(my_j + 16 * m) * (BK + 1) + cc];
-        }
-      }
-    }
-  }
-}
-
-// D[b, h, i] = sum over the head's d columns of dO[b, i, .] * O[b, i, .];
-// one warp per (sample, head, query row), grid = B*H*T / 8
-template <typename T>
-__global__ void attn_bwd_d(const T* __restrict__ o, const T* __restrict__ d_o,
-                           float* __restrict__ d, int64_t n_rows, int t_len, int ch, int heads) {
-  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
-  const int64_t bh = row / t_len, i = row % t_len;
-  const int64_t at = ((bh / heads) * t_len + i) * heads * ch + (bh % heads) * ch;
-  float s = 0.f;
-  for (int c = lane; c < ch; c += 32) s += load_f(d_o, at + c) * load_f(o, at + c);
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) d[row] = s;
-}
-
-// dQ for BM query rows of one (sample, head): grid = (ceil(T / BM), B * H),
-// blockIdx.y = b * H + h; d = ch, ld = H * d
-template <typename T>
-__global__ void attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, const T* __restrict__ d_o,
-                            const float* __restrict__ lse, const float* __restrict__ dd,
-                            T* __restrict__ dq, int t_len, int ch, int heads, float scale,
-                            float pre) {
-  extern __shared__ float smem[];
-  float* qs = smem;                   // [BM][ch]: q' = q * pre, I/O-rounded
-  float* dos = qs + BM * ch;          // [BM][ch]
-  float* ks = dos + BM * ch;          // [BN][BK + 1]
-  float* vs = ks + BN * (BK + 1);     // [BN][BK + 1]
-  float* ds = vs + BN * (BK + 1);     // [BM][t_len]: dS
-
-  const int tid = threadIdx.x;
-  const int ld = heads * ch;
-  const int64_t bt = (int64_t)blockIdx.y * t_len;  // row of (b, h) in lse and D
-  const int64_t base = (int64_t)(blockIdx.y / heads) * t_len * ld + (blockIdx.y % heads) * ch;
-  const int r0 = blockIdx.x * BM;
-  const int rows = min(BM, t_len - r0);
-  load_tile(qs, q + base, r0, rows, ch, ld, pre);
-  load_tile(dos, d_o + base, r0, rows, ch, ld, 1.f);
-
-  const int my_r = tid / 16, my_j = tid % 16;
-  const bool live = my_r < rows;
-  const float l_i = live ? lse[bt + r0 + my_r] : 0.f;
-  const float d_i = live ? dd[bt + r0 + my_r] : 0.f;
-  for (int j0 = 0; j0 < t_len; j0 += BN) {
-    float acc_s[4], acc_dp[4];
-    tile_dots<T>(qs, dos, k + base, v + base, j0, t_len, ch, ld, pre, ks, vs, acc_s, acc_dp);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int j = j0 + my_j + 16 * m;
-      if (j >= t_len) continue;
-      const float p = live ? expf(acc_s[m] * scale - l_i) : 0.f;
-      ds[my_r * t_len + j] = p * (round_to(acc_dp[m], q) - d_i);
-    }
-  }
-  __syncthreads();
-
-  for (int c = tid; c < ch; c += kThreads) {
-    float acc[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) acc[r] = 0.f;
-    for (int j = 0; j < t_len; ++j) {
-      const float kv = round_to(load_f(k, base + (int64_t)j * ld + c) * pre, k);
-#pragma unroll
-      for (int r = 0; r < BM; ++r) acc[r] += ds[r * t_len + j] * kv;
-    }
-    // the cotangent of q' is rounded to the I/O type before the pre-scale
-    for (int r = 0; r < rows; ++r)
-      store_f(dq, base + (int64_t)(r0 + r) * ld + c, round_to(acc[r] * scale, q) * pre);
-  }
-}
-
-// dK, dV for BM key rows of one (sample, head): grid = (ceil(T / BM), B * H)
-template <typename T>
-__global__ void attn_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v, const T* __restrict__ d_o,
-                             const float* __restrict__ lse, const float* __restrict__ dd,
-                             T* __restrict__ dk, T* __restrict__ dv, int t_len, int ch, int heads,
-                             float scale, float pre) {
-  extern __shared__ float smem[];
-  float* kts = smem;                  // [BM][ch]: this block's key rows k' = k * pre
-  float* vts = kts + BM * ch;         // [BM][ch]: its value rows
-  float* qs = vts + BM * ch;          // [BN][BK + 1]
-  float* dos = qs + BN * (BK + 1);    // [BN][BK + 1]
-  float* ps = dos + BN * (BK + 1);    // [BM][t_len]: P^T (I/O-rounded)
-  float* ds = ps + BM * t_len;        // [BM][t_len]: dS^T
-
-  const int tid = threadIdx.x;
-  const int ld = heads * ch;
-  const int64_t bt = (int64_t)blockIdx.y * t_len;
-  const int64_t base = (int64_t)(blockIdx.y / heads) * t_len * ld + (blockIdx.y % heads) * ch;
-  const int r0 = blockIdx.x * BM;
-  const int rows = min(BM, t_len - r0);
-  load_tile(kts, k + base, r0, rows, ch, ld, pre);
-  load_tile(vts, v + base, r0, rows, ch, ld, 1.f);
-
-  const int my_r = tid / 16, my_j = tid % 16;
-  const bool live = my_r < rows;
-  for (int i0 = 0; i0 < t_len; i0 += BN) {
-    float acc_s[4], acc_dp[4];  // S[i, key] and dP[i, key] for queries i = i0 + my_j + 16 m
-    tile_dots<T>(kts, vts, q + base, d_o + base, i0, t_len, ch, ld, pre, qs, dos, acc_s,
-                 acc_dp);
-#pragma unroll
-    for (int m = 0; m < 4; ++m) {
-      const int i = i0 + my_j + 16 * m;
-      if (i >= t_len) continue;
-      const float p = live ? expf(acc_s[m] * scale - lse[bt + i]) : 0.f;
-      ps[my_r * t_len + i] = round_to(p, q);
-      ds[my_r * t_len + i] = p * (round_to(acc_dp[m], q) - dd[bt + i]);
-    }
-  }
-  __syncthreads();
-
-  for (int c = tid; c < ch; c += kThreads) {
-    float acc_v[BM], acc_k[BM];
-#pragma unroll
-    for (int r = 0; r < BM; ++r) acc_v[r] = acc_k[r] = 0.f;
-    for (int i = 0; i < t_len; ++i) {
-      const float dov = load_f(d_o, base + (int64_t)i * ld + c);
-      const float qv = round_to(load_f(q, base + (int64_t)i * ld + c) * pre, q);
-#pragma unroll
-      for (int r = 0; r < BM; ++r) {
-        acc_v[r] += ps[r * t_len + i] * dov;
-        acc_k[r] += ds[r * t_len + i] * qv;
-      }
-    }
-    for (int r = 0; r < rows; ++r) {
-      store_f(dv, base + (int64_t)(r0 + r) * ld + c, acc_v[r]);
-      store_f(dk, base + (int64_t)(r0 + r) * ld + c, round_to(acc_k[r] * scale, q) * pre);
-    }
-  }
-}
-
-template <typename T>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o,
-               const void* lse, void* d, void* dq, void* dk, void* dv, int batch, int t_len,
-               int ch, int heads, float scale, float pre, cudaStream_t stream) {
-  if (heads < 1 || ch % heads != 0) return (int)cudaErrorInvalidValue;
-  const int hd = ch / heads;
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k);
-  const T *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(d_o);
-  const float* lf = static_cast<const float*>(lse);
-  float* df = static_cast<float*>(d);
-  const int64_t n_rows = (int64_t)batch * heads * t_len;
-  const int rows_per_block = kThreads / 32;
-  attn_bwd_d<T><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), kThreads, 0,
-                  stream>>>(static_cast<const T*>(o), dot, df, n_rows, t_len, hd, heads);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)BM * hd + 2 * (size_t)BN * (BK + 1) + 2 * (size_t)BM * t_len);
-  const dim3 grid((t_len + BM - 1) / BM, batch * heads);
-  err = cudaFuncSetAttribute(attn_bwd_dq<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_dkv<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dq<T><<<grid, kThreads, smem, stream>>>(qt, kt, vt, dot, lf, df, static_cast<T*>(dq),
-                                                   t_len, hd, heads, scale, pre);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attn_bwd_dkv<T><<<grid, kThreads, smem, stream>>>(qt, kt, vt, dot, lf, df, static_cast<T*>(dk),
-                                                    static_cast<T*>(dv), t_len, hd, heads, scale,
-                                                    pre);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 namespace fwd {
 
@@ -454,14 +243,14 @@ __device__ __forceinline__ void scale16(float* p, float pre) {
   x.x *= pre, x.y *= pre, x.z *= pre, x.w *= pre;
   *reinterpret_cast<float4*>(p) = x;
 }
+// bf16: pre is a bf16 value (the wrapper rounds it), so the product of two
+// bf16 values is exact in f32 and mul.rn.bf16x2 rounds it as rnd(x * pre)
 __device__ __forceinline__ void scale16(__nv_bfloat16* p, float pre) {
   uint4 x = *reinterpret_cast<uint4*>(p);
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&x);
+  const __nv_bfloat162 s = __float2bfloat162_rn(pre);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    h[i] = __floats2bfloat162_rn(f.x * pre, f.y * pre);
-  }
+  for (int i = 0; i < 4; ++i) h[i] = __hmul2(h[i], s);
   *reinterpret_cast<uint4*>(p) = x;
 }
 template <typename T>
@@ -953,6 +742,455 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 
 }  // namespace fwd
 
+namespace bwd {
+
+using fwd::kChunk;
+using fwd::kRows;
+using fwd::kThreads;
+using fwd::Layout;
+using fwd::smem_u32;
+
+constexpr int kDThreads = 256;  // attn_bwd_d: one warp per query row
+
+// bf16: the block's own rows (A1, A2: all nc chunks of each) stay resident
+// and a stage holds the tile's B1, B2 chunks; f32 (17 KB chunks, 2 * 8 of
+// them would not fit) streams all four per stage
+template <typename T>
+struct Ring;
+template <>
+struct Ring<__nv_bfloat16> {
+  static constexpr bool kResident = true;
+  static constexpr int kChunks = 2, kStages = 4;
+};
+template <>
+struct Ring<float> {
+  static constexpr bool kResident = false;
+  static constexpr int kChunks = 4, kStages = 3;
+};
+
+// dynamic shared memory: the ring, the resident chunks, one mbarrier per
+// stage and one for the resident chunks, the tile's lse and D (2 x 64 f32),
+// and 1 KB of alignment
+template <typename T>
+__host__ __device__ constexpr int smem_bytes(int nc) {
+  return ((Ring<T>::kResident ? 2 * nc : 0) + Ring<T>::kStages * Ring<T>::kChunks) *
+             Layout<T>::kChunkBytes +
+         8 * (Ring<T>::kStages + 1) + 2 * kRows * 4 + 1024;
+}
+
+__device__ __forceinline__ float load_f(const float* p, int64_t i) { return p[i]; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p, int64_t i) {
+  return __bfloat162float(p[i]);
+}
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+// 2^x, one MUFU instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D[b, h, i] = sum over the head's d columns of dO[b, i, .] * O[b, i, .];
+// one warp per (sample, head, query row)
+template <typename T>
+__global__ void attn_bwd_d(const T* __restrict__ o, const T* __restrict__ d_o,
+                           float* __restrict__ d, int64_t n_rows, int t_len, int ch, int heads) {
+  // the backward kernel may start now; it waits for D where it reads it
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int64_t row = (int64_t)blockIdx.x * (kDThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  const int64_t bh = row / t_len, i = row % t_len;
+  const int64_t at = ((bh / heads) * t_len + i) * heads * ch + (bh % heads) * ch;
+  float s = 0.f;
+  for (int c = lane; c < ch; c += 32) s += load_f(d_o, at + c) * load_f(o, at + c);
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) d[row] = s;
+}
+
+// X += A1 B1^T and Y += A2 B2^T over one 64-channel chunk. bf16: one
+// group of wgmmas, all operands K-major.
+__device__ __forceinline__ void xy_chunk(float (&x)[32], float (&y)[32], const uint8_t* a1,
+                                         const uint8_t* b1, const uint8_t* a2, const uint8_t* b2,
+                                         const __nv_bfloat16*) {
+  const uint32_t sa1 = smem_u32(a1), sb1 = smem_u32(b1), sa2 = smem_u32(a2), sb2 = smem_u32(b2);
+  fwd::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    fwd::wgmma_ss(x, fwd::gmma_desc(sa1 + 32 * kk, 16), fwd::gmma_desc(sb1 + 32 * kk, 16));
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    fwd::wgmma_ss(y, fwd::gmma_desc(sa2 + 32 * kk, 16), fwd::gmma_desc(sb2 + 32 * kk, 16));
+  fwd::wgmma_commit();
+  fwd::wgmma_wait();
+  fwd::reg_fence(x);
+  fwd::reg_fence(y);
+}
+// f32: 3xTF32 mma.sync
+__device__ __forceinline__ void xy_chunk(float (&x)[32], float (&y)[32], const uint8_t* a1,
+                                         const uint8_t* b1, const uint8_t* a2, const uint8_t* b2,
+                                         const float*) {
+  const float* tag = nullptr;
+  fwd::qk_chunk(x, a1, b1, tag);
+  fwd::qk_chunk(y, a2, b2, tag);
+}
+
+// the accumulator layout repacked as wgmma's A fragments (4 steps of 16
+// columns), rounded to bf16; `lo` gets what that rounding dropped, rounded
+// again
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = fwd::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+__device__ __forceinline__ void pack_hi_lo(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                           const float (&s)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float a = s[8 * kk + 2 * r], b = s[8 * kk + 2 * r + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+      const float2 f = __bfloat1622float2(h);
+      hi[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][r] = fwd::pack_bf16(a - f.x, b - f.y);
+    }
+}
+// d += A B: A from registers (64 rows x 64 tile rows), B the MN-major chunk
+// at shared address `b` (tile rows x 64 channels); issued, not waited for
+__device__ __forceinline__ void rs_issue(float (&d)[32], const uint32_t (&a)[4][4], uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    fwd::wgmma_rs(d, a[kk], fwd::gmma_desc(b + 2048 * kk, kRows * 128));
+}
+
+// P and dS in place of X and Y, for one tile. dK/dV blocks (KV): lse (base
+// 2) and D by column, from `vals` (64 of each); dQ blocks: by row, this
+// thread's two rows. kMask: the tile is ragged, columns from `cols` on have
+// P = 0.
+template <bool KV, bool kMask, typename T>
+__device__ __forceinline__ void p_and_ds(float (&x)[32], float (&y)[32], const float* vals,
+                                         const float (&lse_r)[2], const float (&d_r)[2],
+                                         float scale2, int cols, const T* tag) {
+  const int tig = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int j = 8 * i + 2 * tig + e;
+      const bool valid = !kMask || j < cols;
+      const float l_col = KV ? vals[j] : 0.f, d_col = KV ? vals[kRows + j] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float& xs = x[4 * i + 2 * r + e];
+        float& ys = y[4 * i + 2 * r + e];
+        const float p = valid ? ex2(fmaf(xs, scale2, -(KV ? l_col : lse_r[r]))) : 0.f;
+        ys = p * (round_to(ys, tag) - (KV ? d_col : d_r[r]));
+        xs = p;
+      }
+    }
+}
+
+// The output products of one tile, from X = P (or P^T), Y = dS (or dS^T)
+// and the tile's chunks B1, B2 of the block's channels: dK/dV blocks acc1
+// (dV) += rnd(P) B2 and acc2 (dK) += dS B1; dQ blocks acc1 (dQ) += dS B1.
+__device__ __forceinline__ void out_products(bool kv, float (&acc1)[32], float (&acc2)[32],
+                                             const float (&x)[32], const float (&y)[32],
+                                             const uint8_t* b1, const uint8_t* b2,
+                                             const __nv_bfloat16*) {
+  uint32_t hi[4][4], lo[4][4];
+  pack_hi_lo(hi, lo, y);
+  if (kv) {
+    uint32_t p[4][4];
+    pack_a(p, x);
+    fwd::wgmma_fence();
+    rs_issue(acc1, p, smem_u32(b2));
+    rs_issue(acc2, hi, smem_u32(b1));
+    rs_issue(acc2, lo, smem_u32(b1));
+  } else {
+    fwd::wgmma_fence();
+    rs_issue(acc1, hi, smem_u32(b1));
+    rs_issue(acc1, lo, smem_u32(b1));
+  }
+  fwd::wgmma_commit();
+  fwd::wgmma_wait();
+  fwd::reg_fence(acc1);
+  fwd::reg_fence(acc2);
+}
+__device__ __forceinline__ void out_products(bool kv, float (&acc1)[32], float (&acc2)[32],
+                                             const float (&x)[32], const float (&y)[32],
+                                             const uint8_t* b1, const uint8_t* b2, const float*) {
+  if (kv) {
+    fwd::pv_chunk(acc1, x, b2);
+    fwd::pv_chunk(acc2, y, b1);
+  } else {
+    fwd::pv_chunk(acc1, y, b1);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    attn_bwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+             const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+             const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+             const T* __restrict__ d_o, const float* __restrict__ lse,
+             const float* __restrict__ dd, T* __restrict__ dq, T* __restrict__ dk,
+             T* __restrict__ dv, int t_len, int d, int heads, float scale, float pre) {
+  using L = Layout<T>;
+  constexpr bool kRes = Ring<T>::kResident;
+  constexpr int S = Ring<T>::kStages, CB = L::kChunkBytes, SB = Ring<T>::kChunks * CB;
+  constexpr bool kTma = sizeof(T) == 2;
+  static_assert(!kRes || kTma, "resident chunks come by TMA");
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int nc = gridDim.y, c = blockIdx.y, col0 = c * kChunk;
+  uint8_t* res = smem + S * SB;  // resident: A1 chunks 0..nc-1, then A2 chunks
+  uint64_t* full = reinterpret_cast<uint64_t*>(res + (kRes ? 2 * nc * CB : 0));  // S + 1
+  float* tile_vals = reinterpret_cast<float*>(full + S + 1);  // the tile's lse (base 2), D
+  const int nt = (t_len + kRows - 1) / kRows;
+  const bool kv = blockIdx.x < nt;  // dK/dV block (rows: keys), else dQ (rows: queries)
+  const int r0 = (kv ? blockIdx.x : blockIdx.x - nt) * kRows;
+  const int ld = heads * d;
+  const int64_t bh = blockIdx.z;
+  const int b = bh / heads, h = bh % heads;
+  const int64_t base = (int64_t)b * t_len * ld + (int64_t)h * d;
+  const float* lse_bh = lse + bh * t_len;
+  const float* d_bh = dd + bh * t_len;
+  const bool scaled = pre != 1.f;
+  const bool leader = threadIdx.x == 0;
+  const int n_items = nt * nc;
+  if constexpr (kTma) {
+    if (leader) {
+      for (int i = 0; i <= S; ++i) fwd::mbar_init(full + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // the operands: A1 (this block's rows, pre-scaled), B1 (the tile's rows,
+  // pre-scaled), A2 (this block's rows), B2 (the tile's rows)
+  auto map_of = [&](int s) -> const CUtensorMap* {
+    if (s == 0) return kv ? &map_k : &map_q;
+    if (s == 1) return kv ? &map_q : &map_k;
+    if (s == 2) return kv ? &map_v : &map_do;
+    return kv ? &map_do : &map_v;
+  };
+  auto src_of = [&](int s) -> const T* {
+    if (s == 0) return kv ? k : q;
+    if (s == 1) return kv ? q : k;
+    if (s == 2) return kv ? v : d_o;
+    return kv ? d_o : v;
+  };
+  if constexpr (kTma) {
+    if (leader)
+      for (int s = 0; s < 4; ++s)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map_of(s)))
+                     : "memory");
+  }
+  // the resident chunks (bf16), on their own mbarrier
+  if constexpr (kRes) {
+    if (leader) {
+      fwd::mbar_expect_tx(full + S, 2 * nc * CB);
+      for (int cc = 0; cc < nc; ++cc) {
+        fwd::tma_load(res + cc * CB, map_of(0), full + S, cc * kChunk, h, r0, b);
+        fwd::tma_load(res + (nc + cc) * CB, map_of(2), full + S, cc * kChunk, h, r0, b);
+      }
+    }
+  }
+  // item `it`: tile it / nc, channel chunk (c + 1 + it % nc) % nc; its
+  // stage holds B1, B2 (resident) or A1, B1, A2, B2 (streamed)
+  auto chunk_of = [&](int i) { return (c + 1 + i % nc) % nc; };
+  auto issue = [&](int i) {
+    if (i < n_items) {
+      const int t0 = i / nc * kRows, cc = chunk_of(i);
+      uint8_t* dst = smem + (i % S) * SB;
+      if constexpr (kTma) {
+        if (leader) {
+          fwd::mbar_expect_tx(full + i % S, SB);
+#pragma unroll
+          for (int s = kRes ? 1 : 0, slot = 0; s < 4; s += kRes ? 2 : 1, ++slot)
+            fwd::tma_load(dst + slot * CB, map_of(s), full + i % S, cc * kChunk, h,
+                          (s & 1) ? t0 : r0, b);
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          fwd::load_chunk<T>(smem_u32(dst + s * CB), src_of(s) + base, (s & 1) ? t0 : r0,
+                             cc * kChunk, t_len, d, ld);
+      }
+    }
+    if constexpr (!kTma) fwd::cp_async_commit();
+  };
+  for (int i = 0; i < S - 1; ++i) issue(i);
+  int it = 0;
+  struct Ops {
+    const uint8_t *a1, *b1, *a2, *b2;
+  };
+  // wait for item `it`, pre-scale its q' and k' chunks (and, first, the
+  // resident A1), then refill the stage every thread finished with in the
+  // previous step
+  auto acquire = [&]() -> Ops {
+    uint8_t* st = smem + (it % S) * SB;
+    const int cc = chunk_of(it);
+    if constexpr (kTma) {
+      if (kRes && it == 0) fwd::mbar_wait(full + S, 0);
+      fwd::mbar_wait(full + it % S, (it / S) & 1);
+    } else {
+      fwd::cp_async_wait<S - 2>();
+    }
+    if (scaled) {
+      if (kRes && it == 0)
+        for (int i = 0; i < nc; ++i) fwd::scale_chunk<T>(res + i * CB, pre);
+      fwd::scale_chunk<T>(st + (kRes ? 0 : CB), pre);  // B1
+      if (!kRes) fwd::scale_chunk<T>(st, pre);          // A1
+      // the pre-scale's stores, visible to wgmma
+      if constexpr (kTma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+    __syncthreads();
+    issue(it + S - 1);
+    ++it;
+    if constexpr (kRes) return {res + cc * CB, st, res + (nc + cc) * CB, st + CB};
+    return {st, st + CB, st + 2 * CB, st + 3 * CB};
+  };
+
+  const int lane = threadIdx.x % 32, tig = lane % 4;
+  const int row_a = r0 + 16 * (threadIdx.x / 32) + lane / 4;
+  // exp(s * scale - lse) = exp2(s * scale2 - lse * log2(e))
+  constexpr float kLog2e = 1.4426950408889634f;
+  const float scale2 = scale * kLog2e;
+  // dQ blocks: lse (base 2) and D of this thread's two rows (D once the
+  // grid that writes it is done, below)
+  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};
+  if (!kv) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_a + 8 * r < t_len) lse_r[r] = lse_bh[row_a + 8 * r] * kLog2e;
+  }
+  float acc1[32], acc2[32], x[32], y[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = 0.f;
+  for (int t = 0; t < nt; ++t) {
+    const int t0 = t * kRows;
+    // dK/dV blocks: the tile's lse and D by column, loaded now, read after
+    // the products below (thread i < 64: lse of query t0 + i; else its D)
+    const int vi = t0 + (threadIdx.x & 63);
+    const bool v_ok = kv && vi < t_len;
+    float col_val = 0.f;
+    if (v_ok && (threadIdx.x < 64 || t > 0)) col_val = (threadIdx.x < 64 ? lse_bh : d_bh)[vi];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = y[i] = 0.f;
+    Ops ops;
+    for (int s = 0; s < nc; ++s) {
+      ops = acquire();
+      xy_chunk(x, y, ops.a1, ops.b1, ops.a2, ops.b2, q);
+    }
+    if (t == 0) {
+      // D comes from attn_bwd_d, which this grid's start overlaps
+      // (programmatic dependent launch): wait for it before the first read
+      asm volatile("griddepcontrol.wait;\n" ::: "memory");
+      if (v_ok && threadIdx.x >= 64) col_val = d_bh[vi];
+      if (!kv) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (row_a + 8 * r < t_len) d_r[r] = d_bh[row_a + 8 * r];
+      }
+    }
+    // every thread has passed this tile's first acquire, so the last tile's
+    // reads of tile_vals are done
+    if (kv) {
+      tile_vals[threadIdx.x] = threadIdx.x < 64 ? col_val * kLog2e : col_val;
+      __syncthreads();
+    }
+    // P and dS in place of X and Y; columns past T have P = 0
+    const int cols = t_len - t0;
+    if (kv) {
+      if (cols < kRows) p_and_ds<true, true>(x, y, tile_vals, lse_r, d_r, scale2, cols, q);
+      else p_and_ds<true, false>(x, y, tile_vals, lse_r, d_r, scale2, cols, q);
+    } else {
+      if (cols < kRows) p_and_ds<false, true>(x, y, tile_vals, lse_r, d_r, scale2, cols, q);
+      else p_and_ds<false, false>(x, y, tile_vals, lse_r, d_r, scale2, cols, q);
+    }
+    out_products(kv, acc1, acc2, x, y, ops.b1, ops.b2, q);
+  }
+  if constexpr (!kTma) fwd::cp_async_wait<0>();  // the trailing empty groups
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int col = col0 + 8 * i + 2 * tig;
+    if (col >= d) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + 8 * r;
+      if (row >= t_len) continue;
+      const int64_t at = base + (int64_t)row * ld + col;
+      const float a0 = acc1[4 * i + 2 * r], a1 = acc1[4 * i + 2 * r + 1];
+      // the cotangent of q' (k') is rounded to the I/O type before the pre-scale
+      if (kv) {
+        fwd::store2(dv + at, a0, a1);
+        fwd::store2(dk + at, round_to(acc2[4 * i + 2 * r] * scale, q) * pre,
+                    round_to(acc2[4 * i + 2 * r + 1] * scale, q) * pre);
+      } else {
+        fwd::store2(dq + at, round_to(a0 * scale, q) * pre, round_to(a1 * scale, q) * pre);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
+           const void* lse, void* dd, void* dq, void* dk, void* dv, int batch, int t_len, int ch,
+           int heads, float scale, float pre, cudaStream_t stream) {
+  if (heads < 1 || ch % heads != 0 || t_len < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+  const int d = ch / heads;
+  if (d % 16 != 0 || d > 512 || batch * heads > 65535) return (int)cudaErrorInvalidValue;
+  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k);
+  const T *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(d_o);
+  float* df = static_cast<float*>(dd);
+  const int64_t n_rows = (int64_t)batch * heads * t_len;
+  constexpr int rows_per_block = kDThreads / 32;
+  attn_bwd_d<T><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), kDThreads, 0,
+                  stream>>>(static_cast<const T*>(o), dot, df, n_rows, t_len, d, heads);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const int nc = (d + kChunk - 1) / kChunk;
+  const int smem = smem_bytes<T>(nc);
+  CUtensorMap maps[4] = {};  // q, k, v, dO; unused by the f32 route
+  if (sizeof(T) == 2) {
+    const void* ptrs[4] = {q, k, v, d_o};
+    for (int i = 0; i < 4; ++i)
+      if (!fwd::bf16_map(maps + i, ptrs[i], batch, t_len, heads, d))
+        return (int)cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(attn_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int nt = (t_len + kRows - 1) / kRows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * nt, nc, batch * heads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  // programmatic dependent launch: the blocks start while attn_bwd_d runs
+  // and wait for it (griddepcontrol.wait) before they read D
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, attn_bwd<T>, maps[0], maps[1], maps[2], maps[3], qt, kt, vt, dot,
+                           static_cast<const float*>(lse), static_cast<const float*>(df),
+                           static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), t_len,
+                           d, heads, scale, pre);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o are contiguous [batch, t_len, ch],
 // 16-byte aligned, ch = heads * d with head h in channels [h*d, (h+1)*d), d a
@@ -982,10 +1220,10 @@ extern "C" int asyrp_attention_bwd(const void* q, const void* k, const void* v, 
                                    float pre, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<float>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch, heads, scale,
-                             pre, s);
+    return bwd::launch<float>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch, heads, scale,
+                              pre, s);
   if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch,
-                                     heads, scale, pre, s);
+    return bwd::launch<__nv_bfloat16>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch,
+                                      heads, scale, pre, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,7 +42,10 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one Hopper block may use
 _CHUNK_BYTES = {torch.float32: 64 * 68 * 4, torch.bfloat16: 64 * 128}
 _STAGES = {torch.float32: 4, torch.bfloat16: 8}
 _MAX_D = 512
-_BM, _BN, _BK = 16, 64, 64  # tile sizes of the backward kernels
+# the backward kernel (csrc/attention.cu `bwd::attn_bwd`): per dtype, whether
+# the block's own rows stay resident (2 x ceil(d / 64) chunks), the chunks
+# per stage of its ring and the stages
+_BWD_RING = {torch.float32: (False, 4, 3), torch.bfloat16: (True, 2, 4)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -189,15 +192,24 @@ def _fwd_smem_bytes(dtype) -> int:
     return (1 + stages) * _CHUNK_BYTES[dtype] + 2 * 64 * 64 * 4 + 8 * (stages + 1) + 1024
 
 
+def _bwd_smem_bytes(dtype, d: int) -> int:
+    """The backward kernel's dynamic shared memory, whatever T: its ring of
+    stages (bf16: the tile's B1, B2 chunks; f32: A1, B1, A2, B2), in bf16
+    the block's resident A1, A2 chunks (2 x ceil(d / 64)), one mbarrier per
+    stage and one for those, the tile's lse and D (2 x 64 f32), and 1 KB of
+    alignment."""
+    resident, chunks, stages = _BWD_RING[dtype]
+    n_chunks = (2 * -(-d // 64) if resident else 0) + stages * chunks
+    return n_chunks * _CHUNK_BYTES[dtype] + 8 * (stages + 1) + 2 * 64 * 4 + 1024
+
+
 def _check_bwd(q, k, v, num_heads: int):
-    """`_check_inputs`, and the backward kernels' shared memory, which grows
-    with T."""
-    b, t, c = _check_inputs(q, k, v, num_heads)
-    d = c // num_heads
-    smem = 4 * 2 * (_BM * d + _BN * (_BK + 1) + _BM * t)
+    """The backward kernel's contract: the forward's (`_check`), and its
+    shared memory, which does not grow with T. Returns (B, T, C)."""
+    b, t, c = _check(q, k, v, num_heads)
+    smem = _bwd_smem_bytes(q.dtype, c // num_heads)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"attention backward kernel: T={t}, d={d} needs {smem} bytes of shared "
-                         "memory")
+        raise ValueError(f"attention backward kernel: {smem} bytes of shared memory")
     return b, t, c
 
 
@@ -224,16 +236,18 @@ def _attention_cuda(q, k, v, with_lse: bool, num_heads: int = 1, legacy_scale: b
 
 def _attention_bwd_cuda(q, k, v, o, d_o, lse, num_heads: int, legacy_scale: bool):
     b, t, c = _check_bwd(q, k, v, num_heads)
-    d_o = d_o.contiguous()  # the caller's transposes may leave it strided
+    d_o, o = d_o.contiguous(), o.contiguous()  # the caller's transposes may leave dO strided
     if d_o.dtype != q.dtype or d_o.shape != q.shape:
         raise ValueError(f"attention backward: dO {d_o.dtype}{tuple(d_o.shape)} does not match "
                          f"q {q.dtype}{tuple(q.shape)}")
+    if any(a.data_ptr() % 16 for a in (q, k, v, d_o)):
+        raise ValueError("attention backward kernel needs 16-byte aligned q, k, v, dO")
     scale, pre = _scales(c // num_heads, legacy_scale, q.dtype)
     d = torch.empty(b, num_heads * t, device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         code = _fn("asyrp_attention_bwd", _BWD_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.contiguous().data_ptr(), d_o.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
             lse.contiguous().data_ptr(), d.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, t, c, num_heads, scale, pre, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,

@@ -8,7 +8,10 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   2. build of the CUDA kernels K1 (GroupNorm+SiLU, with K1-bwd) and K2
      (attention with one head or several, with K2-bwd) with nvcc for
      sm_90a, one nvcc per source, all started together; K3 (DDIM step,
-     Triton) compiles at its first launch;
+     Triton) compiles at its first launch. Per attention entry (forward and
+     backward, f32 and bf16) its HGMMA / HMMA count, registers and spills:
+     a bf16 entry without HGMMA (wgmma) or an f32 one without HMMA
+     (mma.sync) fails;
   3. each kernel against its plain PyTorch version on the card, in float32
      and bfloat16: the forwards at every shape the serving path gives them
      (recorded from one edited UNet eval of the full-width CelebA-HQ DDPM++
@@ -16,8 +19,12 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      (recorded from one training-mode eval: the edited decode and the
      DeltaBlock) against `torch.autograd.grad` through the plain forward.
      Per row: median CUDA-event times of the kernel, the plain version and
-     the one PyTorch call that computes the same function, and the bound
-     (the least time the card could take for the row's bytes or operations);
+     the one PyTorch call that computes the same function, their device
+     times per call run back to back, and the bound (the least time the
+     card could take for the row's bytes or operations). The K2-bwd rows
+     also run off the path (count 0: ragged T, batch 8, T = 1024 with one
+     head, T = 4096 with 8), read SDPA's backward from torch.profiler and
+     check that two calls agree bit for bit;
   4. the serving path through the port's CLI, in-process: `--run_test` on
      `custom.yml` (256^2, 113.7M params, random weights from --seed), two
      random 256^2 images and a seeded DeltaBlock checkpoint, 40-step
@@ -339,6 +346,8 @@ def record_path_shapes(torch, dev):
     # shapes off the eval (count 0): ragged T, batch 8, T = 1024
     for shape in ((1, 200, 512), (8, 256, 512), (1, 1024, 512)):
         seen["attention"][shape] = 0
+    for shape in ((1, 200, 512), (2, 100, 512), (8, 256, 512), (1, 1024, 512)):
+        seen["attention_bwd"].setdefault(shape, 0)
     del model, block
     torch.cuda.empty_cache()
     return seen
@@ -402,7 +411,8 @@ def record_afhq_shapes(torch, dev):
     # shapes off the eval (count 0): IMAGENET's 32^2 level, ragged T, batch 8
     for shape in ((1, 1024, 512), (2, 100, 512), (8, 256, 512)):
         seen["attention_mh"][(shape, 8, True)] = 0
-    for shape in ((1, 64, 512), (1, 1024, 512)):
+    for shape in ((1, 64, 512), (1, 1024, 512), (2, 100, 512), (1, 200, 512), (8, 256, 512),
+                  (1, 4096, 512)):
         seen["attention_bwd_mh"].setdefault((shape, 8, True), 0)
     del model, block
     torch.cuda.empty_cache()
@@ -539,11 +549,16 @@ def kernel_rows(torch, dev, seen):
                     abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
                     part_errs.append(r_)
                 ms_k, ms_p, ms_l = time_ms(run_k), time_ms(run_p), time_ms(lib)
-                dev_t = ()
-                if name.startswith("attention"):
-                    dev_t = (device_ms(run_k), device_ms(run_p), device_ms(lib))
-                if name.startswith("attention_bwd"):  # the library's backward, profiled
-                    dev_t += (profiled_device_ms(lib),)
+                dev_t = (device_ms(run_k), device_ms(run_p), device_ms(lib))
+                if name.startswith("attention_bwd"):
+                    # the library's backward and the kernels, profiled alike (the sum of
+                    # their device events, without the gaps between launches)
+                    dev_t += (profiled_device_ms(lib), profiled_device_ms(run_k))
+                    # no atomics: two calls on the same inputs agree bit for bit
+                    again = [run_k(), run_k()]
+                    if not all(torch.equal(a_, b_) for a_, b_ in zip(*again)):
+                        fail(f"{name} {label} {dname}: two backward calls on the same inputs "
+                             "differ")
                 tol = TOL[name][dname]
                 ok = rel_err <= tol
                 control = ""
@@ -566,14 +581,15 @@ def kernel_rows(torch, dev, seen):
                                                zip(parts, part_errs)) + "]"
                 timing = (f"kernel {ms_k:.4f} ms per call ({ms_k * count:.4f} per eval), plain "
                           f"{ms_p:.4f} ms, library {ms_l:.4f} ms")
-                if dev_t:
-                    timing += (f"; device time per call, back to back: kernel {dev_t[0]:.4f} "
-                               f"ms ({dev_t[0] * count:.4f} per eval), plain {dev_t[1]:.4f} ms, "
-                               f"library {dev_t[2]:.4f} ms")
+                if name.startswith("attention_bwd"):
+                    timing += "; bitwise equal across two calls"
+                timing += (f"; device time per call, back to back: kernel {dev_t[0]:.4f} "
+                           f"ms ({dev_t[0] * count:.4f} per eval), plain {dev_t[1]:.4f} ms, "
+                           f"library {dev_t[2]:.4f} ms")
                 if len(dev_t) > 3:
-                    timing += (" (its device events in torch.profiler: "
-                               + ("not measured" if dev_t[3] is None else f"{dev_t[3]:.4f} ms")
-                               + ")")
+                    prof = ["not measured" if v_ is None else f"{v_:.4f} ms" for v_ in dev_t[3:]]
+                    timing += (f"; device events in torch.profiler per call: library {prof[0]}, "
+                               f"kernel {prof[1]}")
                 phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e}{by_part} (tol "
                       f"{tol:g}{control}) {timing}, bound {b_ms:.4f} ms ({b_by})"
                       f"{'' if ok else '  <-- FAIL'}")
@@ -581,7 +597,7 @@ def kernel_rows(torch, dev, seen):
                     fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}"
                          f"{control}")
                 dev_keys = ("device_ms", "plain_device_ms", "library_device_ms",
-                            "library_profiled_ms")
+                            "library_profiled_ms", "profiled_ms")
                 for k_, v_ in (("ms", ms_k), ("plain_ms", ms_p), ("library_ms", ms_l),
                                ("bound_ms", b_ms), *zip(dev_keys, dev_t)):
                     if v_ is not None:
@@ -593,13 +609,12 @@ def kernel_rows(torch, dev, seen):
             # what bounds most of the eval's bound time
             tot["bound_by"] = max(bound_ms_by, key=bound_ms_by.get)
             out[name][dname] = tot
-            dev_sum = ""
-            if "device_ms" in tot:
-                dev_sum = (f"; device time {tot['device_ms']:.3f} ms (kernel) vs "
-                           f"{tot['plain_device_ms']:.3f} ms (plain), "
-                           f"{tot['library_device_ms']:.3f} ms (library)")
+            dev_sum = (f"; device time {tot['device_ms']:.3f} ms (kernel) vs "
+                       f"{tot['plain_device_ms']:.3f} ms (plain), "
+                       f"{tot['library_device_ms']:.3f} ms (library)")
             if "library_profiled_ms" in tot:
-                dev_sum += f", the library's profiled {tot['library_profiled_ms']:.3f} ms"
+                dev_sum += (f"; profiled: library {tot['library_profiled_ms']:.3f} ms, kernel "
+                            f"{tot.get('profiled_ms', float('nan')):.3f} ms")
             phase(f"  {name} {dname}: {tot['calls']} calls per eval take {tot['ms']:.3f} ms "
                   f"(kernel) vs {tot['plain_ms']:.3f} ms (plain), {tot['library_ms']:.3f} ms "
                   f"(library), bound {tot['bound_ms']:.3f} ms{dev_sum}")
@@ -1516,10 +1531,11 @@ def sass_counts(lib: str):
 
 
 def build_kernels():
-    """Phase 2: nvcc for every source at once; then the attention forward's
-    instructions per entry (tensor-core HGMMA from wgmma, HMMA from
-    mma.sync) with its registers and spills. Fails if a bf16 forward entry
-    has no HGMMA. Returns {entry label: counts}."""
+    """Phase 2: nvcc for every source at once; then, per attention entry
+    (forward `attn_fwd`, backward `attn_bwd`, in f32 and bf16), its
+    tensor-core instructions (HGMMA from wgmma, HMMA from mma.sync) with
+    its registers and spills. Fails if a bf16 entry has no HGMMA or an f32
+    entry no HMMA (3xTF32 on mma.sync). Returns {entry label: counts}."""
     from asyrp_official_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -1535,20 +1551,22 @@ def build_kernels():
     ptxas = _ptxas_by_entry(_build.build_log("attention"))
     entries = {}
     for fn, counts in sass_counts(_build._lib_path("attention")).items():
-        m = re.search(r"attn_fwdI(13__nv_bfloat16|f)E", fn)
+        m = re.search(r"(attn_fwd|attn_bwd)I(13__nv_bfloat16|f)E", fn)
         if not m:
             continue
-        dname = "bfloat16" if m.group(1) != "f" else "float32"
-        label = f"attn_fwd {dname}"
+        dname = "bfloat16" if m.group(2) != "f" else "float32"
+        label = f"{m.group(1)} {dname}"
         info = ptxas.get(fn, {})
         entries[label] = {**counts, "registers": info.get("registers"),
                           "spills": info.get("spills")}
         phase(f"  {label}: {counts['HGMMA']} HGMMA, {counts['HMMA']} HMMA in its SASS; "
               f"{info.get('registers')} registers; {info.get('spills')}")
         if dname == "bfloat16" and not counts["HGMMA"]:
-            fail(f"{label} has no HGMMA: the bf16 forward does not run on wgmma")
-    if len(entries) != 2:
-        fail(f"expected 2 attention forward entries (f32, bf16) in the SASS, found "
+            fail(f"{label} has no HGMMA: the bf16 entry does not run on wgmma")
+        if dname == "float32" and not counts["HMMA"]:
+            fail(f"{label} has no HMMA: the f32 entry does not run on the tensor cores")
+    if len(entries) != 4:
+        fail(f"expected 4 attention entries (forward, backward; f32, bf16) in the SASS, found "
              f"{sorted(entries)}")
     return entries
 
@@ -1704,10 +1722,11 @@ def main() -> int:
             "calls_per_eval": f32["calls"],
             "by_dtype": {d: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "device_ms", "plain_device_ms",
-                                               "library_device_ms", "library_profiled_ms")
+                                               "library_device_ms", "library_profiled_ms",
+                                               "profiled_ms")
                              if k in v} for d, v in r.items()},
         })
-    summary = {"card": card, "attention_fwd_sass": sass, "serving": timings,
+    summary = {"card": card, "attention_sass": sass, "serving": timings,
                "invert_edit_chain_ms_best_of_2": chain_ms,
                "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
                "profile": profile, "training": training,

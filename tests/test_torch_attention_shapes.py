@@ -1,13 +1,14 @@
-"""The attention forward kernel's shape contract (`ops/attention.py`
-`_check`), on the CPU: every attention the repo's configs build is taken,
-at batch 1 and 8, and what the kernel cannot take raises with a message.
+"""The attention kernels' shape contract (`ops/attention.py` `_check` for
+the forward, `_check_bwd` for the backward), on the CPU: every attention
+the repo's configs build is taken, at batch 1 and 8, and what the kernels
+cannot take raises with a message.
 
 The shapes come from each `configs/*.yml` through `models/registry.py`
 (widths, `num_head_channels`, attention resolutions), without building a
 model: one head of ch * ch_mult[level] channels at each DDPM++ attention
 resolution and in the middle block; for the OpenAI UNets the heads of
 `heads_for` at each attention rate and in the middle block, checked against
-the attention layers of `build_plan`. `_check` needs no GPU.
+the attention layers of `build_plan`. Neither check needs a GPU.
 """
 import glob
 import os
@@ -99,3 +100,34 @@ def test_check_rejects_mismatched_inputs():
         k2._check(q, k, v.transpose(1, 2).contiguous().transpose(1, 2))
     with pytest.raises(ValueError, match="different devices"):
         k2._check(q, k, torch.empty(1, 64, 512, device="meta"))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("config", CONFIGS)
+def test_check_bwd_takes_every_config_shape(config, batch):
+    for t, c, heads in sorted(attention_shapes(config)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.empty(batch, t, c, dtype=dtype)
+            assert k2._check_bwd(q, torch.empty_like(q), torch.empty_like(q), heads) == (
+                batch, t, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,heads", [((1, 4096, 512), 8), ((1, 2048, 512), 1)])
+def test_check_bwd_takes_long_sequences(shape, heads, dtype):
+    # the backward's shared memory does not grow with T; at the widest head
+    # (d = 512) 194 KB in bf16, 206 KB in f32
+    assert k2._check_bwd(*_qkv(shape, dtype), heads) == shape
+    assert k2._bwd_smem_bytes(dtype, 512) <= k2._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape,heads,match", [
+    ((1, 64, 72), 1, "multiple of 16"),    # d = 72
+    ((1, 64, 520), 1, "multiple of 16"),   # d = 520
+    ((1, 64, 1024), 1, "up to 512"),       # one head of 1024
+    ((1, 64, 512), 3, "do not split"),
+    ((8193, 4, 128), 8, "65535"),          # 65544 (sample, head) pairs
+])
+def test_check_bwd_rejects_what_the_kernel_cannot_take(shape, heads, match):
+    with pytest.raises(ValueError, match=match):
+        k2._check_bwd(*_qkv(shape), heads)

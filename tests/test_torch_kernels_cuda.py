@@ -226,7 +226,11 @@ def test_group_norm_backward_kernel_at_openai_decoder_shapes(cuda_device, shape,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("shape", [(1, 256, 512), (2, 64, 512), (1, 100, 96)])
+@pytest.mark.parametrize("shape", [
+    (1, 256, 512), (2, 64, 512), (1, 100, 96),
+    (1, 200, 512), (2, 100, 512),  # ragged T
+    (8, 256, 512),  # batch 8
+    (1, 1024, 512)])
 def test_attention_backward_kernel_matches_autograd(cuda_device, shape, dtype, bound):
     g = torch.Generator(device=cuda_device).manual_seed(4)
     q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_()
@@ -245,7 +249,10 @@ def test_attention_backward_kernel_matches_autograd(cuda_device, shape, dtype, b
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("shape,heads,legacy", [
     ((1, 256, 512), 8, True), ((2, 64, 512), 8, True), ((1, 1024, 512), 8, True),
-    ((2, 100, 96), 3, True), ((1, 64, 128), 4, False)])
+    ((2, 100, 96), 3, True), ((1, 64, 128), 4, False),
+    ((2, 100, 512), 8, True), ((1, 200, 512), 8, True),  # ragged T
+    ((8, 256, 512), 8, True),  # batch 8
+    ((1, 4096, 512), 8, True)])  # T = 4096: shared memory does not grow with T
 def test_multihead_attention_backward_kernel_matches_autograd(cuda_device, shape, heads, legacy,
                                                               dtype, bound):
     g = torch.Generator(device=cuda_device).manual_seed(9)
@@ -260,3 +267,21 @@ def test_multihead_attention_backward_kernel_matches_autograd(cuda_device, shape
         close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
                        "multi-head attention backward kernel", bound=bound)
     assert k2.attention.mh_bwd_launches == n + 1 and k2.attention.bwd_launches == n1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,heads,legacy", [
+    ((1, 256, 512), 1, False), ((2, 200, 512), 8, True), ((1, 100, 96), 3, True)])
+def test_attention_backward_kernel_is_deterministic(cuda_device, shape, heads, legacy, dtype):
+    """Every output element is written by one thread of one block, with no
+    atomics: two backward calls on the same inputs agree bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v, d_o = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+                    for _ in range(4))
+    o, lse = k2._attention_cuda(q, k, v, True, heads, legacy)
+    kw = dict(num_heads=heads, legacy_scale=legacy)
+    first = k2.attention_backward(q, k, v, o, d_o, lse, **kw)
+    second = k2.attention_backward(q, k, v, o, d_o, lse, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
