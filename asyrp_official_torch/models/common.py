@@ -33,7 +33,9 @@ __all__ = [
 
 class GroupNorm(nn.Module):
     """32-group GroupNorm with the reference's `weight`/`bias` keys; the
-    forward is kernel K1, optionally fused with SiLU."""
+    forward is kernel K1, optionally fused with SiLU, a per-channel
+    `pre_add` [B, C] before it and the FiLM `scale_shift` [B, 2C] after it
+    (`ops.groupnorm.group_norm`)."""
 
     def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
         super().__init__()
@@ -41,8 +43,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, silu: bool = False):
-        return _k1.group_norm(x, self.weight, self.bias, groups=self.groups, eps=self.eps, silu=silu)
+    def forward(self, x, silu: bool = False, pre_add=None, scale_shift=None):
+        return _k1.group_norm(x, self.weight, self.bias, groups=self.groups, eps=self.eps, silu=silu,
+                              pre_add=pre_add, scale_shift=scale_shift)
 
 
 def _cast(p, dtype):

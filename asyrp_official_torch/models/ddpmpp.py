@@ -93,8 +93,9 @@ class ResnetBlock(nn.Module):
 
     def forward(self, x, temb):
         h = cm.conv2d(self.conv1, self.norm1(x, silu=True))
-        h = h + cm.linear(self.temb_proj, F.silu(temb))[:, :, None, None]
-        h = cm.conv2d(self.conv2, self.norm2(h, silu=True))
+        # h + temb_proj(temb), then GroupNorm+SiLU: one K1 launch when serving
+        h = self.norm2(h, silu=True, pre_add=cm.linear(self.temb_proj, F.silu(temb)))
+        h = cm.conv2d(self.conv2, h)
         if hasattr(self, "nin_shortcut"):
             x = cm.mat1x1(self.nin_shortcut, x)
         return x + h

@@ -40,9 +40,8 @@ class DeltaBlock(nn.Module):
 
     def forward(self, x, temb=None):
         h = cm.mat1x1(self.conv1, x)
-        if temb is not None:
-            h = h + cm.linear(self.temb_proj, F.silu(temb))[:, :, None, None]
-        return cm.mat1x1(self.conv2, self.norm2(h, silu=True))
+        t = None if temb is None else cm.linear(self.temb_proj, F.silu(temb))
+        return cm.mat1x1(self.conv2, self.norm2(h, silu=True, pre_add=t))
 
 
 class OpenAIDeltaBlock(nn.Module):
@@ -61,9 +60,8 @@ class OpenAIDeltaBlock(nn.Module):
 
     def forward(self, x, temb=None):
         h = cm.mat1x1(self.in_layers[2], self.in_layers[0](x, silu=True))
-        if temb is not None:
-            h = h + cm.linear(self.emb_layers[1], F.silu(temb))[:, :, None, None]
-        return cm.mat1x1(self.out_layers[3], self.out_layers[0](h, silu=True))
+        t = None if temb is None else cm.linear(self.emb_layers[1], F.silu(temb))
+        return cm.mat1x1(self.out_layers[3], self.out_layers[0](h, silu=True, pre_add=t))
 
 
 _BLOCKS = {"ddpm": DeltaBlock, "openai": OpenAIDeltaBlock}

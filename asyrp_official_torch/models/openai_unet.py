@@ -174,14 +174,13 @@ class ResBlock(nn.Module):
         elif self.updown == "up":
             h, x = cm.upsample_nearest_2x(h), cm.upsample_nearest_2x(x)
         h = cm.conv2d(self.in_layers[2], h)
-        emb_out = cm.linear(self.emb_layers[1], F.silu(emb))[:, :, None, None]
+        emb_out = cm.linear(self.emb_layers[1], F.silu(emb))  # [B, 2C] or [B, C]
         if self.scale_shift:
-            # the FiLM epilogue in the activation dtype, as the JAX order rounds
-            scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_layers[0](h) * (1.0 + scale) + shift
-            h = F.silu(h)
+            # GN, h * (1 + scale) + shift, SiLU: each step rounded in the
+            # activation dtype, as the JAX order rounds; one K1 launch when serving
+            h = self.out_layers[0](h, silu=True, scale_shift=emb_out)
         else:
-            h = self.out_layers[0](h + emb_out, silu=True)
+            h = self.out_layers[0](h, silu=True, pre_add=emb_out)
         h = cm.conv2d(self.out_layers[3], h)
         if hasattr(self, "skip_connection"):
             x = cm.mat1x1(self.skip_connection, x)

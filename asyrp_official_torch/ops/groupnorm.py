@@ -7,32 +7,45 @@ are NCHW (any trailing spatial rank): `[B, C, *spatial]`. Statistics,
 affine and gradients run in f32 whatever the I/O dtype, and each result is
 cast back once.
 
+The serving entry also takes the elementwise ops around the norm:
+`pre_add` [B, C] (DDPM++ `h + temb_proj(...)`, added before the
+statistics) and `scale_shift` [B, 2C] (the OpenAI FiLM epilogue
+`y * (1 + scale) + shift`, then SiLU if `silu`), each step rounded to the
+I/O dtype as the separate torch ops round it (`group_norm_plain` composes
+exactly those ops).
+
 `group_norm` dispatches on the tensor's device: a CPU tensor takes the plain
-versions, a CUDA tensor launches the kernels, anything else raises. When a
-gradient is needed it goes through `torch.autograd.Function`: the forward
-also keeps each group's mean and rstd (f32), and the backward computes dx,
-and dweight/dbias when the weight is trained, from them — `group_norm_
-backward_plain` on the CPU, kernel K1-bwd on CUDA. `group_norm.launches` and
-`group_norm.bwd_launches` count the kernel launches.
+versions, a CUDA tensor launches the kernels, anything else raises. Without
+a gradient to track, a CUDA call is one kernel launch, fused ops included.
+When a gradient is needed it takes `group_norm_unfused`: the torch ops
+around K1's `torch.autograd.Function`, whose forward also keeps each group's
+mean and rstd (f32) and whose backward computes dx, and dweight/dbias when
+the weight is trained, from them — `group_norm_backward_plain` on the CPU,
+kernel K1-bwd on CUDA. `group_norm.launches` and `group_norm.bwd_launches`
+count the kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from asyrp_official_torch.ops import _build
 
-__all__ = ["group_norm", "group_norm_plain", "group_norm_backward", "group_norm_backward_plain"]
+__all__ = ["group_norm", "group_norm_plain", "group_norm_unfused", "group_norm_backward",
+           "group_norm_backward_plain", "group_norm_plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# each slice of a group holds at least this many elements (see the .cu note)
-_MIN_SLICE = 8192
-_MAX_SPLITS = 64
 
 
 def _bshape(x):
     return (1, x.shape[1]) + (1,) * (x.dim() - 2)
+
+
+def _per_channel(t, x):
+    """[B, C] -> [B, C, 1, ...] against x."""
+    return t.reshape(t.shape[:2] + (1,) * (x.dim() - 2))
 
 
 def _plain_with_stats(x, weight, bias, groups, eps, silu):
@@ -48,9 +61,24 @@ def _plain_with_stats(x, weight, bias, groups, eps, silu):
     return y.to(x.dtype), mean.reshape(b, groups), rstd.reshape(b, groups)
 
 
-def group_norm_plain(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bool = False):
-    """The reference math on any device, in plain PyTorch."""
-    return _plain_with_stats(x, weight, bias, groups, eps, silu)[0]
+def _film(y, scale_shift, silu):
+    """y * (1 + scale) + shift, then SiLU: torch ops in y's dtype."""
+    scale, shift = (_per_channel(t, y) for t in scale_shift.chunk(2, dim=1))
+    y = y * (1.0 + scale) + shift
+    return F.silu(y) if silu else y
+
+
+def group_norm_plain(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bool = False,
+                     pre_add=None, scale_shift=None):
+    """The reference math on any device, in plain PyTorch. `pre_add` [B, C]
+    is added to x in x's dtype before the statistics; `scale_shift` [B, 2C]
+    turns the norm's output y into y * (1 + scale) + shift, then SiLU if
+    `silu` (without it, `silu` is the fused GroupNorm+SiLU)."""
+    if pre_add is not None:
+        x = x + _per_channel(pre_add, x)
+    if scale_shift is None:
+        return _plain_with_stats(x, weight, bias, groups, eps, silu)[0]
+    return _film(_plain_with_stats(x, weight, bias, groups, eps, False)[0], scale_shift, silu)
 
 
 def group_norm_backward_plain(x, dy, weight, bias, mean, rstd, *, groups: int = 32,
@@ -84,23 +112,35 @@ def group_norm_backward_plain(x, dy, weight, bias, mean, rstd, *, groups: int = 
     return dx, (dz * xhat).sum(dim=sum_dims), dz.sum(dim=sum_dims)
 
 
-def _splits(group_len: int) -> int:
-    want = min(_MAX_SPLITS, max(1, -(-group_len // _MIN_SLICE)))
-    slice_len = -(-group_len // want)
-    return -(-group_len // slice_len)  # no empty trailing slice
+# the C entry points, their argument types set once
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_ARGS = {
+    "asyrp_group_norm": [_P] * 8 + [_I, _I, _L, _I, ctypes.c_float, _I, _I, _P],
+    "asyrp_group_norm_bwd": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_plan": [_I, _I, _L, _I, _I, _I, ctypes.POINTER(_L)],
+}
+_lib = None
 
 
-def _fn(name: str, argtypes):
-    fn = getattr(_build.load_library("groupnorm"), name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
+def _kernels():
+    global _lib
+    if _lib is None:
+        lib = _build.load_library("groupnorm")
+        for name, argtypes in _ARGS.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _lib = lib
+    return _lib
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 7 + [_I, _I, ctypes.c_int64, _I, ctypes.c_float, _I, _I, _I, _P]
-_BWD_ARGS = [_P] * 10 + [_I, _I, ctypes.c_int64, _I, _I, _I, _I, _P]
+def _launch(fn, x, *args):
+    """Run `fn` on x's device and current stream; the device is switched only
+    when it is not the current one."""
+    idx = x.get_device()
+    if idx == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
 def _check_input(x, weight, bias, groups):
@@ -108,60 +148,93 @@ def _check_input(x, weight, bias, groups):
         raise TypeError(f"group_norm kernel takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("group_norm kernel needs a contiguous NCHW tensor")
-    b, c = x.shape[:2]
+    shape = x.shape
+    b, c = shape[0], shape[1]
     if c % groups:
         raise ValueError(f"{c} channels do not split into {groups} groups")
-    w = weight.detach().float().contiguous()
-    bb = bias.detach().float().contiguous()
-    if w.device != x.device or bb.device != x.device or w.numel() != c or bb.numel() != c:
-        raise ValueError("group_norm weight/bias must be [C] on the input's device")
-    return b, c, x.numel() // (b * c), w, bb
+    dev = x.get_device()
+    for t in (weight, bias):
+        if (t.dtype != torch.float32 or not t.is_contiguous() or t.get_device() != dev
+                or t.numel() != c):
+            raise ValueError("group_norm weight/bias must be float32, contiguous, [C] and on "
+                             "the input's device")
+    return b, c, x.numel() // (b * c)
 
 
-def _group_norm_cuda(x, weight, bias, groups, eps, silu, stats: bool):
-    b, c, hw, w, bb = _check_input(x, weight, bias, groups)
-    splits = _splits((c // groups) * hw)
-    partials = torch.empty(b * groups * splits * 3, device=x.device, dtype=torch.float32)
+def _check_per_channel(t, x, width, what):
+    """[B, width * C] in x's dtype, contiguous (a batch of 1 broadcast)."""
+    if t is None:
+        return None
+    b, c = x.shape[:2]
+    if t.shape == (b, width * c) and t.is_contiguous() and t.dtype == x.dtype and (
+            t.get_device() == x.get_device()):
+        return t
+    if (t.dtype != x.dtype or t.device != x.device or t.dim() != 2
+            or t.shape[0] not in (1, b) or t.shape[1] != width * c):
+        raise ValueError(f"group_norm {what} must be [{b}, {width * c}] {x.dtype} on the input's "
+                         f"device, got {t.dtype}{tuple(t.shape)}")
+    return t.expand(b, -1).contiguous()
+
+
+def _group_norm_cuda(x, weight, bias, groups, eps, silu, stats: bool, pre_add=None,
+                     scale_shift=None):
+    b, c, hw = _check_input(x, weight, bias, groups)
+    pre_add = _check_per_channel(pre_add, x, 1, "pre_add")
+    scale_shift = _check_per_channel(scale_shift, x, 2, "scale_shift")
     y = torch.empty_like(x)
     mean = rstd = None
     if stats:
-        mean = torch.empty(b, groups, device=x.device, dtype=torch.float32)
-        rstd = torch.empty_like(mean)
-    with torch.cuda.device(x.device):  # the launch goes to the current device
-        code = _fn("asyrp_group_norm", _FWD_ARGS)(
-            x.data_ptr(), w.data_ptr(), bb.data_ptr(), y.data_ptr(), partials.data_ptr(),
-            mean.data_ptr() if stats else None, rstd.data_ptr() if stats else None,
-            b, c, hw, groups, float(eps), int(silu), splits, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+        mean, rstd = torch.empty(2, b, groups, device=x.device, dtype=torch.float32)
+    code = _launch(
+        _kernels().asyrp_group_norm, x, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        y.data_ptr(), None if pre_add is None else pre_add.data_ptr(),
+        None if scale_shift is None else scale_shift.data_ptr(),
+        None if mean is None else mean.data_ptr(), None if rstd is None else rstd.data_ptr(),
+        b, c, hw, groups, eps, silu, _DTYPES[x.dtype])
     _build.check(code, "group_norm kernel")
     group_norm.launches += 1
     return y, mean, rstd
 
 
 def _group_norm_bwd_cuda(x, dy, weight, bias, mean, rstd, groups, silu, weight_grad):
-    b, c, hw, w, bb = _check_input(x, weight, bias, groups)
+    b, c, hw = _check_input(x, weight, bias, groups)
     dy = dy.contiguous()
     if dy.dtype != x.dtype or dy.shape != x.shape:
         raise ValueError(f"group_norm backward: dy {dy.dtype}{tuple(dy.shape)} does not match "
                          f"x {x.dtype}{tuple(x.shape)}")
-    splits = _splits((c // groups) * hw)
-    partials = torch.empty(b * groups * splits * 2, device=x.device, dtype=torch.float32)
+    mean, rstd = mean.contiguous(), rstd.contiguous()
     dx = torch.empty_like(x)
-    dw = db = None
-    if weight_grad:
-        dw = torch.empty(c, device=x.device, dtype=torch.float32)
-        db = torch.empty_like(dw)
-    with torch.cuda.device(x.device):
-        code = _fn("asyrp_group_norm_bwd", _BWD_ARGS)(
-            x.data_ptr(), dy.data_ptr(), w.data_ptr(), bb.data_ptr(), mean.data_ptr(),
-            rstd.data_ptr(), dx.data_ptr(), dw.data_ptr() if weight_grad else None,
-            db.data_ptr() if weight_grad else None, partials.data_ptr(), b, c, hw, groups,
-            int(silu), splits, _DTYPES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    # per sample: the sums of dz * xhat and of dz over each channel's H*W
+    wsum = torch.empty(b, 2, c, device=x.device, dtype=torch.float32) if weight_grad else None
+    code = _launch(
+        _kernels().asyrp_group_norm_bwd, x, x.data_ptr(), dy.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(),
+        None if wsum is None else wsum.data_ptr(), b, c, hw, groups, silu, _DTYPES[x.dtype])
     _build.check(code, "group_norm backward kernel")
     group_norm.bwd_launches += 1
+    if not weight_grad:
+        return dx, None, None
+    dw, db = wsum[0] if b == 1 else wsum.sum(dim=0)
     return dx, dw, db
+
+
+def group_norm_plan(shape, dtype, *, groups: int = 32, backward: bool = False,
+                    weight_grad: bool = False):
+    """The launch plan the kernel takes for an NCHW `shape` (on the card):
+    {cluster, vec, slice_vectors, resident_x, resident_dy, smem_bytes,
+    group_vectors, threads}. A slice larger than its resident part streams the rest
+    from device memory."""
+    b, c = shape[:2]
+    hw = 1
+    for d in shape[2:]:
+        hw *= d
+    out = (ctypes.c_int64 * 8)()
+    code = _kernels().asyrp_group_norm_plan(b, c, hw, groups, _DTYPES[dtype],
+                                            (2 if weight_grad else 1) if backward else 0, out)
+    _build.check(code, "group_norm plan")
+    keys = ("cluster", "vec", "slice_vectors", "resident_x", "resident_dy", "smem_bytes",
+            "group_vectors", "threads")
+    return dict(zip(keys, out))
 
 
 def group_norm_backward(x, dy, weight, bias, mean, rstd, *, groups: int = 32,
@@ -201,15 +274,51 @@ class _GroupNorm(torch.autograd.Function):
         return dx if ctx.needs_input_grad[0] else None, dw, db, None, None, None
 
 
-def group_norm(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bool = False):
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"group_norm: no kernel for device {x.device}")
+def _norm(x, weight, bias, groups, eps, silu):
+    """K1 alone: under autograd its Function, else the kernel or the plain
+    version."""
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
                                     or bias.requires_grad):
         return _GroupNorm.apply(x, weight, bias, groups, eps, silu)
+    if x.device.type == "cuda":
+        return _group_norm_cuda(x, weight, bias, groups, eps, silu, stats=False)[0]
+    return group_norm_plain(x, weight, bias, groups=groups, eps=eps, silu=silu)
+
+
+def group_norm_unfused(x, weight, bias, *, groups: int = 32, eps: float = 1e-6,
+                       silu: bool = False, pre_add=None, scale_shift=None):
+    """`group_norm`'s function as K1 between separate torch ops: the path
+    under autograd (K1's gradient is K1-bwd), and on the card the fused
+    kernel's yardstick."""
+    if pre_add is not None:
+        x = x + _per_channel(pre_add, x)
+    if scale_shift is None:
+        return _norm(x, weight, bias, groups, eps, silu)
+    return _film(_norm(x, weight, bias, groups, eps, False), scale_shift, silu)
+
+
+def _unfused_needed(x, weight, bias, pre_add, scale_shift) -> bool:
+    """A gradient to track, or a fused operand whose dtype would promote x's
+    (the separate torch ops then give the promoted result)."""
+    for t in (pre_add, scale_shift):
+        if t is not None and (t.dtype != x.dtype or (torch.is_grad_enabled() and t.requires_grad)):
+            return True
+    return torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                        or bias.requires_grad)
+
+
+def group_norm(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bool = False,
+               pre_add=None, scale_shift=None):
+    if _unfused_needed(x, weight, bias, pre_add, scale_shift):
+        return group_norm_unfused(x, weight, bias, groups=groups, eps=eps, silu=silu,
+                                  pre_add=pre_add, scale_shift=scale_shift)
+    if x.device.type == "cuda":
+        return _group_norm_cuda(x, weight, bias, groups, eps, silu, False, pre_add,
+                                scale_shift)[0]
     if x.device.type == "cpu":
-        return group_norm_plain(x, weight, bias, groups=groups, eps=eps, silu=silu)
-    return _group_norm_cuda(x, weight, bias, groups, eps, silu, stats=False)[0]
+        return group_norm_plain(x, weight, bias, groups=groups, eps=eps, silu=silu,
+                                pre_add=pre_add, scale_shift=scale_shift)
+    raise ValueError(f"group_norm: no kernel for device {x.device}")
 
 
 group_norm.launches = 0

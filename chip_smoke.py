@@ -8,7 +8,10 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   2. build of the CUDA kernels K1 (GroupNorm+SiLU, with K1-bwd) and K2
      (attention with one head or several, with K2-bwd) with nvcc for
      sm_90a, one nvcc per source, all started together; K3 (DDIM step,
-     Triton) compiles at its first launch. Per attention entry (forward and
+     Triton) compiles at its first launch. Per K1 entry (forward `gn_fwd`,
+     backward `gn_bwd`; f32 and bf16, 16-byte or scalar vectors, 256 or
+     512 threads) its registers, shared memory and spills (the cluster
+     size is chosen per call: phase 3 prints it per row). Per attention entry (forward and
      backward, f32 and bf16) its HGMMA / HMMA count, registers and spills:
      a bf16 entry without HGMMA (wgmma) or an f32 one without HMMA
      (mma.sync) fails;
@@ -24,7 +27,16 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      card could take for the row's bytes or operations). The K2-bwd rows
      also run off the path (count 0: ragged T, batch 8, T = 1024 with one
      head, T = 4096 with 8), read SDPA's backward from torch.profiler and
-     check that two calls agree bit for bit;
+     check that two calls agree bit for bit. K1's rows include the fused
+     serving calls (the pre-add of `h + temb`, the FiLM epilogue), held to
+     the plain fused version and to the unfused composition (K1, then the
+     torch ops: 1e-6 of scale in f32, one bf16 ulp per element in bf16),
+     whose time is the row's library time; every K1 and K1-bwd row checks
+     that two calls agree bit for bit, and every K1 forward row that a call
+     is at most one device kernel, `gn_fwd`, in torch.profiler (whose
+     trace can drop events, never add them); K1 rows print event minus
+     device time per call (the launch path's host time). K3 and
+     `ddpm_step` rows give their device time back to back too;
   4. the serving path through the port's CLI, in-process: `--run_test` on
      `custom.yml` (256^2, 113.7M params, random weights from --seed), two
      random 256^2 images and a seeded DeltaBlock checkpoint, 40-step
@@ -130,6 +142,8 @@ MIN_EPS_STD = 0.1
 # the multi-head K2 against the one-head plain version: a control that the
 # row's comparison sees a wrong head split
 CONTROL_MIN = 1e-2
+# a fused K1 call against K1 and the separate torch ops, in f32 (bf16: one step)
+FUSED_TOL = 1e-6
 TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "ddim_step")
 AFHQ_TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention_mh", "attention_mh_bwd",
                       "ddim_step")
@@ -295,6 +309,25 @@ def plain_versions():
     return stack
 
 
+def gn_fwd_key(x, kw):
+    """A K1 forward call's row: (shape, silu, eps, fused op or None)."""
+    fused = ("pre_add" if kw.get("pre_add") is not None
+             else "scale_shift" if kw.get("scale_shift") is not None else None)
+    return tuple(x.shape), kw.get("silu", False), kw.get("eps", 1e-6), fused
+
+
+def gn_bwd_key(torch, x, w, kw):
+    """The K1-bwd call a K1 call under autograd makes, as (shape, silu,
+    weight_grad, eps), or None: the unfused composition runs K1 on
+    x + pre_add, and with the FiLM epilogue without its SiLU."""
+    pre = kw.get("pre_add")
+    needs_x = x.requires_grad or (pre is not None and pre.requires_grad)
+    if not torch.is_grad_enabled() or not (needs_x or w.requires_grad):
+        return None
+    silu = kw.get("silu", False) and kw.get("scale_shift") is None
+    return tuple(x.shape), silu, w.requires_grad, kw.get("eps", 1e-6)
+
+
 def record_path_shapes(torch, dev):
     """Shapes and call counts each kernel sees in one edited UNet eval at
     batch 1 (dual decode, the serving path) and in one training-mode eval
@@ -317,10 +350,11 @@ def record_path_shapes(torch, dev):
     def gn(x, w, b, **kw):
         if training[0]:
             seen["train_group_norm"] += 1
-            if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-                bump("group_norm_bwd", (tuple(x.shape), kw.get("silu", False), w.requires_grad))
+            key = gn_bwd_key(torch, x, w, kw)
+            if key:
+                bump("group_norm_bwd", key)
         else:
-            bump("group_norm", (tuple(x.shape), kw.get("silu", False)))
+            bump("group_norm", gn_fwd_key(x, kw))
         return k1.group_norm_plain(x, w, b, **kw)
 
     def attn(q, k, v):
@@ -376,13 +410,13 @@ def record_afhq_shapes(torch, dev):
         seen[key][k] = seen[key].get(k, 0) + 1
 
     def gn(x, w, b, **kw):
-        silu, eps = kw.get("silu", False), kw.get("eps", 1e-6)
         if not training[0]:
-            bump("group_norm_afhq", (tuple(x.shape), silu, eps))
+            bump("group_norm_afhq", gn_fwd_key(x, kw))
         else:
             seen["train_group_norm_afhq"] += 1
-            if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-                bump("group_norm_bwd_afhq", (tuple(x.shape), silu, w.requires_grad, eps))
+            key = gn_bwd_key(torch, x, w, kw)
+            if key:
+                bump("group_norm_bwd_afhq", key)
         return k1.group_norm_plain(x, w, b, **kw)
 
     def attn(q, k, v, num_heads=1, legacy_scale=False):
@@ -427,6 +461,76 @@ def gn_stats(x, groups: int = 32, eps: float = 1e-6):
     return mean, (var + eps).rsqrt()
 
 
+def same_bits(a, b) -> bool:
+    """Two results (a tensor, or tuples of tensors and None) equal bit for bit."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def device_kernels_per_call(fn, runs: int = 10):
+    """(device kernels per call, their names) from torch.profiler's device
+    events over `runs` calls. The trace can drop events (a profile may
+    record none, or miss one of ten), so a count reads low, never high; a
+    profile with no device event is repeated, at most twice; then (None, ())
+    (not measured), as in `profiled_device_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+        if names:
+            return len(names) / runs, sorted(set(names))
+    return None, ()
+
+
+def bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 steps between two bf16 tensors."""
+    import torch
+
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def fused_vs_unfused(fused, unfused, dname: str) -> str:
+    """The fused K1 call against K1 and the separate torch ops: within 1e-6
+    of scale in f32, one bf16 step per element in bf16; fails otherwise."""
+    if dname == "float32":
+        rel = errs(fused, unfused)[1]
+        if rel > FUSED_TOL:
+            fail(f"fused K1 call {rel:.3e} of scale from the unfused composition "
+                 f"(tol {FUSED_TOL:g})")
+        return f"{rel:.3e} of scale (tol {FUSED_TOL:g})"
+    ulps = bf16_ulps(fused, unfused)
+    if ulps > 1:
+        fail(f"fused K1 call {ulps} bf16 steps from the unfused composition (tol 1)")
+    return f"at most {ulps} bf16 step(s) per element (tol 1)"
+
+
+def gn_plan_note(k1, shape, dtype, weight_grad=None) -> str:
+    """K1's launch plan for a row: the cluster and what streams."""
+    bwd = weight_grad is not None
+    pl = k1.group_norm_plan(shape, dtype, backward=bwd, weight_grad=bool(weight_grad))
+    slice_v = pl["slice_vectors"]
+    streams = pl["resident_x"] < slice_v or (bwd and pl["resident_dy"] < slice_v)
+    what = "x" if pl["resident_x"] < slice_v else "dy"
+    return (f" [cluster {pl['cluster']}, {pl['threads']} threads and "
+            f"{pl['smem_bytes'] // 1024} KB shared per block"
+            f"{f', streams part of {what}' if streams else ''}]")
+
+
 def kernel_rows(torch, dev, seen):
     """Phase 3: every row's check and times. Returns {kernel: {dtype: {...}}}
     with per-eval sums (a row's time times its calls per eval)."""
@@ -451,21 +555,34 @@ def kernel_rows(torch, dev, seen):
             tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                    "max_abs_err": 0.0, "max_rel_err": 0.0, "calls": 0}
             bound_ms_by = {"bytes": 0.0, "operations": 0.0}
-            for key, count in sorted(seen[name].items()):
+            for key, count in sorted(seen[name].items(), key=lambda kv: str(kv[0])):
                 if name in ("group_norm", "group_norm_afhq"):
-                    shape, silu, gn_eps = key if len(key) == 3 else (*key, 1e-6)
+                    shape, silu, gn_eps, fused = key
                     x = (randn(*shape) * 2.0 + 0.5).to(dtype)
                     w, b = 1.0 + 0.1 * randn(shape[1]), 0.1 * randn(shape[1])
                     wl, bl = w.to(dtype), b.to(dtype)
-                    run_k = lambda: k1.group_norm(x, w, b, eps=gn_eps, silu=silu)
-                    run_p = lambda: k1.group_norm_plain(x, w, b, eps=gn_eps, silu=silu)
-                    lib = lambda: (F.silu(F.group_norm(x, 32, wl, bl, gn_eps)) if silu
-                                   else F.group_norm(x, 32, wl, bl, gn_eps))
+                    kw = dict(eps=gn_eps, silu=silu)
+                    extra = 0  # the fused op's per-channel input
+                    if fused == "pre_add":
+                        kw["pre_add"] = randn(shape[0], shape[1], dtype=dtype)
+                        extra = shape[0] * shape[1] * es
+                    elif fused == "scale_shift":
+                        kw["scale_shift"] = (0.1 * randn(shape[0], 2 * shape[1])).to(dtype)
+                        extra = 2 * shape[0] * shape[1] * es
+                    run_k = lambda: k1.group_norm(x, w, b, **kw)
+                    run_p = lambda: k1.group_norm_plain(x, w, b, **kw)
+                    if fused:  # the unfused composition: K1, then the torch ops
+                        lib = lambda: k1.group_norm_unfused(x, w, b, **kw)
+                    else:
+                        lib = lambda: (F.silu(F.group_norm(x, 32, wl, bl, gn_eps)) if silu
+                                       else F.group_norm(x, 32, wl, bl, gn_eps))
                     got, want = [run_k()], [run_p()]
                     n = x.numel()
-                    b_ms, b_by = bound(2 * n * es + 2 * shape[1] * 4, n * (8 + 4 * silu),
-                                       PEAK_FLOPS["float32"])
-                    label = f"{list(shape)} silu={int(silu)} eps={gn_eps:g}"
+                    b_ms, b_by = bound(2 * n * es + 2 * shape[1] * 4 + extra,
+                                       n * (8 + 4 * silu), PEAK_FLOPS["float32"])
+                    label = (f"{list(shape)} silu={int(silu)} eps={gn_eps:g}"
+                             f"{f' fused={fused}' if fused else ''}"
+                             f"{gn_plan_note(k1, shape, dtype)}")
                 elif name in ("group_norm_bwd", "group_norm_bwd_afhq"):
                     shape, silu, wgrad, gn_eps = key if len(key) == 4 else (*key, 1e-6)
                     x = (randn(*shape) * 2.0 + 0.5).to(dtype).requires_grad_()
@@ -492,7 +609,8 @@ def kernel_rows(torch, dev, seen):
                     n = x.numel()
                     b_ms, b_by = bound(3 * n * es + (4 if wgrad else 2) * shape[1] * 4,
                                        n * (14 + 10 * silu + 3 * wgrad), PEAK_FLOPS["float32"])
-                    label = f"{list(shape)} silu={int(silu)} dweight={int(wgrad)} eps={gn_eps:g}"
+                    label = (f"{list(shape)} silu={int(silu)} dweight={int(wgrad)} eps={gn_eps:g}"
+                             f"{gn_plan_note(k1, shape, dtype, wgrad)}")
                 elif name in ("attention", "attention_mh"):
                     shape, heads, legacy = key if name == "attention_mh" else (key, 1, False)
                     q, kk, v = (randn(*shape, dtype=dtype) for _ in range(3))
@@ -554,11 +672,24 @@ def kernel_rows(torch, dev, seen):
                     # the library's backward and the kernels, profiled alike (the sum of
                     # their device events, without the gaps between launches)
                     dev_t += (profiled_device_ms(lib), profiled_device_ms(run_k))
+                extra_note = ""
+                if name.startswith(("attention_bwd", "group_norm")):
                     # no atomics: two calls on the same inputs agree bit for bit
-                    again = [run_k(), run_k()]
-                    if not all(torch.equal(a_, b_) for a_, b_ in zip(*again)):
-                        fail(f"{name} {label} {dname}: two backward calls on the same inputs "
-                             "differ")
+                    if not same_bits(run_k(), run_k()):
+                        fail(f"{name} {label} {dname}: two calls on the same inputs differ")
+                    extra_note = "; bitwise equal across two calls"
+                if name in ("group_norm", "group_norm_afhq"):
+                    # one device kernel per call, fused ops included
+                    events, kernels = device_kernels_per_call(run_k)
+                    extra_note += ("; device kernels per call in torch.profiler not measured"
+                                   if events is None else
+                                   f"; {events:g} device kernel(s) per call in torch.profiler")
+                    if events is not None and (events > 1 or any("gn_fwd" not in k_
+                                                                 for k_ in kernels)):
+                        fail(f"{name} {label} {dname}: {events} device kernels per call "
+                             f"({kernels}), not one gn_fwd")
+                    if fused:  # against the unfused composition on the card
+                        extra_note += "; vs unfused " + fused_vs_unfused(got[0], lib(), dname)
                 tol = TOL[name][dname]
                 ok = rel_err <= tol
                 control = ""
@@ -580,12 +711,12 @@ def kernel_rows(torch, dev, seen):
                     by_part = " [" + ", ".join(f"{p_} {e_:.3e}" for p_, e_ in
                                                zip(parts, part_errs)) + "]"
                 timing = (f"kernel {ms_k:.4f} ms per call ({ms_k * count:.4f} per eval), plain "
-                          f"{ms_p:.4f} ms, library {ms_l:.4f} ms")
-                if name.startswith("attention_bwd"):
-                    timing += "; bitwise equal across two calls"
+                          f"{ms_p:.4f} ms, library {ms_l:.4f} ms{extra_note}")
                 timing += (f"; device time per call, back to back: kernel {dev_t[0]:.4f} "
                            f"ms ({dev_t[0] * count:.4f} per eval), plain {dev_t[1]:.4f} ms, "
                            f"library {dev_t[2]:.4f} ms")
+                if name.startswith("group_norm"):  # the launch path's host time
+                    timing += f"; event - device {ms_k - dev_t[0]:.4f} ms per call"
                 if len(dev_t) > 3:
                     prof = ["not measured" if v_ is None else f"{v_:.4f} ms" for v_ in dev_t[3:]]
                     timing += (f"; device events in torch.profiler per call: library {prof[0]}, "
@@ -640,15 +771,18 @@ def kernel_rows(torch, dev, seen):
         e1, e2 = errs(xn_k, xn_p), errs(x0_k, x0_p)
         rel_err = max(e1[1], e2[1])
         ms_k, ms_p = time_ms(run_k), time_ms(run_p)
+        dev_k, dev_p = device_ms(run_k), device_ms(run_p)
         n = x.numel()
         b_ms, b_by = bound((5 + (z is not None)) * n * 4, 25 * n, PEAK_FLOPS["float32"])
         res["max_abs_err"] = max(res["max_abs_err"], e1[0], e2[0])
         res["max_rel_err"] = max(res["max_rel_err"], rel_err)
         if label == "generation eta=1":  # the step the eta window runs
-            res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+            res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, device_ms=dev_k,
+                       plain_device_ms=dev_p)
         ok = rel_err <= TOL["ddim_step"]["float32"]
         phase(f"  ddim_step float32 {list(shape)} {label}: rel err {rel_err:.3e} (tol 1e-06) "
-              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, library n/a, bound {b_ms:.4f} ms "
+              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, library n/a; device time per call, "
+              f"back to back: kernel {dev_k:.4f} ms, plain {dev_p:.4f} ms; bound {b_ms:.4f} ms "
               f"({b_by}){'' if ok else '  <-- FAIL'}")
         if not ok:
             fail(f"ddim_step {label} disagrees with its plain version: {rel_err:.3e}")
@@ -691,11 +825,14 @@ def kernel_rows(torch, dev, seen):
                 a_, r_ = errs(g_, w_)
                 abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
             ms_k, ms_p = time_ms(run_k), time_ms(run_p)
+            dev_k, dev_p = device_ms(run_k), device_ms(run_p)
             b_ms, b_by = bound(n_bytes, n_flops, PEAK_FLOPS["float32"])
             ok = rel_err <= TOL[row]
             phase(f"  {row} {list(shape)} float32 carry, {dname} model output, {label}: rel err "
                   f"{rel_err:.3e} (tol {TOL[row]:g}) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
-                  f"library n/a, bound {b_ms:.4f} ms ({b_by}){'' if ok else '  <-- FAIL'}")
+                  f"library n/a; device time per call, back to back: kernel {dev_k:.4f} ms, "
+                  f"plain {dev_p:.4f} ms; bound {b_ms:.4f} ms ({b_by})"
+                  f"{'' if ok else '  <-- FAIL'}")
             if not ok:
                 fail(f"{row} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
             res = out[row].setdefault(dname, {"max_abs_err": 0.0, "max_rel_err": 0.0,
@@ -703,7 +840,8 @@ def kernel_rows(torch, dev, seen):
             res["max_abs_err"] = max(res["max_abs_err"], abs_err)
             res["max_rel_err"] = max(res["max_rel_err"], rel_err)
             if "ms" not in res:  # the row's time: its first case, the one the path runs most
-                res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+                res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+                           device_ms=dev_k, plain_device_ms=dev_p)
     return out
 
 
@@ -1507,6 +1645,8 @@ def _ptxas_by_entry(log: str):
             out[name]["spills"] = ln.strip()
         elif name and "Used" in ln and "registers" in ln:
             out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(smem.group(1)) if smem else 0
     return out
 
 
@@ -1548,6 +1688,15 @@ def build_kernels():
                  if "registers" in ln or "spill" in ln]
         phase(f"phase 2: built csrc/{name}.cu for sm_90a; ptxas: {' | '.join(ptxas)}")
     phase(f"phase 2: nvcc builds took {time.perf_counter() - t0:.1f} s")
+    for fn, info in sorted(_ptxas_by_entry(_build.build_log("groupnorm")).items()):
+        m = re.search(r"(gn_fwd|gn_bwd)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", fn)
+        if m:
+            dname = "bfloat16" if m.group(2) != "f" else "float32"
+            phase(f"  K1 {m.group(1)} {dname}, {m.group(3)} per vector, {m.group(4)} threads: "
+                  f"{info.get('registers')} "
+                  f"registers, {info.get('smem')} bytes static shared memory (+ the slice, "
+                  f"dynamic); {info.get('spills')}; cluster of 1-16 blocks chosen per call "
+                  f"(phase 3 rows)")
     ptxas = _ptxas_by_entry(_build.build_log("attention"))
     entries = {}
     for fn, counts in sass_counts(_build._lib_path("attention")).items():

@@ -13,6 +13,9 @@ float32 DDIM and DDPM steps (elementwise, ulp-level differences only). The backw
 kernels (K1-bwd, K2-bwd with one head or several) against
 `torch.autograd.grad` through the plain forward: 1e-4 in float32, 5e-2 in
 bfloat16 (the gradient passes through more roundings of the I/O type).
+K1's fused entry (pre-add, FiLM epilogue) against K1 followed by the torch
+ops it replaces: 1e-6 of scale in float32, one bf16 step per element (the
+same roundings; SiLU's exp may differ in the last f32 bit).
 """
 import pytest
 import torch
@@ -222,6 +225,149 @@ def test_group_norm_backward_kernel_at_openai_decoder_shapes(cuda_device, shape,
         close_to_scale(want.float().cpu().numpy(), got.float().cpu().numpy(),
                        f"group_norm backward eps 1e-5 silu={silu}", bound=bound)
     assert k1.group_norm.bwd_launches == n + 2
+
+
+def _gn_inputs(shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[1], generator=g, device=device)
+    b = 0.1 * torch.randn(shape[1], generator=g, device=device)
+    dy = torch.randn(shape, generator=g, device=device).to(dtype)
+    return x, w, b, dy
+
+
+def _streams(shape, dtype, backward=False):
+    pl = k1.group_norm_plan(shape, dtype, backward=backward)
+    return pl["resident_x"] < pl["slice_vectors"] or (
+        backward and pl["resident_dy"] < pl["slice_vectors"])
+
+
+# shape, dtype, whether the group streams part of its slice: scalar
+# vectors (H*W not a multiple of the 16-byte vector), H*W/vec not a power
+# of two, the decoders' largest on-path group (2 MiB f32, a cluster of 16),
+# and groups too large for one cluster's shared memory
+_K1_SHAPES = [((3, 64, 5, 7), torch.float32, False), ((3, 64, 5, 7), torch.bfloat16, False),
+              ((1, 96, 10, 10), torch.float32, False), ((1, 256, 256, 256), torch.float32, False),
+              ((1, 256, 256, 256), torch.bfloat16, False),
+              ((1, 2048, 128, 128), torch.float32, True),
+              ((1, 4096, 128, 128), torch.bfloat16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,streams", _K1_SHAPES)
+def test_group_norm_kernel_at_odd_cluster_and_streamed_shapes(cuda_device, shape, dtype, streams):
+    x, w, b, _ = _gn_inputs(shape, dtype, cuda_device, 20)
+    assert _streams(shape, dtype) == streams
+    bound = 1e-5 if dtype == torch.float32 else 2e-2
+    for silu in (False, True):
+        close_to_scale(k1.group_norm_plain(x, w, b, silu=silu).float().cpu().numpy(),
+                       k1.group_norm(x, w, b, silu=silu).float().cpu().numpy(),
+                       f"group_norm kernel {shape} silu={silu}", bound=bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,train_weight", [
+    ((3, 64, 5, 7), torch.float32, True), ((3, 64, 5, 7), torch.bfloat16, True),
+    ((1, 96, 10, 10), torch.float32, False), ((1, 256, 256, 256), torch.float32, False),
+    ((1, 256, 256, 256), torch.bfloat16, False), ((1, 256, 64, 64), torch.float32, True),
+    ((1, 2048, 128, 128), torch.float32, False)])
+def test_group_norm_backward_kernel_at_odd_cluster_and_streamed_shapes(cuda_device, shape, dtype,
+                                                                       train_weight):
+    """The f32 [1,256,256,256] group (2 MiB of x, 2 MiB of dy) streams part
+    of dy; [1,2048,128,128] part of x; a trained weight's dw, db from a
+    cluster's slices."""
+    x, w, b, dy = _gn_inputs(shape, dtype, cuda_device, 21)
+    x.requires_grad_()
+    w.requires_grad_(train_weight)
+    b.requires_grad_(train_weight)
+    ins = (x, w, b) if train_weight else (x,)
+    bound = 1e-4 if dtype == torch.float32 else 5e-2
+    for silu in (False, True):
+        want = torch.autograd.grad(k1.group_norm_plain(x, w, b, silu=silu), ins, dy)
+        got = torch.autograd.grad(k1.group_norm(x, w, b, silu=silu), ins, dy)
+        for name, ww, gg in zip(("dx", "dw", "db"), want, got):
+            close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                           f"group_norm backward kernel {shape} silu={silu} {name}", bound=bound)
+
+
+def _bf16_steps(a, b):
+    def ordered(t):
+        i = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["pre_add", "scale_shift"])
+@pytest.mark.parametrize("shape", [(2, 512, 8, 8), (1, 256, 64, 64), (1, 256, 256, 256)])
+def test_group_norm_fused_entry_matches_plain_and_unfused(cuda_device, shape, kind, dtype):
+    """One launch for the norm with its pre-add or FiLM epilogue: within
+    K1's tolerance of the plain fused version, and within 1e-6 of scale
+    (f32) or one bf16 step per element of K1 followed by the torch ops."""
+    x, w, b, _ = _gn_inputs(shape, dtype, cuda_device, 22)
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    width = 1 if kind == "pre_add" else 2
+    extra = (0.5 * torch.randn(shape[0], width * shape[1], generator=g,
+                               device=cuda_device)).to(dtype)
+    bound = 1e-5 if dtype == torch.float32 else 2e-2
+    for silu in (False, True):
+        kw = {"silu": silu, "eps": 1e-5, kind: extra}
+        n = k1.group_norm.launches
+        with torch.no_grad():
+            got = k1.group_norm(x, w, b, **kw)
+        assert k1.group_norm.launches == n + 1
+        close_to_scale(k1.group_norm_plain(x, w, b, **kw).float().cpu().numpy(),
+                       got.float().cpu().numpy(), f"fused {kind} silu={silu}", bound=bound)
+        unfused = k1.group_norm_unfused(x, w, b, **kw)
+        if dtype == torch.float32:
+            close_to_scale(unfused.cpu().numpy(), got.cpu().numpy(),
+                           f"fused vs unfused {kind} silu={silu}", bound=1e-6)
+        else:
+            assert _bf16_steps(got, unfused) <= 1, (kind, silu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 512, 8, 8), (2, 256, 64, 64), (1, 256, 256, 256)])
+def test_group_norm_kernels_are_deterministic(cuda_device, shape, dtype):
+    """No atomics: two calls of K1 and of K1-bwd (with dw, db) on the same
+    inputs agree bit for bit."""
+    x, w, b, dy = _gn_inputs(shape, dtype, cuda_device, 24)
+    ss = (0.1 * torch.randn(shape[0], 2 * shape[1], device=cuda_device)).to(dtype)
+    for kw in ({"silu": True}, {"silu": True, "scale_shift": ss}):
+        assert torch.equal(k1.group_norm(x, w, b, **kw), k1.group_norm(x, w, b, **kw))
+    mean, rstd = k1._group_norm_cuda(x, w, b, 32, 1e-6, True, stats=True)[1:]
+    one, two = (k1.group_norm_backward(x, dy, w, b, mean, rstd, silu=True, weight_grad=True)
+                for _ in range(2))
+    assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 8, 8), (1, 256, 256, 256)])
+def test_group_norm_forward_is_one_device_kernel_per_call(cuda_device, shape):
+    """`group_norm.launches` counts calls; torch.profiler's device events
+    show that each call, fused ops included, is one kernel (`gn_fwd`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b, _ = _gn_inputs(shape, torch.bfloat16, cuda_device, 25)
+    extra = torch.randn(shape[0], 2 * shape[1], device=cuda_device).to(torch.bfloat16)
+    for kw in ({"silu": True}, {"silu": True, "pre_add": extra[:, :shape[1]].contiguous()},
+               {"silu": True, "scale_shift": extra}):
+        k1.group_norm(x, w, b, **kw)
+        torch.cuda.synchronize()
+        kernels = []
+        for _ in range(3):  # a profile may record no device event at all; then again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    k1.group_norm(x, w, b, **kw)
+                torch.cuda.synchronize()
+            kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+            if kernels:
+                break
+        # the trace may drop an event, never add one: at most one kernel per call
+        assert 0 < len(kernels) <= 4 and all("gn_fwd" in k for k in kernels), (sorted(kw), kernels)
 
 
 @pytest.mark.cuda
