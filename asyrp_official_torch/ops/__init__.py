@@ -6,11 +6,14 @@
                                with the legacy q/k scale (OpenAI UNets), CUDA C++
                                (`csrc/attention.cu`); its single-head backward
                                K2-bwd there too
-  K3 `ddim_step.ddim_step`   — the asymmetric DDIM update, Triton
+  K3 `ddim_step.ddim_step`   — the asymmetric DDIM update, CUDA C++
+                               (`csrc/steps.cu`); its backward K3-bwd there too
   `ddpm_step.ddpm_step`      — the DDPM ancestral update (`--sample_type ddpm`),
-                               Triton
+                               CUDA C++ (`csrc/steps.cu`)
 
+Every kernel is built by `_build` (nvcc for sm_90a, loaded with ctypes).
 A wrapper takes its plain version for a CPU tensor and launches its kernel
-for a CUDA tensor; its `launches` attribute (and `bwd_launches` for K1 and
-K2, `mh_launches` for K2 with several heads) counts kernel launches.
+for a CUDA tensor; its `launches` attribute (and `bwd_launches` for K1, K2
+and K3, `mh_launches` for K2 with several heads, `scalar_launches` for the
+step kernels' scalar instance) counts kernel launches.
 """

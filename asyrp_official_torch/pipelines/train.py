@@ -13,8 +13,8 @@ every timestep:
     own x0_t.
 
 Both DDIM updates launch K3 on CUDA; the edited one goes through K3's
-`autograd.Function`, whose closed-form backward takes x0_t's gradient to
-eps_mod (eta 0). K3 takes the model's outputs in the model's dtype and
+`autograd.Function`, whose closed-form backward (one K3-bwd launch on
+CUDA) takes x0_t's gradient to eps_mod (eta 0). K3 takes the model's outputs in the model's dtype and
 computes in f32. A `learn_sigma` model (the OpenAI family) outputs 2C
 channels: both updates read the first C, as strided views of the output
 that K3 takes without a copy; autograd scatters eps_mod's contiguous
@@ -24,6 +24,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from asyrp_official_torch.core.schedule import Schedule
@@ -67,7 +68,8 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
     instead of running the plain reference step: it depends only on the
     frozen UNet and x_lat, so it holds for every outer iteration."""
     table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps)
-    acp_ext = torch.from_numpy(schedule.alphas_cumprod_ext)
+    acp = np.asarray(schedule.alphas_cumprod_ext)
+    per_step = {}  # device -> the steps' t, a and a' ([n_steps] f32), built once
 
     def eps_of(out):
         """The eps channels of a model output, in the model's dtype: the
@@ -76,10 +78,15 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
         return out[..., : out.shape[-1] // 2] if spec.learn_sigma else out
 
     def coeffs(i: int, x):
-        b = x.shape[0]
-        at = acp_ext[int(table.t[i]) + 1].to(x.device).expand(b)
-        at_next = acp_ext[int(table.t_next[i]) + 1].to(x.device).expand(b)
-        return torch.full((b,), float(table.t[i]), device=x.device), at, at_next
+        """Step i's t ([B]), a and a' ([1]): views of tensors that went to
+        x's device once, as `core/sampler.py` builds them."""
+        if x.device not in per_step:
+            f32 = dict(dtype=torch.float32, device=x.device)
+            per_step[x.device] = (torch.as_tensor(np.asarray(table.t, np.float32), **f32),
+                                  torch.as_tensor(acp[np.asarray(table.t) + 1], **f32),
+                                  torch.as_tensor(acp[np.asarray(table.t_next) + 1], **f32))
+        ts, at, at_next = per_step[x.device]
+        return ts[i].expand(x.shape[0]), at[i:i + 1], at_next[i:i + 1]
 
     @torch.no_grad()
     def plain_origin_step(model, x_orig, i):

@@ -5,10 +5,13 @@
 
 Phases, each printing its result on its own line; any failure exits non-zero:
   1. the card's name and power limit (nvidia-smi);
-  2. build of the CUDA kernels K1 (GroupNorm+SiLU, with K1-bwd) and K2
-     (attention with one head or several, with K2-bwd) with nvcc for
-     sm_90a, one nvcc per source, all started together; K3 (DDIM step,
-     Triton) compiles at its first launch. Per K1 entry (forward `gn_fwd`,
+  2. build of the CUDA kernels K1 (GroupNorm+SiLU, with K1-bwd), K2
+     (attention with one head or several, with K2-bwd), and K3 (the DDIM
+     step, with K3-bwd) with the DDPM step (`csrc/steps.cu`), with nvcc for
+     sm_90a, one nvcc per source, all started together. Per step entry
+     (K3 `ddim_fwd`, K3-bwd `ddim_bwd`, `ddpm_fwd`; per dtype pair and
+     instance) its registers, shared memory and spills: a spill fails.
+     Per K1 entry (forward `gn_fwd`,
      backward `gn_bwd`; f32 and bf16, 16-byte or scalar vectors, 256 or
      512 threads) its registers, shared memory and spills (the cluster
      size is chosen per call: phase 3 prints it per row). Per attention entry (forward and
@@ -35,8 +38,17 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      that two calls agree bit for bit, and every K1 forward row that a call
      is at most one device kernel, `gn_fwd`, in torch.profiler (whose
      trace can drop events, never add them); K1 rows print event minus
-     device time per call (the launch path's host time). K3 and
-     `ddpm_step` rows give their device time back to back too;
+     device time per call (the launch path's host time). K3, K3-bwd and
+     `ddpm_step` rows (batch 1 at the paths' shapes, and batch 8) give the
+     same times, run over sets of inputs that move 4x the L2's bytes in
+     turn (every call reads from device memory, as the bound counts), the
+     kernel's device time on one set (which the L2 keeps), and event minus
+     device; they check that two calls agree bit for
+     bit, that a call is at most one device kernel of its name in
+     torch.profiler, and which instance (flat, rows, scalar) it took;
+     K3-bwd's rows (x0_t's cotangent alone to d eps_mod, the training
+     step's, and both cotangents to all three gradients) against
+     `torch.autograd.grad` through the plain forward;
   4. the serving path through the port's CLI, in-process: `--run_test` on
      `custom.yml` (256^2, 113.7M params, random weights from --seed), two
      random 256^2 images and a seeded DeltaBlock checkpoint, 40-step
@@ -54,8 +66,8 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      random ViT-B/16 written by the port's CLIP module) and the L1 term, two
      random images, 40-step grids, t_edit 513, 2 iterations at batch 1, then
      the `--do_test` grid; once in float32 and once with --bf16. The launch
-     counters (forward and backward) are zeroed just before each run and
-     must all be > 0 after it. The float32 run is repeated from the same
+     counters (forward and backward, K3-bwd included) are zeroed just
+     before each run and must all be > 0 after it. The float32 run is repeated from the same
      latents with the plain versions: the trained DeltaBlock held to 1e-3
      and its update from the init to 5e-2 (max error over the whole block
      relative to its largest value). The gate of the backward kernels is
@@ -93,14 +105,16 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      images as `afhq/train/dog/*.png`, 40-step grids, t_edit 513, 2
      iterations at batch 1, then the `--do_test` grid; float32 and --bf16.
      The launch counters are zeroed just before each run and read just
-     after: K1, K1-bwd, the multi-head K2 and K2-bwd-MH, and K3 must all
-     have launched, the single-head K2 and K2-bwd not at all. The gate of
+     after: K1, K1-bwd, the multi-head K2 and K2-bwd-MH, K3 and K3-bwd must
+     all have launched, the single-head K2 and K2-bwd not at all. The gate of
      K2-bwd-MH is phase 7's gradient check on the AFHQ UNet (1e-3 float32,
      2x in bfloat16), where the cotangents reaching K2-bwd-MH must have a
      norm above 0 and a planted fault (D summed over all C instead of the
      head's d) must fail it.
-The float32 runs use full float32 convolutions and matmuls (TF32 off), as
-the port's runner sets it on CUDA.
+Every run of a path (phases 4, 7, 8, 9) fails if a K3, K3-bwd or DDPM-step
+call took the scalar instance: the paths' tensors are aligned, whole 16-byte
+vectors. The float32 runs use full float32 convolutions and matmuls (TF32
+off), as the port's runner sets it on CUDA.
 
 Needs a CUDA device and this repository around the script. Prints the
 `nvidia-smi` line and a JSON line of per-kernel results before the last
@@ -110,6 +124,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import glob
+import itertools
 import json
 import logging
 import os
@@ -134,8 +149,10 @@ TOL = {"group_norm": {"float32": 1e-5, "bfloat16": 2e-2},
        "attention_bwd": {"float32": 1e-4, "bfloat16": 5e-2},
        "group_norm_bwd_afhq": {"float32": 1e-4, "bfloat16": 5e-2},
        "attention_bwd_mh": {"float32": 1e-4, "bfloat16": 5e-2},
-       "ddim_step": {"float32": 1e-6}, "ddim_step_learn_sigma": 1e-6,
-       "ddpm_step": 1e-6}
+       "ddim_step": {"float32": 1e-6, "bfloat16": 1e-6}, "ddim_step_learn_sigma": 1e-6,
+       "ddpm_step": 1e-6,
+       # keyed by the gradient's dtype (eps's): a bf16 output rounds once more
+       "ddim_step_bwd": {"float32": 1e-6, "bfloat16": 1e-2}}
 # the OpenAI UNet's eps on perturbed weights must be far from zero, or its
 # comparisons would hold zeros against zeros
 MIN_EPS_STD = 0.1
@@ -144,9 +161,13 @@ MIN_EPS_STD = 0.1
 CONTROL_MIN = 1e-2
 # a fused K1 call against K1 and the separate torch ops, in f32 (bf16: one step)
 FUSED_TOL = 1e-6
-TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "ddim_step")
+TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "ddim_step",
+                 "ddim_step_bwd")
 AFHQ_TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention_mh", "attention_mh_bwd",
-                      "ddim_step")
+                      "ddim_step", "ddim_step_bwd")
+# the step kernels' device kernel names (`csrc/steps.cu`)
+STEP_KERNEL = {"ddim_step": "ddim_fwd", "ddim_step_learn_sigma": "ddim_fwd",
+               "ddim_step_bwd": "ddim_bwd", "ddpm_step": "ddpm_fwd"}
 AFHQ_ATTR = "dog_smiling"  # an AFHQ attribute of assets/src_trg_prompts.json
 CHAIN_TOL = 1e-3
 # the f32 trained block, kernels vs plain run: the whole block, and its update
@@ -161,6 +182,7 @@ GRAD_TOL, BF16_GRAD_FACTOR = 1e-3, 2.0
 # CUDA cores (TF32 off) and of bf16 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 DTYPES = ("float32", "bfloat16")
 
 
@@ -197,12 +219,14 @@ def time_ms(fn, runs: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, runs: int = 20) -> float:
+def device_ms(fn, runs: int = 20, required: bool = True):
     """Device time per call, back to back: `torch.cuda._sleep` holds the
     stream while the host queues `runs` calls behind it, so the CUDA events
     around them time the device alone, without the host's time between
     launches (which `time_ms` includes). The sleep is lengthened until the
-    host has queued every call before it ends."""
+    host has queued every call before it ends; a call that waits for the
+    device (a blocking copy) never lets it, and then this fails, or returns
+    None (not measured) unless `required`."""
     import torch
 
     for _ in range(3):
@@ -223,7 +247,9 @@ def device_ms(fn, runs: int = 20) -> float:
         if queued_ms < ev[0].elapsed_time(ev[1]):
             return ev[1].elapsed_time(ev[2]) / runs
         cycles *= 4
-    fail("the host could not queue the timed calls within the device's sleep")
+    if required:
+        fail("the host could not queue the timed calls within the device's sleep")
+    return None
 
 
 def profiled_device_ms(fn, runs: int = 10):
@@ -250,6 +276,30 @@ def profiled_device_ms(fn, runs: int = 10):
     return None
 
 
+def input_sets(make, n_bytes: float) -> list:
+    """Enough sets of a call's inputs (`make()` builds one; a call moves
+    `n_bytes`) that one pass through them moves 4x the L2's bytes: timed in
+    turn (`in_turn`), each call reads its inputs from device memory, as
+    `bound` counts them."""
+    return [make() for _ in range(max(1, -(-4 * L2_BYTES // int(n_bytes))))]
+
+
+def in_turn(fn, sets):
+    """A callable that calls `fn(*set)` on each of `sets` in turn and keeps
+    each set's last outputs until its next turn, so that the outputs rotate
+    through memory too. Every set is called once here, and one more call,
+    so that the allocator holds every output block before any timing."""
+    ring, turn = [None] * len(sets), itertools.count()
+
+    def call():
+        j = next(turn) % len(sets)
+        ring[j] = fn(*sets[j])
+
+    for _ in range(len(sets) + 1):
+        call()
+    return call
+
+
 def bound(n_bytes: float, n_flops: float, flops_per_s: float):
     """(ms, "bytes" | "operations"): the larger of bytes over the memory rate
     and operations over the peak rate."""
@@ -274,7 +324,9 @@ def counters():
             "attention": k2.attention.launches, "attention_mh": k2.attention.mh_launches,
             "attention_bwd": k2.attention.bwd_launches,
             "attention_mh_bwd": k2.attention.mh_bwd_launches, "ddim_step": k3.ddim_step.launches,
-            "ddpm_step": kddpm.ddpm_step.launches}
+            "ddim_step_bwd": k3.ddim_step.bwd_launches, "ddpm_step": kddpm.ddpm_step.launches,
+            "ddim_step_scalar": k3.ddim_step.scalar_launches,
+            "ddpm_step_scalar": kddpm.ddpm_step.scalar_launches}
 
 
 def zero_counters() -> None:
@@ -284,12 +336,18 @@ def zero_counters() -> None:
     k1.group_norm.launches = k1.group_norm.bwd_launches = 0
     k2.attention.launches = k2.attention.mh_launches = k2.attention.bwd_launches = 0
     k2.attention.mh_bwd_launches = 0
-    k3.ddim_step.launches = kddpm.ddpm_step.launches = 0
+    k3.ddim_step.launches = k3.ddim_step.bwd_launches = k3.ddim_step.scalar_launches = 0
+    kddpm.ddpm_step.launches = kddpm.ddpm_step.scalar_launches = 0
 
 
 def require_launches(counts, names, what: str) -> None:
+    """Every kernel of the path launched; no step kernel took its scalar
+    instance (the paths' tensors are aligned, whole vectors)."""
     if not all(counts[n] for n in names):
         fail(f"{what} did not launch every kernel of its path {list(names)}: {counts}")
+    if counts["ddim_step_scalar"] or counts["ddpm_step_scalar"]:
+        fail(f"{what}: a step kernel took the scalar instance where a vector one applies: "
+             f"{counts}")
 
 
 def plain_versions():
@@ -750,98 +808,219 @@ def kernel_rows(torch, dev, seen):
                   f"(kernel) vs {tot['plain_ms']:.3f} ms (plain), {tot['library_ms']:.3f} ms "
                   f"(library), bound {tot['bound_ms']:.3f} ms{dev_sum}")
 
-    shape = (1, 256, 256, 3)
-    x, eps, eps_mod, noise = (randn(*shape) for _ in range(4))
-    cases = [  # (label, at, at_next, eta, noise, dt_lambda, apply_dt)
-        ("generation eta=0", 0.30, 0.35, 0.0, None, 1.0, None),
-        ("generation eta=1", 0.80, 0.85, 1.0, noise, 1.0, None),
-        ("t_next=-1 eta=1", 0.9999, 1.0, 1.0, noise, 1.0, None),
-        ("inversion", 0.35, 0.30, 0.0, None, 1.0, None),
-        ("dt_lambda", 0.30, 0.35, 0.0, None, 0.9, torch.ones(1, device=dev)),
-    ]
-    res = {"max_abs_err": 0.0, "max_rel_err": 0.0, "library_ms": None, "calls": 1}
-    for label, a, an, eta, z, dtl, adt in cases:
-        a_t, an_t = torch.tensor([a], device=dev), torch.tensor([an], device=dev)
-        eta_t = torch.tensor([eta], device=dev)
-        run_k = lambda: k3.ddim_step(x, eps, eps_mod, a_t, an_t, eta_t, z, dt_lambda=dtl,
-                                     apply_dt=adt)
-        run_p = lambda: k3.ddim_step_plain(x, eps, eps_mod, a_t, an_t, eta_t, z, dt_lambda=dtl,
-                                           apply_dt=adt)
-        (xn_k, x0_k), (xn_p, x0_p) = run_k(), run_p()
-        e1, e2 = errs(xn_k, xn_p), errs(x0_k, x0_p)
-        rel_err = max(e1[1], e2[1])
-        ms_k, ms_p = time_ms(run_k), time_ms(run_p)
-        dev_k, dev_p = device_ms(run_k), device_ms(run_p)
-        n = x.numel()
-        b_ms, b_by = bound((5 + (z is not None)) * n * 4, 25 * n, PEAK_FLOPS["float32"])
-        res["max_abs_err"] = max(res["max_abs_err"], e1[0], e2[0])
-        res["max_rel_err"] = max(res["max_rel_err"], rel_err)
-        if label == "generation eta=1":  # the step the eta window runs
-            res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by, device_ms=dev_k,
-                       plain_device_ms=dev_p)
-        ok = rel_err <= TOL["ddim_step"]["float32"]
-        phase(f"  ddim_step float32 {list(shape)} {label}: rel err {rel_err:.3e} (tol 1e-06) "
-              f"kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, library n/a; device time per call, "
-              f"back to back: kernel {dev_k:.4f} ms, plain {dev_p:.4f} ms; bound {b_ms:.4f} ms "
-              f"({b_by}){'' if ok else '  <-- FAIL'}")
-        if not ok:
-            fail(f"ddim_step {label} disagrees with its plain version: {rel_err:.3e}")
-    out["ddim_step"]["float32"] = res
+    out.update(step_rows(torch, dev, randn))
+    return out
 
-    # The OpenAI path's elementwise steps. The carry is float32; eps (and
-    # eps_mod, and the learned log-variance) are strided views of a
-    # learn_sigma model's [1, 256, 256, 6] output, in the model's dtype.
-    a_t, an_t, one = (torch.tensor([v], device=dev) for v in (0.80, 0.85, 1.0))
-    bt = torch.tensor([0.02], device=dev)
-    raw, raw_mod = randn(*shape[:-1], 6), randn(*shape[:-1], 6)
-    raw[..., 3:] = -2.0 + 0.5 * raw[..., 3:]  # a log-variance's range
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        es = torch.tensor([], dtype=dtype).element_size()
-        r, r_mod = raw.to(dtype), raw_mod.to(dtype)
-        n = x.numel()
-        steps = [  # (row, label, kernel, plain, bytes, flops)
-            ("ddim_step_learn_sigma", "eta=1", lambda: k3.ddim_step(
-                x, r[..., :3], r_mod[..., :3], a_t, an_t, one, noise),
-             lambda: k3.ddim_step_plain(x, r[..., :3], r_mod[..., :3], a_t, an_t, one, noise),
-             n * (4 + 2 * es + 4 + 8), 25 * n)]
-        for label, lv, t_ in (("learned logvar", r[..., 3:], 999.0),
-                              ("table logvar", torch.tensor([-3.9], device=dev), 999.0),
-                              ("learned logvar, t=0", r[..., 3:], 0.0)):
-            tt = torch.tensor([t_], device=dev)
-            per_elem = lv.dim() == 4
-            steps.append((
-                "ddpm_step", label,
-                lambda lv=lv, tt=tt: kddpm.ddpm_step(x, r[..., :3], lv, bt, a_t, tt, noise),
-                lambda lv=lv, tt=tt: kddpm.ddpm_step_plain(x, r[..., :3], lv, bt, a_t, tt, noise),
-                n * (4 + es + es * per_elem + 4 + 4), 12 * n))
-        for row, label, run_k, run_p, n_bytes, n_flops in steps:
-            got, want = run_k(), run_p()
-            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
-            abs_err = rel_err = 0.0
-            for g_, w_ in zip(got, want):
-                if not torch.isfinite(g_).all():
-                    fail(f"{row} {label} {dname}: non-finite output")
-                a_, r_ = errs(g_, w_)
-                abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
-            ms_k, ms_p = time_ms(run_k), time_ms(run_p)
-            dev_k, dev_p = device_ms(run_k), device_ms(run_p)
-            b_ms, b_by = bound(n_bytes, n_flops, PEAK_FLOPS["float32"])
-            ok = rel_err <= TOL[row]
-            phase(f"  {row} {list(shape)} float32 carry, {dname} model output, {label}: rel err "
-                  f"{rel_err:.3e} (tol {TOL[row]:g}) kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
-                  f"library n/a; device time per call, back to back: kernel {dev_k:.4f} ms, "
-                  f"plain {dev_p:.4f} ms; bound {b_ms:.4f} ms ({b_by})"
-                  f"{'' if ok else '  <-- FAIL'}")
-            if not ok:
-                fail(f"{row} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
-            res = out[row].setdefault(dname, {"max_abs_err": 0.0, "max_rel_err": 0.0,
-                                              "library_ms": None, "calls": 1})
-            res["max_abs_err"] = max(res["max_abs_err"], abs_err)
-            res["max_rel_err"] = max(res["max_rel_err"], rel_err)
-            if "ms" not in res:  # the row's time: its first case, the one the path runs most
-                res.update(ms=ms_k, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
-                           device_ms=dev_k, plain_device_ms=dev_p)
+
+INSTANCES = ("scalar", "flat", "rows")
+
+
+def step_row(torch, row: str, dname: str, label: str, fn_k, fn_p, sets, n_bytes: float,
+             n_flops: float, instance: int, checks=()):
+    """One row of K3, K3-bwd or the DDPM step: the kernel `fn_k` against its
+    plain version `fn_p` on the first of `sets` (and each of `checks`,
+    (got, want) pairs); CUDA-event and back-to-back device times of both,
+    run on the sets in turn (`in_turn`: every call reads its inputs from
+    device memory, as the bound counts them), and the kernel's device time
+    on the first set alone (back to back on the same inputs, which the L2
+    keeps); event minus device; two calls bit for bit; at most one device
+    kernel of the row's name per call in torch.profiler; the bound. Fails
+    where one does not hold."""
+    def parts(r):
+        return [t for t in (r if isinstance(r, (tuple, list)) else (r,)) if t is not None]
+
+    first = sets[0]
+    pairs = list(zip(parts(fn_k(*first)), parts(fn_p(*first)))) + list(checks)
+    abs_err = rel_err = 0.0
+    for g_, w_ in pairs:
+        if not torch.isfinite(g_.float()).all():
+            fail(f"{row} {label} {dname}: non-finite output")
+        a_, r_ = errs(g_.float(), w_.float())
+        abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
+    exact = all(torch.equal(g_, w_) for g_, w_ in pairs)
+    run_k, run_p = in_turn(fn_k, sets), in_turn(fn_p, sets)
+    ms_k, ms_p = time_ms(run_k), time_ms(run_p)
+    dev_k, dev_p = device_ms(run_k), device_ms(run_p)
+    dev_l2 = device_ms(lambda: fn_k(*first))
+    if not same_bits(fn_k(*first), fn_k(*first)):
+        fail(f"{row} {label} {dname}: two calls on the same inputs differ")
+    events, kernels = device_kernels_per_call(lambda: fn_k(*first))
+    if events is not None and (events > 1 or any(STEP_KERNEL[row] not in k_ for k_ in kernels)):
+        fail(f"{row} {label} {dname}: {events} device kernels per call ({kernels}), not one "
+             f"{STEP_KERNEL[row]}")
+    b_ms, b_by = bound(n_bytes, n_flops, PEAK_FLOPS["float32"])
+    tol = TOL[row][dname] if isinstance(TOL[row], dict) else TOL[row]
+    ok = rel_err <= tol
+    phase(f"  {row} {label}, {INSTANCES[instance]} instance: rel err {rel_err:.3e} (tol {tol:g})"
+          f"{', bit for bit equal to plain' if exact else ''}; kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms, library n/a; device time per call, back to back over {len(sets)} "
+          f"input sets: kernel {dev_k:.4f} ms, plain {dev_p:.4f} ms; on one set (L2): kernel "
+          f"{dev_l2:.4f} ms; event - device {ms_k - dev_k:.4f} ms; bitwise equal across two "
+          "calls; "
+          + ("device kernels per call in torch.profiler not measured" if events is None else
+             f"{events:g} device kernel(s) per call in torch.profiler")
+          + f"; bound {b_ms:.4f} ms ({b_by}){'' if ok else '  <-- FAIL'}")
+    if not ok:
+        fail(f"{row} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
+    return {"row": row, "dtype": dname, "label": label, "instance": INSTANCES[instance],
+            "max_abs_err": abs_err, "max_rel_err": rel_err, "bit_equal_to_plain": exact,
+            "ms": ms_k, "plain_ms": ms_p, "device_ms": dev_k, "plain_device_ms": dev_p,
+            "l2_device_ms": dev_l2, "input_sets": len(sets),
+            "event_minus_device_ms": ms_k - dev_k, "bound_ms": b_ms, "bound_by": b_by,
+            "device_kernels_per_call": events}
+
+
+def step_rows(torch, dev, randn):
+    """Phase 3's K3, K3-bwd and DDPM-step rows: the paths' shapes at batch 1
+    ([1, 256, 256, 3], an f32 carry; the model output f32 or bf16, whole or
+    the first 3 of a learn_sigma model's 6 channels) and batch 8. Returns
+    {row: {model dtype: sums}, "step_rows": [each row]}; a row's times are
+    its first case's (the one its path runs most) at batch 1."""
+    from asyrp_official_torch.ops import ddim_step as k3, ddpm_step as kddpm
+
+    out = {"ddim_step": {}, "ddim_step_learn_sigma": {}, "ddpm_step": {}, "ddim_step_bwd": {},
+           "step_rows": []}
+
+    def keep(res, primary: bool):
+        d = out[res["row"]].setdefault(res["dtype"], {"max_abs_err": 0.0, "max_rel_err": 0.0,
+                                                      "library_ms": None})
+        d["max_abs_err"] = max(d["max_abs_err"], res["max_abs_err"])
+        d["max_rel_err"] = max(d["max_rel_err"], res["max_rel_err"])
+        if primary:
+            d.update({k: res[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+                                          "plain_device_ms", "l2_device_ms",
+                                          "event_minus_device_ms")})
+        out["step_rows"].append(res)
+
+    def dname_of(dtype):
+        return str(dtype).split(".")[-1]
+
+    def coef(v, b):
+        return torch.full((b,), v, device=dev)
+
+    # K3 on a whole model output (DDPM++): the cases of the serving chain
+    cases = [  # (label, at, at_next, eta, with noise, dt_lambda, apply_dt)
+        ("generation eta=1", 0.80, 0.85, 1.0, True, 1.0, None),
+        ("generation eta=0", 0.30, 0.35, 0.0, False, 1.0, None),
+        ("t_next=-1 eta=1", 0.9999, 1.0, 1.0, True, 1.0, None),
+        ("inversion", 0.35, 0.30, 0.0, False, 1.0, None),
+        ("dt_lambda", 0.30, 0.35, 0.0, False, 0.9, 1.0),
+    ]
+    for model_dtype in (torch.float32, torch.bfloat16):
+        dname = dname_of(model_dtype)
+        es = torch.tensor([], dtype=model_dtype).element_size()
+        for batch in (1, 8):
+            shape = (batch, 256, 256, 3)
+            n = batch * 256 * 256 * 3
+            for i, (label, a, an, eta, with_z, dtl, adt) in enumerate(cases):
+                if (batch > 1 or model_dtype != torch.float32) and i:
+                    continue  # batch 8 and a bf16 model output: the eta=1 step
+                co = (coef(a, batch), coef(an, batch), coef(eta, batch))
+                kw = dict(dt_lambda=dtl, apply_dt=None if adt is None else coef(adt, batch))
+                n_bytes = n * (4 + 2 * es + 4 * with_z + 8)
+                sets = input_sets(lambda: (randn(*shape), randn(*shape, dtype=model_dtype),
+                                           randn(*shape, dtype=model_dtype), *co,
+                                           randn(*shape) if with_z else None), n_bytes)
+                res = step_row(torch, "ddim_step", dname,
+                               f"{list(shape)} f32 carry, {dname} model output, {label}",
+                               lambda *a_: k3.ddim_step(*a_, **kw),
+                               lambda *a_: k3.ddim_step_plain(*a_, **kw), sets, n_bytes, 25 * n,
+                               k3.ddim_launch_args(*sets[0], **kw).mode)
+                keep(res, batch == 1 and i == 0)
+
+    # the OpenAI path's steps: eps (eps_mod, the learned log-variance) are
+    # strided views of a learn_sigma model's [B, 256, 256, 6] output
+    for model_dtype in (torch.float32, torch.bfloat16):
+        dname = dname_of(model_dtype)
+        es = torch.tensor([], dtype=model_dtype).element_size()
+        for batch in (1, 8):
+            shape = (batch, 256, 256, 3)
+            n = batch * 256 * 256 * 3
+
+            def learn_sigma_output():
+                raw = randn(*shape[:-1], 6)
+                raw[..., 3:] = -2.0 + 0.5 * raw[..., 3:]  # a log-variance's range
+                return raw.to(model_dtype)
+
+            a_t, an_t, one, bt = coef(0.80, batch), coef(0.85, batch), coef(1.0, batch), \
+                coef(0.02, batch)
+            n_bytes = n * (4 + 2 * es + 4 + 8)
+
+            def k3_set():
+                r, r_mod = learn_sigma_output(), learn_sigma_output()
+                return randn(*shape), r[..., :3], r_mod[..., :3], a_t, an_t, one, randn(*shape)
+
+            sets = input_sets(k3_set, n_bytes)
+            res = step_row(torch, "ddim_step_learn_sigma", dname,
+                           f"{list(shape)} f32 carry, {dname} model output, eta=1",
+                           k3.ddim_step, k3.ddim_step_plain, sets, n_bytes, 25 * n,
+                           k3.ddim_launch_args(*sets[0]).mode)
+            keep(res, batch == 1)
+            ddpm_cases = (("learned logvar", None, 999.0),
+                          ("table logvar", coef(-3.9, batch), 999.0),
+                          ("learned logvar, t=0", None, 0.0))
+            for i, (label, table, t_) in enumerate(ddpm_cases):
+                if batch > 1 and i:
+                    continue
+                t_dev = coef(t_, batch)
+
+                def ddpm_set():
+                    r = learn_sigma_output()
+                    lv = r[..., 3:] if table is None else table
+                    return randn(*shape), r[..., :3], lv, bt, a_t, t_dev, randn(*shape)
+
+                n_bytes = n * (4 + es + es * (table is None) + 4 + 4)
+                sets = input_sets(ddpm_set, n_bytes)
+                res = step_row(torch, "ddpm_step", dname,
+                               f"{list(shape)} f32 carry, {dname} model output, {label}",
+                               kddpm.ddpm_step, kddpm.ddpm_step_plain, sets, n_bytes, 12 * n,
+                               kddpm.ddpm_launch_args(*sets[0]).mode)
+                keep(res, batch == 1 and i == 0)
+
+    # K3-bwd at the training path's shapes (an f32 carry, eps in the model's
+    # dtype, eta 0): x0_t's cotangent alone to d eps_mod (the edited training
+    # step's), and both cotangents to all three gradients
+    for model_dtype in (torch.float32, torch.bfloat16):
+        dname = dname_of(model_dtype)
+        es = torch.tensor([], dtype=model_dtype).element_size()
+        for label, batch, needs, both in (("x0_t alone -> d eps_mod", 1, (False, False, True), False),
+                                          ("both cotangents -> dx, d eps, d eps_mod", 1,
+                                           (True, True, True), True),
+                                          ("x0_t alone -> d eps_mod", 8, (False, False, True),
+                                           False)):
+            shape = (batch, 256, 256, 3)
+            n = batch * 256 * 256 * 3
+            x = randn(*shape).requires_grad_(needs[0])
+            eps = randn(*shape, dtype=model_dtype).requires_grad_(needs[1])
+            eps_mod = randn(*shape, dtype=model_dtype).requires_grad_(needs[2])
+            # eta as a device tensor: as a Python number the plain version would
+            # copy it to the card, and wait for it, at every call
+            coeffs = (coef(0.30, batch), coef(0.35, batch), coef(0.0, batch), 1.0, None)
+            wanted = [t for t in (x, eps, eps_mod) if t.requires_grad]
+            n_bytes = n * (4 * (1 + both) + 4 * needs[0] + es * (needs[1] + needs[2]))
+            sets = input_sets(lambda: (randn(*shape) if both else None, randn(*shape)), n_bytes)
+            g_xn, g_x0 = sets[0]
+
+            def autograd(fn):
+                x_next, x0_t = fn(x, eps, eps_mod, *coeffs[:3])
+                outs, cots = ((x_next, x0_t), (g_xn, g_x0)) if both else ((x0_t,), (g_x0,))
+                return torch.autograd.grad(outs, wanted, cots)
+
+            dtypes = (torch.float32, model_dtype, model_dtype)
+            checks = list(zip(autograd(k3.ddim_step), autograd(k3.ddim_step_plain)))
+
+            def kernel(g_xn_, g_x0_):
+                return k3._ddim_step_bwd_cuda(g_xn_, g_x0_, coeffs, dtypes, needs)
+
+            def plain(g_xn_, g_x0_):
+                grads = k3.ddim_step_backward(g_xn_, g_x0_, *coeffs[:3], needs=needs)
+                return [None if g_ is None else g_.to(d_) for g_, d_ in zip(grads, dtypes)]
+
+            mode = k3.ddim_bwd_launch_args(g_xn, g_x0, *coeffs[:3], model_dtype).mode
+            res = step_row(torch, "ddim_step_bwd", dname,
+                           f"{list(shape)} f32 carry, {dname} eps, {label}", kernel, plain, sets,
+                           n_bytes, 6 * n, mode, checks)
+            keep(res, batch == 1 and not both)
     return out
 
 
@@ -1027,6 +1206,8 @@ def _kernel_family(name: str) -> str:
         return "K1 group_norm"
     if "attn_" in n:
         return "K2 attention"
+    if any(s in n for s in STEP_KERNEL.values()):
+        return "K3/ddpm steps"
     if any(s in n for s in ("gemm", "conv", "xmma", "cudnn", "cutlass", "winograd")):
         return "conv/gemm"
     return "other"
@@ -1670,24 +1851,63 @@ def sass_counts(lib: str):
     return out
 
 
+_STEP_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+_STEP_RE = re.compile(r"(ddim_fwd_rows|ddpm_fwd_rows|ddim_fwd|ddim_bwd|ddpm_fwd)I"
+                      r"(f|13__nv_bfloat16)(f|13__nv_bfloat16|S\d*_)(?:Li(\d)E)?")
+
+
+def step_entries():
+    """Phase 2's lines for `csrc/steps.cu`: per entry (kernel, carry and
+    model-output dtypes, instance) its registers, static shared memory and
+    spills; fails on a spill. Returns {label: ptxas info}."""
+    from asyrp_official_torch.ops import _build
+
+    out = {}
+    for fn, info in sorted(_ptxas_by_entry(_build.build_log("steps")).items()):
+        m = _STEP_RE.search(fn)
+        if not m:
+            continue
+        tx = _STEP_TYPES[m.group(2)]
+        te = tx if m.group(3).startswith("S") else _STEP_TYPES[m.group(3)]
+        kernel, mode = m.group(1), m.group(4)
+        instance = "rows" if mode is None else INSTANCES[int(mode)]
+        label = f"{kernel.replace('_rows', '')} {tx} carry, {te} eps, {instance}"
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", info.get("spills", ""))]
+        out[label] = {"registers": info.get("registers"), "smem": info.get("smem"),
+                      "spill_bytes": sum(spills)}
+        phase(f"  {label}: {info.get('registers')} registers, {info.get('smem')} bytes static "
+              f"shared memory; {info.get('spills')}")
+        if not spills or sum(spills):
+            fail(f"steps.cu entry {label} spills (or ptxas gave no spill line): "
+                 f"{info.get('spills')}")
+    if len(out) != 32:  # K3 and the DDPM step: 2 x 2 dtypes x 3 instances; K3-bwd: 2 x 2 x 2
+        fail(f"expected 32 steps.cu entries in the ptxas log, found {sorted(out)}")
+    return out
+
+
 def build_kernels():
-    """Phase 2: nvcc for every source at once; then, per attention entry
-    (forward `attn_fwd`, backward `attn_bwd`, in f32 and bf16), its
-    tensor-core instructions (HGMMA from wgmma, HMMA from mma.sync) with
-    its registers and spills. Fails if a bf16 entry has no HGMMA or an f32
-    entry no HMMA (3xTF32 on mma.sync). Returns {entry label: counts}."""
+    """Phase 2: nvcc for every source at once; per step entry its ptxas
+    line (`step_entries`); then, per attention entry (forward `attn_fwd`,
+    backward `attn_bwd`, in f32 and bf16), its tensor-core instructions
+    (HGMMA from wgmma, HMMA from mma.sync) with its registers and spills.
+    Fails if a bf16 entry has no HGMMA or an f32 entry no HMMA (3xTF32 on
+    mma.sync). Returns {entry label: counts}."""
     from asyrp_official_torch.ops import _build
 
     t0 = time.perf_counter()
-    names = ("groupnorm", "attention")
+    names = ("groupnorm", "attention", "steps")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:  # nvcc runs in parallel
         for f in [pool.submit(_build.load_library, n) for n in names]:
             f.result()
     for name in names:
+        if name == "steps":  # 32 entries: one line each below
+            phase("phase 2: built csrc/steps.cu for sm_90a")
+            continue
         ptxas = [ln.strip() for ln in _build.build_log(name).splitlines()
                  if "registers" in ln or "spill" in ln]
         phase(f"phase 2: built csrc/{name}.cu for sm_90a; ptxas: {' | '.join(ptxas)}")
     phase(f"phase 2: nvcc builds took {time.perf_counter() - t0:.1f} s")
+    step_entries()
     for fn, info in sorted(_ptxas_by_entry(_build.build_log("groupnorm")).items()):
         m = re.search(r"(gn_fwd|gn_bwd)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", fn)
         if m:
@@ -1828,20 +2048,24 @@ def main() -> int:
                           "asyrp_official_tpu/models/common.py:238 (spatial_attention's gradient; "
                           "former jax.custom_vjp ops/attention.py:98-125 at 4b63bc3^)",
                           "attention_bwd", train_launches),
-        "ddim_step": ("triton", "asyrp_official_torch/ops/ddim_step.py",
+        "ddim_step": ("cuda", "asyrp_official_torch/csrc/steps.cu",
                       "asyrp_official_tpu/core/ddim.py:33 (ddim_step; XLA on the TPU)",
                       "ddim_step", serve_launches),
+        "ddim_step_bwd": ("cuda", "asyrp_official_torch/csrc/steps.cu",
+                          "asyrp_official_tpu/core/ddim.py:33 (the gradient XLA derives for "
+                          "ddim_step in the edited training step, pipelines/train.py:186-190)",
+                          "ddim_step_bwd", train_launches),
         "group_norm_afhq": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
                             gn_ref[:-1] + "; eps 1e-5, and group_norm_1d at models/common.py:170 "
                             "for the attention norms)", "group_norm", afhq_f32),
         "attention_mh": ("cuda", "asyrp_official_torch/csrc/attention.cu",
                          attn_ref[:-1] + " with num_heads=8, legacy_scale=True, called from "
                          "models/openai_unet.py:286)", "attention_mh", afhq_f32),
-        "ddim_step_learn_sigma": ("triton", "asyrp_official_torch/ops/ddim_step.py",
+        "ddim_step_learn_sigma": ("cuda", "asyrp_official_torch/csrc/steps.cu",
                                   "asyrp_official_tpu/core/ddim.py:33 (ddim_step on the learn_sigma "
                                   "split of core/sampler.py:115-122; XLA on the TPU)", "ddim_step",
                                   afhq_f32),
-        "ddpm_step": ("triton", "asyrp_official_torch/ops/ddpm_step.py",
+        "ddpm_step": ("cuda", "asyrp_official_torch/csrc/steps.cu",
                       "asyrp_official_tpu/core/ddim.py:94 (ddpm_step; XLA on the TPU)",
                       "ddpm_step", afhq_ddpm),
         "group_norm_bwd_afhq": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
@@ -1868,14 +2092,17 @@ def main() -> int:
             "max_rel_err_by_dtype": {d: v["max_rel_err"] for d, v in r.items()},
             "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
             "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
-            "calls_per_eval": f32["calls"],
+            # calls per UNet eval as phase 3 recorded them; a step kernel
+            # runs once per sampler step, not per eval: null
+            "calls_per_eval": f32.get("calls"),
             "by_dtype": {d: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms", "device_ms", "plain_device_ms",
-                                               "library_device_ms", "library_profiled_ms",
+                                               "l2_device_ms", "library_device_ms", "library_profiled_ms",
                                                "profiled_ms")
                              if k in v} for d, v in r.items()},
         })
-    summary = {"card": card, "attention_sass": sass, "serving": timings,
+    summary = {"card": card, "attention_sass": sass, "step_rows": rows["step_rows"],
+               "serving": timings,
                "invert_edit_chain_ms_best_of_2": chain_ms,
                "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
                "profile": profile, "training": training,

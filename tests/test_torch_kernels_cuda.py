@@ -1,5 +1,4 @@
-"""The port's CUDA and Triton kernels against their plain PyTorch versions,
-on a GPU. Marked `cuda`: they skip on a host without one. This file imports
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU. Marked `cuda`: they skip on a host without one. This file imports
 no jax, so it also runs where jax is not installed:
 
     python -m pytest tests/test_torch_kernels_cuda.py --noconftest -q
@@ -9,7 +8,8 @@ full-width serving and training paths.
 
 Tolerances: max error relative to scale 1e-5 in float32 (K1, K2: sums in
 another order), 2e-2 in bfloat16 (one bf16 ulp is 2^-8), 1e-6 for the
-float32 DDIM and DDPM steps (elementwise, ulp-level differences only). The backward
+float32 DDIM and DDPM steps and K3's backward (elementwise, ulp-level
+differences only), 1e-2 where their output is bfloat16. The backward
 kernels (K1-bwd, K2-bwd with one head or several) against
 `torch.autograd.grad` through the plain forward: 1e-4 in float32, 5e-2 in
 bfloat16 (the gradient passes through more roundings of the I/O type).
@@ -431,3 +431,170 @@ def test_attention_backward_kernel_is_deterministic(cuda_device, shape, heads, l
     second = k2.attention_backward(q, k, v, o, d_o, lse, **kw)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# K3, K3-bwd and the DDPM step (`csrc/steps.cu`): batch 8, the scalar
+# instance, determinism, and the backward's gradients one by one
+# ---------------------------------------------------------------------------
+
+
+def _k3_inputs(device, shape, seed, learn_sigma=False, model_dtype=torch.float32):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x, noise = (torch.randn(shape, generator=g, device=device) for _ in range(2))
+    if learn_sigma:
+        raw, raw_mod = (torch.randn(*shape[:-1], 6, generator=g, device=device).to(model_dtype)
+                        for _ in range(2))
+        return x, raw[..., :3], raw_mod[..., :3], noise
+    eps, eps_mod = (torch.randn(shape, generator=g, device=device).to(model_dtype)
+                    for _ in range(2))
+    return x, eps, eps_mod, noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("learn_sigma,instance", [(False, k3.FLAT), (True, k3.ROWS)])
+def test_ddim_step_kernel_at_batch_8(cuda_device, learn_sigma, instance, model_dtype):
+    x, eps, eps_mod, noise = _k3_inputs(cuda_device, (8, 256, 256, 3), 30, learn_sigma,
+                                        model_dtype)
+    a = torch.linspace(0.2, 0.9, 8, device=cuda_device)
+    args = (x, eps, eps_mod, a, a + 0.05, 1.0, noise)
+    assert k3.ddim_launch_args(*args).mode == instance
+    n, ns = k3.ddim_step.launches, k3.ddim_step.scalar_launches
+    got = k3.ddim_step(*args)
+    assert (k3.ddim_step.launches, k3.ddim_step.scalar_launches) == (n + 1, ns)
+    for w, g_, name in zip(k3.ddim_step_plain(*args), got, ("x_next", "x0_t")):
+        close_to_scale(w.cpu().numpy(), g_.cpu().numpy(), f"batch 8 {name}", bound=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["x", "eps", "noise"])
+def test_step_kernels_take_the_scalar_instance_on_a_misaligned_view(cuda_device, what):
+    """A view 4 bytes past a 16-byte boundary: the scalar instance, counted,
+    with the same result."""
+    shape = (2, 64, 64, 3)
+    x, eps, eps_mod, noise = _k3_inputs(cuda_device, shape, 31)
+    buf = torch.randn(x.numel() + 1, device=cuda_device)
+    view = buf[1:].view(shape)
+    view.copy_({"x": x, "eps": eps, "noise": noise}[what])
+    x, eps, noise = (view if what == name else t
+                     for name, t in (("x", x), ("eps", eps), ("noise", noise)))
+    args = (x, eps, eps_mod, torch.tensor([0.8, 0.3], device=cuda_device), 0.85, 1.0, noise)
+    assert k3.ddim_launch_args(*args).mode == k3.SCALAR
+    ns = k3.ddim_step.scalar_launches
+    for w, g_, name in zip(k3.ddim_step_plain(*args), k3.ddim_step(*args), ("x_next", "x0_t")):
+        close_to_scale(w.cpu().numpy(), g_.cpu().numpy(), f"scalar {what} {name}", bound=1e-6)
+    assert k3.ddim_step.scalar_launches == ns + 1
+    lv = torch.tensor([-3.9, -6.1], device=cuda_device)
+    ddpm_args = (x, eps, lv, torch.tensor([0.02, 0.008], device=cuda_device),
+                 torch.tensor([4e-5, 0.1], device=cuda_device), 5.0, noise)
+    ns = kddpm.ddpm_step.scalar_launches
+    close_to_scale(kddpm.ddpm_step_plain(*ddpm_args).cpu().numpy(),
+                   kddpm.ddpm_step(*ddpm_args).cpu().numpy(), f"ddpm scalar {what}", bound=1e-6)
+    assert kddpm.ddpm_step.scalar_launches == ns + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("learn_sigma", [False, True])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_step_kernels_are_deterministic(cuda_device, batch, learn_sigma):
+    """Elementwise, no atomics: two calls agree bit for bit, K3, K3-bwd and
+    the DDPM step."""
+    x, eps, eps_mod, noise = _k3_inputs(cuda_device, (batch, 256, 256, 3), 32, learn_sigma)
+    a = torch.full((batch,), 0.8, device=cuda_device)
+    args = (x, eps, eps_mod, a, 0.85, 1.0, noise)
+    assert all(torch.equal(p, q) for p, q in zip(k3.ddim_step(*args), k3.ddim_step(*args)))
+    coeffs = (a, 0.85, 1.0, 1.0, None)
+    dts = (torch.float32,) * 3
+    one, two = (k3._ddim_step_bwd_cuda(eps_mod.contiguous(), x, coeffs, dts, (True,) * 3)
+                for _ in range(2))
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+    # the learned log-variance: the second half of eps's rows, or its own tensor
+    lv = eps.as_strided(eps.shape, eps.stride(), eps.storage_offset() + 3) if learn_sigma \
+        else eps_mod
+    d_args = (x, eps, lv, torch.full((batch,), 0.02, device=cuda_device), a, 5.0, noise)
+    assert torch.equal(kddpm.ddpm_step(*d_args), kddpm.ddpm_step(*d_args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cotangents", ["both", "x0_t"])
+@pytest.mark.parametrize("needs", [(True, True, True), (False, False, True), (True, False, False),
+                                   (False, True, False), (True, True, False), (False, True, True),
+                                   (True, False, True)])
+def test_ddim_step_backward_kernel_needs_match_autograd(cuda_device, needs, cotangents,
+                                                        model_dtype):
+    """K3-bwd on the learn_sigma views writes only the gradients asked for,
+    each within 1e-6 of scale (1e-2 in bf16) of autograd through the plain
+    forward; one launch per backward. (False, False, True) from x0_t alone
+    is the training step's."""
+    g = torch.Generator(device=cuda_device).manual_seed(33)
+    x = torch.randn(1, 256, 256, 3, generator=g, device=cuda_device).requires_grad_(needs[0])
+    raw, raw_mod = (torch.randn(1, 256, 256, 6, generator=g, device=cuda_device).to(model_dtype)
+                    .requires_grad_(n) for n in needs[1:])
+    g_xn, g_x0 = (torch.randn(x.shape, generator=g, device=cuda_device) for _ in range(2))
+    coeffs = (torch.tensor([0.3], device=cuda_device), torch.tensor([0.35], device=cuda_device),
+              0.0, None)
+    cots = (g_xn, g_x0) if cotangents == "both" else (None, g_x0)
+    wanted = [t for t in (x, raw, raw_mod) if t.requires_grad]
+
+    def grads(fn):
+        x_next, x0_t = fn(x, raw[..., :3], raw_mod[..., :3], *coeffs)
+        pairs = [(o, c) for o, c in zip((x_next, x0_t), cots) if c is not None and o.requires_grad]
+        if not pairs:  # no path from the cotangents to the inputs: zero gradients
+            return tuple(torch.zeros_like(t) for t in wanted)
+        outs, gs = zip(*pairs)
+        return torch.autograd.grad(outs, wanted, gs, allow_unused=True, materialize_grads=True)
+
+    want = grads(k3.ddim_step_plain)
+    n = k3.ddim_step.bwd_launches
+    got = grads(k3.ddim_step)
+    assert k3.ddim_step.bwd_launches == n + 1
+    for w, g_, t in zip(want, got, wanted):
+        assert g_.dtype == t.dtype and g_.shape == t.shape
+        bound = 1e-6 if t.dtype == torch.float32 else 1e-2
+        if w.abs().max() == 0:
+            assert g_.abs().max() == 0
+        else:
+            close_to_scale(w.float().cpu().numpy(), g_.float().cpu().numpy(),
+                           f"K3-bwd {needs} {cotangents}", bound=bound)
+
+
+@pytest.mark.cuda
+def test_ddpm_step_kernel_at_batch_8(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(35)
+    x, noise = (torch.randn(8, 256, 256, 3, generator=g, device=cuda_device) for _ in range(2))
+    raw = torch.randn(8, 256, 256, 6, generator=g, device=cuda_device)
+    raw[..., 3:] = -2.0 + 0.5 * raw[..., 3:]
+    t = torch.tensor([999.0, 0.0] * 4, device=cuda_device)
+    args = (x, raw[..., :3], raw[..., 3:], torch.full((8,), 0.02, device=cuda_device),
+            torch.linspace(1e-4, 0.5, 8, device=cuda_device), t, noise)
+    a = kddpm.ddpm_launch_args(*args)
+    assert (a.mode, a.lv_mode) == (k3.ROWS, kddpm.LV_PAIRED)
+    close_to_scale(kddpm.ddpm_step_plain(*args).cpu().numpy(),
+                   kddpm.ddpm_step(*args).cpu().numpy(), "ddpm batch 8", bound=1e-6)
+
+
+@pytest.mark.cuda
+def test_step_kernels_take_per_sample_tensors_of_any_dtype_and_place(cuda_device):
+    """A [B] coefficient on the CPU, in float64, or an integer t reaches the
+    kernels as f32 copies on the card (`coef_operand`) and gives what the
+    plain version gives."""
+    g = torch.Generator(device=cuda_device).manual_seed(36)
+    x, eps, eps_mod, noise = (torch.randn(2, 256, 256, 3, generator=g, device=cuda_device)
+                              for _ in range(4))
+    at = torch.tensor([0.80, 0.30])  # on the CPU
+    at_next = torch.tensor([0.85, 0.35], dtype=torch.float64, device=cuda_device)
+    n = k3.ddim_step.launches
+    for w, g_ in zip(k3.ddim_step_plain(x, eps, eps_mod, at, at_next, 1.0, noise),
+                     k3.ddim_step(x, eps, eps_mod, at, at_next, 1.0, noise)):
+        close_to_scale(w.cpu().numpy(), g_.cpu().numpy(), "K3, CPU and f64 coefficients",
+                       bound=1e-6)
+    assert k3.ddim_step.launches == n + 1
+    t = torch.tensor([999, 0], device=cuda_device)  # integer
+    args = (x, eps, torch.tensor([-3.9, -6.1], dtype=torch.float64), torch.tensor([0.02, 0.008]),
+            at, t, noise)
+    n = kddpm.ddpm_step.launches
+    close_to_scale(kddpm.ddpm_step_plain(*args).cpu().numpy(), kddpm.ddpm_step(*args).cpu().numpy(),
+                   "ddpm, CPU, f64 and integer per-sample tensors", bound=1e-6)
+    assert kddpm.ddpm_step.launches == n + 1
