@@ -3,11 +3,13 @@ as a Python loop over a `StepTable` (the JAX package's one `lax.scan`).
 
 Model callback contract (as in the JAX package):
 
-    eps_fn(x, t, aux) -> (eps_raw, eps_mod_raw | None)
+    eps_fn(x, t, aux) -> (eps_raw, eps_mod_raw | None[, extras])
 
 `x` is the [B, H, W, C] NHWC carry, `t` a [B] float32 timestep tensor and
-`aux` holds the step's `use_delta` (float) and `step` (the global step
-index, `step_offset + i`).
+`aux` holds the step's `use_delta` (float), `delta_idx` (int, the row of a
+stacked Δh) and `step` (the step's index in the table). A name in
+`collect` that the step's `extras` dict holds (the edited eps function's
+"delta_h") is stacked like "x" and "x0_t".
 
 `learn_sigma`: the raw outputs carry 2C channels, split on the NHWC last
 axis; eps (and eps_mod) are the first C, as strided views that the step
@@ -20,9 +22,8 @@ under `learn_sigma`, else the schedule's per-timestep one.
 Noise: a step draws a standard normal of x's shape from `generator` (a
 `torch.Generator` on x's device), in step order, where eta != 0 and at every
 step of a "ddpm" chain (as the JAX sampler draws); the other steps draw
-nothing. A trajectory split into segments (`step_offset`) therefore draws
-the same sequence as the whole. `noise_fn(step, shape)` replaces the
-generator, so a test can feed both packages the same draws.
+nothing. `noise_fn(step, shape)` replaces the generator, so a test can feed
+both packages the same draws.
 """
 from __future__ import annotations
 
@@ -50,11 +51,10 @@ def sample_chain(
     dt_lambda: float = 1.0,
     dt_end: int = 999,
     collect: Tuple[str, ...] = (),
-    step_offset: int = 0,
     noise_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Run the trajectory; returns (x_final, {name: [S, B, H, W, C]}) for
-    each of "x", "x0_t" in `collect`."""
+    """Run the trajectory; returns (x_final, {name: [S, B, ...]}) for each
+    of "x", "x0_t" and the eps function's extras in `collect`."""
     if sample_type not in ("ddim", "ddpm"):
         raise ValueError(f"unknown sample_type: {sample_type}")
     stochastic = (np.asarray(table.eta) != 0.0) | (sample_type == "ddpm")
@@ -79,9 +79,11 @@ def sample_chain(
     x = x_init
     ys = {k: [] for k in collect}
     for i in range(table.num_steps):
-        step = step_offset + i
-        aux = {"use_delta": float(table.use_delta[i]), "step": step}
-        eps, eps_mod = eps_fn(x, ts[i].expand(bsz), aux)[:2]
+        aux = {"use_delta": float(table.use_delta[i]), "delta_idx": int(table.delta_idx[i]),
+               "step": i}
+        out = eps_fn(x, ts[i].expand(bsz), aux)
+        eps, eps_mod = out[:2]
+        extras = out[2] if len(out) > 2 else {}
         if learn_sigma:
             c = eps.shape[-1] // 2
             eps, logvar = eps[..., :c], eps[..., c:]
@@ -91,7 +93,7 @@ def sample_chain(
         noise = None
         if stochastic[i]:
             if noise_fn is not None:
-                noise = torch.as_tensor(noise_fn(step, tuple(x.shape))).to(device=dev, dtype=x.dtype)
+                noise = torch.as_tensor(noise_fn(i, tuple(x.shape))).to(device=dev, dtype=x.dtype)
             else:
                 noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
         if sample_type == "ddim":
@@ -108,4 +110,7 @@ def sample_chain(
             ys["x"].append(x)
         if "x0_t" in ys:
             ys["x0_t"].append(x0_t)
+        for k in extras:
+            if k in ys:
+                ys[k].append(extras[k])
     return x, {k: torch.stack(v) for k, v in ys.items() if v}

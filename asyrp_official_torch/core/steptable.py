@@ -32,16 +32,6 @@ class StepTable:
     def num_steps(self) -> int:
         return int(self.t.shape[0])
 
-    def slice(self, start: int, stop: int) -> "StepTable":
-        """Contiguous sub-table [start:stop)."""
-        return StepTable(
-            t=self.t[start:stop],
-            t_next=self.t_next[start:stop],
-            eta=self.eta[start:stop],
-            use_delta=self.use_delta[start:stop],
-            delta_idx=self.delta_idx[start:stop],
-        )
-
     def edit_prefix_len(self) -> Optional[int]:
         """Length of the leading use_delta == 1 run, or None if the mask is
         not a contiguous prefix."""

@@ -58,6 +58,14 @@ class ModelSpec:
     def temb_ch(self) -> int:
         return self.config.temb_ch
 
+    @property
+    def bottleneck_hw(self) -> int:
+        """Side of the h-space map: the resolution after len(mult) - 1
+        downsamples of the architecture (8 at 256² for both families)."""
+        if self.family == "ddpmpp":
+            return self.config.resolution // 2 ** (len(self.config.ch_mult) - 1)
+        return self.config.image_size // 2 ** (len(self.config.channel_mult) - 1)
+
 
 def resolve(dataset: str) -> ModelSpec:
     """Dataset names follow the reference configs."""

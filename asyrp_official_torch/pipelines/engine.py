@@ -36,12 +36,24 @@ def _plain_eps(spec: ModelSpec, model, compute_dtype):
     return eps_fn
 
 
-def _edited_eps(spec: ModelSpec, model, edit: EditState, compute_dtype):
-    """The dual decode: eps from h, eps_mod from the edited h2."""
+def _gated_eps(spec: ModelSpec, model, edit: EditState, compute_dtype, want_delta: bool):
+    """Per step, on the host: the dual decode (eps from h, eps_mod from the
+    edited h2) where the step's gate is on, the plain decode where it is off
+    (the gated-off edit would give eps_mod == eps there). With `want_delta`
+    also the step's Δh as the extra "delta_h" ([B, h, w, C] f32), zero on a
+    gated-off step."""
 
     def eps_fn(x, t, aux):
-        eps, eps_mod, _, _ = spec.apply(model, x.to(compute_dtype), t, edit=edit.at_step(aux))
-        return eps.float(), eps_mod.float()
+        if aux["use_delta"] > 0:
+            eps, eps_mod, delta_h, _ = spec.apply(model, x.to(compute_dtype), t,
+                                                  edit=edit.at_step(aux))
+            eps_mod = eps_mod.float()
+        else:
+            eps, _, _, h = spec.apply(model, x.to(compute_dtype), t)
+            eps_mod, delta_h = None, torch.zeros_like(h) if want_delta else None
+        if not want_delta:
+            return eps.float(), eps_mod
+        return eps.float(), eps_mod, {"delta_h": delta_h.float()}
 
     return eps_fn
 
@@ -49,32 +61,18 @@ def _edited_eps(spec: ModelSpec, model, edit: EditState, compute_dtype):
 def _edited_chain(spec: ModelSpec, schedule: Schedule, table: StepTable, *, compute_dtype,
                   sample_type: str = "ddim", dt_lambda: float = 1.0, dt_end: int = 999,
                   collect: Tuple[str, ...] = ()):
-    """The edited generation over `table` as two segments: the steps with
-    t >= t_edit (a prefix of the descending table) run the dual decode, the
-    rest the single plain decode — the gated-off edit would give eps_mod ==
-    eps there. The second segment's step indices are offset, so its noise
-    follows the first's as in one whole run.
+    """The edited generation over `table`: one chain that picks the decode
+    per step (`_gated_eps`), so a gate with holes (sparse `delta_times`) and
+    a "delta_h" harvest (an entry for every step) run as the prefix gate does.
 
     Returns fn(model, edit, x, generator, noise_fn) -> (x, ys)."""
-    k = table.edit_prefix_len()
-    if k is None:
-        raise ValueError("the t_edit gate of a generation table must be a prefix of its steps")
-    n = table.num_steps
-    common = dict(sample_type=sample_type, learn_sigma=spec.learn_sigma, dt_lambda=dt_lambda,
-                  dt_end=dt_end, collect=collect)
+    want_delta = "delta_h" in collect
 
     def run(model, edit, x, generator=None, noise_fn=None):
-        parts = []
-        if k:
-            x, ys = sample_chain(_edited_eps(spec, model, edit, compute_dtype), schedule,
-                                 table.slice(0, k), x, generator, noise_fn=noise_fn, **common)
-            parts.append(ys)
-        if k < n:
-            x, ys = sample_chain(_plain_eps(spec, model, compute_dtype), schedule,
-                                 table.slice(k, n), x, generator, step_offset=k,
-                                 noise_fn=noise_fn, **common)
-            parts.append(ys)
-        return x, {key: torch.cat([p[key] for p in parts]) for key in parts[0]}
+        return sample_chain(_gated_eps(spec, model, edit, compute_dtype, want_delta), schedule,
+                            table, x, generator, sample_type=sample_type,
+                            learn_sigma=spec.learn_sigma, dt_lambda=dt_lambda, dt_end=dt_end,
+                            collect=collect, noise_fn=noise_fn)
 
     return run
 
@@ -108,12 +106,16 @@ def make_generate(spec: ModelSpec, schedule: Schedule, seq, *, t_addnoise: int =
 
 
 def make_edit_generate(spec: ModelSpec, schedule: Schedule, seq, *, t_edit: int,
-                       t_addnoise: int = -1, sample_type: str = "ddim", dt_lambda: float = 1.0,
-                       dt_end: int = 999, compute_dtype=torch.float32,
-                       collect: Tuple[str, ...] = ()) -> Callable:
-    """Asymmetric edited generation: Δ injected for t >= t_edit, eta=1
-    noise for t < t_addnoise."""
-    table = generation_table(seq, t_edit=t_edit, t_addnoise=t_addnoise)
+                       t_addnoise: int = -1, delta_times=None, ignore_timesteps: bool = False,
+                       sample_type: str = "ddim", dt_lambda: float = 1.0, dt_end: int = 999,
+                       compute_dtype=torch.float32, collect: Tuple[str, ...] = ()) -> Callable:
+    """Asymmetric edited generation: Δ injected for t >= t_edit (and, with
+    `delta_times`, only at the timesteps that have a Δh row, which
+    `delta_idx` then picks), eta=1 noise for t < t_addnoise. `collect` may
+    name "delta_h": the per-step Δh, [S, B, h, w, C] f32, zero on
+    gated-off steps."""
+    table = generation_table(seq, t_edit=t_edit, t_addnoise=t_addnoise, delta_times=delta_times,
+                             ignore_timesteps=ignore_timesteps)
     chain = _edited_chain(spec, schedule, table, compute_dtype=compute_dtype,
                           sample_type=sample_type, dt_lambda=dt_lambda, dt_end=dt_end,
                           collect=collect)

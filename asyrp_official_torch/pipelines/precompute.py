@@ -3,7 +3,8 @@
 them, in batches, with the same cache naming
 (`{category}_{mode}_t{t0}_nim{N}_ninv{ninv}_pairs.npz`), `.npz` payload
 ({"x0", "x_rec", "x_lat"}, NHWC float32) and partial resume as the JAX
-package, so the two packages read each other's caches."""
+package, so the two packages read each other's caches; and
+`random_noise_pairs`, the Gaussian latents of `--load_random_noise`."""
 from __future__ import annotations
 
 import os
@@ -17,12 +18,13 @@ from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.pipelines import engine
 from asyrp_official_torch.core.schedule import Schedule, uniform_seq
 
-__all__ = ["pairs_cache_path", "load_pairs_cache", "precompute_pairs"]
+__all__ = ["pairs_cache_path", "load_pairs_cache", "precompute_pairs", "random_noise_pairs"]
 
 
 def pairs_cache_path(cache_dir: str, category: str, mode: str, t_0: int, nim: int,
-                     n_inv: int) -> str:
-    return os.path.join(cache_dir, f"{category}_{mode}_t{t_0}_nim{nim}_ninv{n_inv}_pairs")
+                     n_inv: int, *, random_noise: bool = False) -> str:
+    mid = "random_noise_" if random_noise else f"t{t_0}_"
+    return os.path.join(cache_dir, f"{category}_{mode}_{mid}nim{nim}_ninv{n_inv}_pairs")
 
 
 def load_pairs_cache(base_path: str) -> Optional[Dict[str, np.ndarray]]:
@@ -111,4 +113,48 @@ def precompute_pairs(
                              (f"1_rec_ninv{n_inv_step}", "x_rec")):
                 save_image(pairs[key][i], os.path.join(save_imgs_dir, f"{mode}_{i}_{tag}.png"),
                            pm1=True)
+    return pairs
+
+
+def random_noise_pairs(
+    spec: ModelSpec,
+    model,
+    schedule: Schedule,
+    *,
+    n_img: int,
+    n_inv_step: int,
+    device: torch.device,
+    image_size: int = 256,
+    channels: int = 3,
+    mode: str = "train",
+    category: str = "CUSTOM",
+    cache_dir: str = "precomputed",
+    saved_noise: bool = False,
+    batch_size: int = 8,
+    seed: int = 0,
+    compute_dtype=torch.float32,
+    t_0: int = 999,
+) -> Dict[str, np.ndarray]:
+    """`--load_random_noise`: x_lat ~ N(0, I) from
+    `np.random.RandomState(seed + (0 if train else 1))`, x0 and x_rec zero;
+    with `saved_noise`, x0 = x_rec = the plain generation from x_lat (eta 0,
+    `n_inv_step` steps), cached under the `random_noise_` name."""
+    rng = np.random.RandomState(seed + (0 if mode == "train" else 1))
+    x_lat = rng.randn(n_img, image_size, image_size, channels).astype(np.float32)
+    if not saved_noise:
+        zeros = np.zeros_like(x_lat)
+        return {"x0": zeros, "x_rec": zeros, "x_lat": x_lat}
+    base = pairs_cache_path(cache_dir, category, mode, t_0, n_img, n_inv_step, random_noise=True)
+    cached = load_pairs_cache(base)
+    if cached is not None and cached["x_lat"].shape[0] >= n_img:
+        return {k: v[:n_img] for k, v in cached.items()}
+    generate = engine.make_generate(spec, schedule, uniform_seq(n_inv_step, t_0),
+                                    compute_dtype=compute_dtype)
+    recs = []
+    for ofs in range(0, n_img, batch_size):
+        x, _ = generate(model, torch.from_numpy(x_lat[ofs:ofs + batch_size]).to(device))
+        recs.append(x.cpu().numpy())
+    x_rec = np.concatenate(recs)
+    pairs = {"x0": x_rec, "x_rec": x_rec, "x_lat": x_lat}
+    _atomic_savez(base + ".npz", **pairs)
     return pairs

@@ -1,13 +1,17 @@
 """The Δ-training step — the port of the JAX package's `pipelines/train.py`
 (`default_loss`, `make_optimizer`, `steplr_lr`, `make_train_step`).
 
-Per batch, a Python loop over the generation table of `seq_train`. At
-every timestep:
+The trainable is DeltaBlock 0 (`train_target="blocks"`,
+`--train_delta_block`) or the stacked Δh rows (`"rows"`,
+`--train_delta_h`): one [K, C, h, w] f32 leaf, `edit.delta_rows`, whose
+row `delta_idx` a timestep injects, so each step's loss reaches only its
+own row. Per batch, a Python loop over the generation table of
+`seq_train`. At every timestep:
   * the plain DDIM reference step without grad (or the cached x0_t_origin);
-  * the edited forward, whose graph starts at the DeltaBlock (the UNet is
+  * the edited forward, whose graph starts at the DeltaBlock or the row (the UNet is
     frozen and `decode_mode="split"` runs the encoder, the middle block and
     the plain decode without grad), and the DDIM update with eta 0;
-  * the loss, `backward`, and one SGD step on the trainable block — the
+  * the loss, `backward`, and one SGD step on the trainable — the
     optimizer steps at EVERY timestep, with the lr set per call;
   * the carry is detached, so each step's gradient flows only through its
     own x0_t.
@@ -58,16 +62,21 @@ def steplr_lr(base_lr: float, it_out: int, step_size: int, gamma: float) -> floa
 
 def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: int,
                     loss_fn: Callable = default_loss, compute_dtype=torch.float32,
-                    ignore_timesteps: bool = False, cached_origin: bool = False):
+                    ignore_timesteps: bool = False, train_target: str = "blocks",
+                    cached_origin: bool = False):
     """Returns fn(model, edit, optimizer, x_lat, x0, lr[, origins]) ->
     {"loss_per_step": [n], "loss": scalar, "x_next": the carry after the
-    last step}, training `edit.blocks` in place.
+    last step}, training `edit.blocks` or (`train_target="rows"`)
+    `edit.delta_rows` in place; the optimizer holds those parameters.
 
     With `cached_origin=True` the fn takes the x0_t_origin stack
     ([n_steps, B, H, W, C], from `fn.compute_origins(model, x_lat)`)
     instead of running the plain reference step: it depends only on the
     frozen UNet and x_lat, so it holds for every outer iteration."""
-    table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps)
+    if train_target not in ("blocks", "rows"):
+        raise ValueError(f"train_target must be 'blocks' or 'rows', got {train_target!r}")
+    table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps,
+                             delta_times=list(seq_train) if train_target == "rows" else None)
     acp = np.asarray(schedule.alphas_cumprod_ext)
     per_step = {}  # device -> the steps' t, a and a' ([n_steps] f32), built once
 
@@ -116,7 +125,8 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
             else:
                 x_orig, x0_t_origin = plain_origin_step(model, x_orig, i)
             t_b, at, at_next = coeffs(i, x_edit)
-            e = edit.at_step({"use_delta": float(table.use_delta[i])})
+            e = edit.at_step({"use_delta": float(table.use_delta[i]),
+                              "delta_idx": int(table.delta_idx[i])})
             eps, eps_mod, _, _ = spec.apply(model, x_edit.to(compute_dtype), t_b, edit=e,
                                             decode_mode="split")
             x_next, x0_t = k3.ddim_step(x_edit, eps_of(eps), eps_of(eps_mod), at, at_next, 0.0)

@@ -1,16 +1,24 @@
-"""AsyrpRunner — the port of the JAX `runner.py` for Δ-training of
-DeltaBlocks (`run_training` with `--train_delta_block`, the CLIP
-directional loss) and edit serving (`run_test` with `--train_delta_block`
-checkpoints, `--sample_type ddim` or `ddpm`), for the DDPM++ and the
-OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device.
+"""AsyrpRunner — the port of the JAX `runner.py` for the DDPM++ and the
+OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device:
+
+  * `run_training`: Δ-training of a DeltaBlock (`--train_delta_block`) or
+    of per-timestep Δh rows (`--train_delta_h`, injected by
+    `--delta_injection add|slerp`), with the CLIP directional loss;
+  * `run_test`: edit serving from block or row checkpoints (rows trained on
+    another grid are remapped onto the test grid), `--multiple_attr`
+    mixing, `--delta_interpolation` sweeps (one generation per
+    coefficient tuple), the mean-of-Δh harvest
+    (`--num_mean_of_delta_hs`), `--load_random_noise` latents, the
+    per-step process dumps and `--pass_editing`; `--sample_type ddim` or
+    `ddpm`.
 
 Not ported yet (each raises `NotImplementedError`): the LPIPS stage,
-DiffStyle, fidelity, `--train_delta_h` rows, the ID loss, multi-attribute
-mixing, delta-interpolation sweeps, mean-of-Δh harvesting, random-noise
-latents, process dumps and the multi-device flags (ROADMAP.md Queue 1).
+DiffStyle (`--diff_style`, `--use_mask`), fidelity, the ID loss, IMAGENET's
+`--target_class_num` and the multi-device flags (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -23,9 +31,11 @@ from asyrp_official_torch.compat import delta_ckpt
 from asyrp_official_torch.compat.from_jax import delta_block_state_dict_from_jax
 from asyrp_official_torch.configs.paths import DATASET_PATHS
 from asyrp_official_torch.core.schedule import make_schedule, train_seq, uniform_seq
+from asyrp_official_torch.core.steptable import generation_table
 from asyrp_official_torch.data import datasets as data
 from asyrp_official_torch.data.imageio import save_image
-from asyrp_official_torch.models.delta import EditState, delta_block_from_tree, init_delta_blocks
+from asyrp_official_torch.models.delta import (EditState, delta_block_from_tree, init_delta_blocks,
+                                               rows_to_nchw, rows_to_nhwc)
 from asyrp_official_torch.models.registry import spec_from_config
 from asyrp_official_torch.pipelines import engine, precompute as pc, train as tr
 from asyrp_official_torch.pipelines.interval import select_interval
@@ -38,17 +48,9 @@ __all__ = ["AsyrpRunner", "resolve_device"]
 _TODO = "is not ported yet (ROADMAP.md Queue 1)"
 
 # run_test options outside the ported path: flag -> value that means "off"
-_UNPORTED_TEST_FLAGS = {
-    "train_delta_h": False, "multiple_attr": "", "delta_interpolation": False,
-    "num_mean_of_delta_hs": 0, "load_random_noise": False, "save_process_origin": False,
-    "save_process_delta_h": False, "pass_editing": False, "diff_style": False,
-    "use_mask": False, "target_class_num": None,
-}
+_UNPORTED_TEST_FLAGS = {"diff_style": False, "use_mask": False, "target_class_num": None}
 # run_training options outside the ported path
-_UNPORTED_TRAIN_FLAGS = {
-    "train_delta_h": "--train_delta_h rows (M6)", "load_random_noise": "--load_random_noise (M5)",
-    "target_class_num": "--target_class_num (M8)",
-}
+_UNPORTED_TRAIN_FLAGS = {"target_class_num": "--target_class_num (M8)"}
 # the origin-trajectory cache stays on the device up to this many bytes
 _ORIGIN_CACHE_BYTES = 4 * 2**30
 
@@ -183,6 +185,13 @@ class AsyrpRunner:
         d = self.config["data"]
         n_consume = a.n_train_img if mode == "train" else a.n_test_img
         n_img = max(n_consume, getattr(a, "n_precomp_img", 0) or 0)
+        if getattr(a, "load_random_noise", False):
+            return pc.random_noise_pairs(
+                self.spec, model, self.schedule, n_img=n_img, n_inv_step=a.n_inv_step,
+                device=self.device, image_size=d["image_size"], mode=mode,
+                category=d["category"], cache_dir=self._dir("precomputed"),
+                saved_noise=getattr(a, "saved_random_noise", False), batch_size=a.bs_train,
+                seed=a.seed, compute_dtype=self.compute_dtype, t_0=a.t_0)
         paths = dict(DATASET_PATHS)
         if d["category"] == "CUSTOM":
             paths["custom_train"] = a.custom_train_dataset_dir
@@ -226,17 +235,20 @@ class AsyrpRunner:
 
     # ------------------------------------------------------------------
     def run_training(self):
-        """Δ-training of DeltaBlock 0 (`--train_delta_block`): per outer
-        iteration the StepLR learning rate, the drop-last batches of the
-        training latents, SGD at every edited timestep, the `.pth`
-        checkpoint; an existing checkpoint of an iteration is loaded and the
-        iteration skipped (plain SGD keeps no optimizer state). `--do_test`
-        then writes the test grids."""
+        """Δ-training of DeltaBlock 0 (`--train_delta_block`) or of the
+        per-timestep Δh rows (`--train_delta_h`, one row per timestep of
+        the training grid, or one under `--ignore_timesteps`, drawn as
+        0.2·N(0, 1) from `--seed`): per outer iteration the StepLR learning
+        rate, the drop-last batches of the training latents, SGD at every
+        edited timestep, the `.pth` checkpoint; an existing checkpoint of an
+        iteration is loaded and the iteration skipped (plain SGD keeps no
+        optimizer state). `--do_test` then writes the test grids."""
         a = self.args
         for flag, what in _UNPORTED_TRAIN_FLAGS.items():
             if getattr(a, flag, None):
                 raise NotImplementedError(f"{what} {_TODO}")
-        if a.get_h_num < 1:
+        train_target = "rows" if a.train_delta_h else "blocks"
+        if train_target == "blocks" and a.get_h_num < 1:
             # the reference's default 0 leaves its optimizer with no parameters
             raise ValueError("--train_delta_block needs --get_h_num >= 1 (the reference "
                              "default 0 leaves the optimizer with no parameters)")
@@ -246,14 +258,29 @@ class AsyrpRunner:
         seq_test = uniform_seq(a.n_train_step, a.t_0) if a.n_train_step else list(range(0, a.t_0))
         model = self.load_pretrained()
 
-        # the reference trains block 0 only; the get_h_num > 1 extras keep
-        # their init and are saved untouched (JAX-layout trees)
-        blocks = init_delta_blocks(a.seed, a.get_h_num, self.spec.bottleneck_ch,
-                                   self.spec.temb_ch, flavor=self.spec.delta_flavor)
-        block = blocks[0].to(self.device).train()
-        extra_blocks = [self._block_tree(b) for b in blocks[1:]]
-        edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=self.device),
-                         flavor=self.spec.delta_flavor, ignore_timestep=a.ignore_timesteps)
+        extra_blocks: List[Any] = []
+        if train_target == "blocks":
+            # the reference trains block 0 only; the get_h_num > 1 extras keep
+            # their init and are saved untouched (JAX-layout trees)
+            blocks = init_delta_blocks(a.seed, a.get_h_num, self.spec.bottleneck_ch,
+                                       self.spec.temb_ch, flavor=self.spec.delta_flavor)
+            block = blocks[0].to(self.device).train()
+            extra_blocks = [self._block_tree(b) for b in blocks[1:]]
+            edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=self.device),
+                             flavor=self.spec.delta_flavor, ignore_timestep=a.ignore_timesteps)
+            trainable = list(block.parameters())
+        else:
+            hw = self.spec.bottleneck_hw
+            k = 1 if a.ignore_timesteps else len(seq_train)
+            rows = np.float32(0.2) * hostrng.normal(hostrng.PRNGKey(a.seed),
+                                                    (k, hw, hw, self.spec.bottleneck_ch))
+            edit = EditState(
+                mode="input", delta_rows=rows_to_nchw(rows).to(self.device).requires_grad_(True),
+                hs_coeff=torch.tensor([1.0, 1.0], device=self.device),
+                input_style=getattr(a, "delta_injection", "add"),
+                ignore_timestep=a.ignore_timesteps,
+                times=None if a.ignore_timesteps else tuple(seq_train))
+            trainable = [edit.delta_rows]
 
         extra_loss = None
         if self.clip_ctx is not None and a.clip_loss_w:
@@ -266,7 +293,7 @@ class AsyrpRunner:
             return tr.default_loss(x0_t, x0_t_origin, x0, l1_w=a.l1_loss_w, cosine=cosine,
                                    extra=extra_loss)
 
-        optimizer = tr.make_optimizer(block.parameters(), a.lr_training)
+        optimizer = tr.make_optimizer(trainable, a.lr_training)
         pairs = self.get_pairs(model, "train")
         if getattr(a, "just_precompute", False):
             log.info("pre-computed done.")
@@ -300,21 +327,23 @@ class AsyrpRunner:
         use_origin_cache = n_outer > 1 and origin_bytes <= _ORIGIN_CACHE_BYTES
         step = tr.make_train_step(self.spec, self.schedule, seq_train, t_edit=self.t_edit,
                                   loss_fn=loss_fn, compute_dtype=self.compute_dtype,
-                                  ignore_timesteps=a.ignore_timesteps,
+                                  ignore_timesteps=a.ignore_timesteps, train_target=train_target,
                                   cached_origin=use_origin_cache)
         origin_cache: Dict[int, torch.Tensor] = {}
         if use_origin_cache:
             log.info("origin-trajectory cache ON: %d batch(es) x %d steps (%.0f MB), reused "
                      "across %d outer iterations", n_batches, len(seq_train),
                      origin_bytes / 2**20, n_outer)
-        # timesteps the optimizer edits per batch: blocks gate on t >= t_edit
-        n_edit_steps = sum(1 for t in seq_train if t >= self.t_edit) or 1
+        # timesteps the optimizer edits per batch: every step has a row in
+        # rows mode; blocks gate on t >= t_edit
+        n_edit_steps = (len(seq_train) if train_target == "rows"
+                        else sum(1 for t in seq_train if t >= self.t_edit)) or 1
 
         for it_out in range(a.start_iter_when_you_use_pretrained, a.n_iter):
             save_name = self._ckpt_path(it_out)
             if not a.retrain and os.path.exists(save_name):
                 log.info("%s exists; loading checkpoint and skipping iter", save_name)
-                extra_blocks = self._apply_loaded_delta(block, save_name) or extra_blocks
+                extra_blocks = self._apply_loaded_delta(edit, save_name, seq_train) or extra_blocks
                 continue
             lr = tr.steplr_lr(a.lr_training, it_out, a.scheduler_step_size, a.sch_gamma)
             losses: List[float] = []
@@ -337,7 +366,8 @@ class AsyrpRunner:
                 # the reference checks its counter before incrementing: saves at
                 # batches 0, step, 2*step ...
                 if a.save_checkpoint_during_iter and bi % a.save_checkpoint_step == 0:
-                    self._save_delta(block, extra_blocks, self._ckpt_path(it_out, save_counter))
+                    self._save_delta(edit, extra_blocks, self._ckpt_path(it_out, save_counter),
+                                     seq_train)
                     save_counter += 1
                 if (a.save_train_image and (len(losses) - 1) % a.save_train_image_step == 0
                         and it_out % a.save_train_image_iter == 0):
@@ -356,7 +386,7 @@ class AsyrpRunner:
                           f"({n_edit_steps} edited)")
             log.info("iter %d: mean loss %.4f (lr %.4g%s)", it_out,
                      float(np.mean(losses or [0.0])), lr, timing)
-            self._save_delta(block, extra_blocks, save_name)
+            self._save_delta(edit, extra_blocks, save_name, seq_train)
             if a.save_checkpoint_only_last_iter and it_out > 0:
                 prev = self._ckpt_path(it_out - 1)
                 if os.path.exists(prev):
@@ -372,21 +402,37 @@ class AsyrpRunner:
         return delta_ckpt.convert_delta_block(
             {k: v.detach().cpu().numpy() for k, v in block.state_dict().items()})
 
-    def _save_delta(self, block: torch.nn.Module, extra_blocks, path: str) -> None:
-        """The trained block first, the untrained get_h_num > 1 extras after it."""
-        delta_ckpt.save_delta_checkpoint(
-            path, blocks=[self._block_tree(block)] + list(extra_blocks),
-            flavor=self.spec.delta_flavor)
+    def _row_keys(self, seq_train) -> List[int]:
+        """The timesteps a rows checkpoint is keyed by: the training grid,
+        or 0 alone under --ignore_timesteps."""
+        return [0] if self.args.ignore_timesteps else list(seq_train)
+
+    def _save_delta(self, edit: EditState, extra_blocks, path: str, seq_train) -> None:
+        """Blocks: the trained block first, the untrained get_h_num > 1
+        extras after it. Rows: one NHWC row per key of `_row_keys`."""
+        if edit.mode == "input":
+            rows = rows_to_nhwc(edit.delta_rows)
+            delta_ckpt.save_delta_checkpoint(
+                path, delta_rows={t: rows[i] for i, t in enumerate(self._row_keys(seq_train))})
+        else:
+            delta_ckpt.save_delta_checkpoint(
+                path, blocks=[self._block_tree(edit.blocks[0])] + list(extra_blocks),
+                flavor=self.spec.delta_flavor)
         log.info("saved %s", path)
 
-    def _apply_loaded_delta(self, block: torch.nn.Module, path: str):
-        """Load the checkpoint's first block into the trained `block`;
-        returns the untrained extras saved after it."""
-        loaded = delta_ckpt.load_delta_checkpoint(path)["blocks"]
+    def _apply_loaded_delta(self, edit: EditState, path: str, seq_train):
+        """Load a checkpoint into the trained state in place: its first
+        block into the DeltaBlock, or its rows into `edit.delta_rows`.
+        Returns the untrained block extras saved after the first."""
+        loaded = delta_ckpt.load_delta_checkpoint(path)
         with torch.no_grad():
-            block.load_state_dict(delta_block_state_dict_from_jax(loaded[0],
-                                                                  self.spec.delta_flavor))
-        return loaded[1:]
+            if edit.mode == "input":
+                rows = np.stack([loaded["delta_rows"][t] for t in self._row_keys(seq_train)])
+                edit.delta_rows.copy_(rows_to_nchw(rows))
+                return []
+            edit.blocks[0].load_state_dict(
+                delta_block_state_dict_from_jax(loaded["blocks"][0], self.spec.delta_flavor))
+        return loaded["blocks"][1:]
 
     def _test_sweep(self, model, edit: EditState, seq_test) -> None:
         a = self.args
@@ -401,29 +447,71 @@ class AsyrpRunner:
                            folder=folder, x0=pairs["x0"][ofs: ofs + a.bs_train])
 
     # ------------------------------------------------------------------
-    def save_grid(self, model, edit: EditState, x_lat: np.ndarray, seq, *,
-                  file_name: str, folder: str, x0: Optional[np.ndarray] = None):
+    def save_grid(self, model, edit: Optional[EditState], x_lat: np.ndarray, seq, *,
+                  file_name: str, folder: str, hs_coeff_list: Optional[List] = None,
+                  x0: Optional[np.ndarray] = None, collect_delta: bool = False):
         """One grid: [x0 if --save_x0;] [plain generation if --save_x_origin;]
-        the edited generation."""
+        the edited generation, once per coefficient tuple of `hs_coeff_list`,
+        each pass from the same seeded eta noise, unless --pass_editing.
+        `--save_process_origin` / `--save_process_delta_h` also write the
+        per-step [x; x0_t] frames. With `collect_delta`, returns the
+        per-step Δh [S, B, h, w, C], summed over the coefficient passes."""
         a = self.args
         x_dev = torch.from_numpy(np.ascontiguousarray(x_lat, np.float32)).to(self.device)
         rows: List[np.ndarray] = []
         if a.save_x0 and x0 is not None:
             rows.append(np.asarray(x0))
         if a.save_x_origin:
+            process = getattr(a, "save_process_origin", False)
             gen = self._cached_engine(
                 "gen", tuple(seq), t_addnoise=self.t_addnoise if a.origin_process_addnoise else -1,
-                sample_type=a.sample_type)
-            x, _ = gen(model, x_dev, self._generator())
+                sample_type=a.sample_type, collect=("x", "x0_t") if process else ())
+            x, ys = gen(model, x_dev, self._generator())
             rows.append(x.cpu().numpy())
-        run = self._cached_engine(
-            "edit", tuple(seq), t_edit=self.t_edit, t_addnoise=self.t_addnoise,
-            sample_type=a.sample_type, dt_lambda=a.dt_lambda, dt_end=a.dt_end)
-        x, _ = run(model, edit, x_dev, self._generator())
-        rows.append(x.cpu().numpy())
+            if process:
+                self._dump_process(ys, seq, folder, file_name, "origin")
+
+        harvested = None
+        if not getattr(a, "pass_editing", False) and edit is not None:
+            delta_times = None
+            if edit.mode == "input" and not a.ignore_timesteps:
+                delta_times = tuple(edit.times) if edit.times else tuple(seq)
+            process = getattr(a, "save_process_delta_h", False)
+            collect = (("delta_h",) if collect_delta else ()) + (("x", "x0_t") if process else ())
+            run = self._cached_engine(
+                "edit", tuple(seq), t_edit=self.t_edit, t_addnoise=self.t_addnoise,
+                delta_times=delta_times, ignore_timesteps=a.ignore_timesteps,
+                sample_type=a.sample_type, dt_lambda=a.dt_lambda, dt_end=a.dt_end,
+                collect=collect)
+            for coeff in (list(hs_coeff_list) if hs_coeff_list else [None]):
+                e = edit if coeff is None else dataclasses.replace(
+                    edit, hs_coeff=torch.tensor(coeff, dtype=torch.float32, device=self.device))
+                x, ys = run(model, e, x_dev, self._generator())
+                rows.append(x.cpu().numpy())
+                if collect_delta:
+                    # summed over the coefficient passes; the harvest divides
+                    # by the image count only, as the reference does
+                    h_new = ys["delta_h"].cpu().numpy()
+                    harvested = h_new if harvested is None else harvested + h_new
+                if process:
+                    self._dump_process(ys, seq, folder, file_name, "delta_h")
+
+        if not rows:
+            raise ValueError("nothing to draw: --pass_editing with neither --save_x0 nor "
+                             "--save_x_origin leaves zero grid rows")
         out = os.path.join(folder, f"{file_name}_ngen{a.n_train_step}.png")
         save_image(np.concatenate(rows, axis=0), out, nrow=max(1, x_lat.shape[0]), pm1=True)
         log.info("%s saved (%d rows)", out, len(rows))
+        return harvested
+
+    def _dump_process(self, ys, seq, folder: str, file_name: str, tag: str) -> None:
+        """Per-step [x; x0_t] frames, `{folder}/{file_name}/{tag}_{t}.png`."""
+        out_dir = os.path.join(folder, file_name)
+        os.makedirs(out_dir, exist_ok=True)
+        xs, x0s = ys["x"].cpu().numpy(), ys["x0_t"].cpu().numpy()
+        for i, t in enumerate(generation_table(seq).t):
+            save_image(np.concatenate([xs[i], x0s[i]], axis=0),
+                       os.path.join(out_dir, f"{tag}_{int(t)}.png"), nrow=xs.shape[1], pm1=True)
 
     def _generator(self) -> torch.Generator:
         """The eta noise source of one grid: seeded by --seed on the device."""
@@ -437,38 +525,119 @@ class AsyrpRunner:
                                            compute_dtype=self.compute_dtype, **kw)
         return self._engine_cache[key]
 
+    def _edit_from_rows(self, rows_dict, hs_coeff, seq_test) -> EditState:
+        """An `input`-mode edit from {t: NHWC row}: the rows of the test
+        grid's timesteps, or row 0 alone under --ignore_timesteps."""
+        a = self.args
+        if a.ignore_timesteps:
+            times, rows = None, np.stack([rows_dict[0]])
+        else:
+            times = [t for t in seq_test if t in rows_dict]
+            rows = np.stack([rows_dict[t] for t in times])
+        return EditState(
+            mode="input", delta_rows=rows_to_nchw(rows).to(self.device),
+            hs_coeff=torch.tensor(hs_coeff, dtype=torch.float32, device=self.device),
+            input_style=getattr(a, "delta_injection", "add"), ignore_timestep=a.ignore_timesteps,
+            use_mask=bool(getattr(a, "masked_h", False)), times=tuple(times) if times else None)
+
+    @staticmethod
+    def _remap_rows(rows_dict, seq_train, seq_test_edit):
+        """Rows trained on `seq_train` onto the test grid's edited steps, by
+        the reference's index walk: the walk advances after a test step
+        above the previous training step (diffusion_latent.py:700-723)."""
+        remapped, idx = {}, 0
+        interval = seq_train[1] - seq_train[0] if len(seq_train) > 1 else 0
+        for t in seq_test_edit:
+            remapped[t] = rows_dict[seq_train[idx]]
+            if t > seq_train[idx] - interval and idx < len(seq_train) - 1:
+                idx += 1
+        return remapped
+
     # ------------------------------------------------------------------
     def run_test(self):
         a = self.args
         for flag, off in _UNPORTED_TEST_FLAGS.items():
             if getattr(a, flag, off) not in (off, None, False, 0, ""):
                 raise NotImplementedError(f"--{flag} {_TODO}")
-        if not a.train_delta_block:
-            raise NotImplementedError(
-                f"run_test without --train_delta_block {_TODO}: the port serves DeltaBlock "
-                "checkpoints")
         self.set_interval()
+        seq_train, _ = train_seq(a.n_train_step, a.t_0, self.t_edit)
         seq_test = uniform_seq(a.n_test_step, a.t_0) if a.n_test_step else list(range(0, a.t_0))
+        seq_test_edit = [t for t in seq_test if t >= self.t_edit]
         model = self.load_pretrained()
 
         n_train_eff = a.n_train_step or a.t_0
         n_test_eff = a.n_test_step or a.t_0
         scaling = n_train_eff / n_test_eff * a.hs_coeff_delta_h
-        hs_coeff = (1.0 * a.hs_coeff_origin_h, 1.0 * scaling)
 
         if getattr(a, "manual_checkpoint_name", None):
-            ckpt = os.path.join(self._dir("checkpoint"), a.manual_checkpoint_name)
+            save_names = [os.path.join(self._dir("checkpoint"), a.manual_checkpoint_name)]
         elif getattr(a, "choose_checkpoint_num", None):
-            ckpt = self._ckpt_path(a.n_iter - 1, a.choose_checkpoint_num)
+            save_names = [self._ckpt_path(a.n_iter - 1, a.choose_checkpoint_num)]
         else:
-            ckpt = self._ckpt_path(a.n_iter - 1)
-        if not os.path.exists(ckpt):
-            raise FileNotFoundError(f"checkpoint({ckpt}) does not exist!")
-        edit = EditState(
-            blocks=(self._load_blocks(ckpt),),
-            hs_coeff=torch.tensor(hs_coeff, dtype=torch.float32, device=self.device),
-            flavor=self.spec.delta_flavor, ignore_timestep=a.ignore_timesteps,
-        )
+            save_names = [self._ckpt_path(a.n_iter - 1)]
+
+        if getattr(a, "multiple_attr", None):
+            # one checkpoint per attribute; the interval follows the attribute
+            # whose prompts CLIP finds closest; each Δ is scaled by 1/sqrt(n)
+            attrs = a.multiple_attr.split(" ")
+            coeffs = [1.0] * len(attrs)
+            if getattr(a, "multiple_hs_coeff", None):
+                given = [float(c) for c in a.multiple_hs_coeff.split(" ")]
+                coeffs = given + [1.0] * (len(attrs) - len(given))
+            save_names = [save_names[0].replace("attribute", attr) for attr in attrs]
+            max_cos, max_attr = 0.0, attrs[0]
+            if self.clip_ctx is not None:
+                for attr in attrs:
+                    c = self.clip_ctx.text_cosine(*assets.src_trg_prompts()[attr])
+                    if c > max_cos:
+                        max_cos, max_attr = c, attr
+            self.src_txts, self.trg_txts = assets.src_trg_prompts()[max_attr]
+            self.set_interval()
+            hs_coeff = tuple([1.0 * a.hs_coeff_origin_h]
+                             + [(1.0 / len(attrs) ** 0.5) * scaling * c for c in coeffs])
+        else:
+            hs_coeff = (1.0 * a.hs_coeff_origin_h, 1.0 * scaling)
+
+        edit = None
+        mean_dh_pending = getattr(a, "num_mean_of_delta_hs", 0)
+        latent_path = os.path.join(
+            self._dir("checkpoint_latent"),
+            f"{os.path.split(a.exp)[-1]}_{a.n_test_step}_{mean_dh_pending}.pth")
+        if mean_dh_pending and os.path.isfile(latent_path):
+            edit = self._edit_from_rows(delta_ckpt.load_delta_checkpoint(latent_path)["delta_rows"],
+                                        hs_coeff, seq_test)
+            mean_dh_pending = 0
+        elif os.path.exists(save_names[0]):
+            if a.train_delta_block:
+                edit = EditState(
+                    blocks=tuple(self._load_blocks(name) for name in save_names),
+                    hs_coeff=torch.tensor(hs_coeff, dtype=torch.float32, device=self.device),
+                    flavor=self.spec.delta_flavor, ignore_timestep=a.ignore_timesteps)
+            elif a.train_delta_h:
+                rows_dict = delta_ckpt.load_delta_checkpoint(save_names[0])["delta_rows"]
+                if a.ignore_timesteps:
+                    rows_dict = {0: rows_dict[0]}
+                elif a.n_train_step != a.n_test_step:
+                    rows_dict = self._remap_rows(rows_dict, seq_train, seq_test_edit)
+                edit = self._edit_from_rows(rows_dict, hs_coeff, seq_test)
+            else:
+                raise ValueError(f"checkpoint {save_names[0]} exists but neither "
+                                 "--train_delta_block nor --train_delta_h was passed: the flag "
+                                 "selects how its contents are read")
+        elif mean_dh_pending:
+            raise FileNotFoundError("mean-of-delta-hs requested but no trained checkpoint "
+                                    f"found ({save_names[0]})")
+        else:
+            raise FileNotFoundError(f"checkpoint({save_names[0]}) does not exist!")
+
+        hs_coeff_list = None
+        if getattr(a, "delta_interpolation", False):
+            vals = np.linspace(a.min_delta, a.max_delta, a.num_delta).tolist()
+            if getattr(a, "multiple_attr", None) and len(hs_coeff) == 3:
+                hs_coeff_list = [(1.0, v1 * hs_coeff[1], v2 * hs_coeff[2])
+                                 for v1 in vals for v2 in vals]
+            else:
+                hs_coeff_list = [tuple([1.0] + [v * c for c in hs_coeff[1:]]) for v in vals]
 
         folder = self._dir(os.path.join(a.exp, "test_images", str(a.n_test_step)))
         target_ids = None
@@ -476,8 +645,11 @@ class AsyrpRunner:
             target_ids = [int(i) for i in str(a.target_image_id).split(" ")]
             if a.bs_train != 1:
                 raise ValueError("target_image_id is only supported for bs_train == 1")
+        # the train split first (where the mean-of-Δh harvest runs), then the test split
         splits = ([("train", a.n_train_img)] if a.do_train else []) + (
             [("test", a.n_test_img)] if a.do_test else [])
+        harvest_sum: Optional[np.ndarray] = None
+        n_done = 0
         grid_ms: List[float] = []
         for mode, n_img in splits:
             pairs = self.get_pairs(model, mode)
@@ -489,14 +661,46 @@ class AsyrpRunner:
                 xb = pairs["x_lat"][ofs:ofs + a.bs_train]
                 if xb.shape[0] != a.bs_train:
                     break
+                harvesting = bool(mean_dh_pending) and mode == "train"
                 t0 = time.perf_counter()
-                self.save_grid(model, edit, xb, seq_test,
-                               file_name=f"{mode}_{ofs + a.bs_train - 1}_{a.n_iter - 1}",
-                               folder=folder, x0=pairs["x0"][ofs:ofs + a.bs_train])
+                h = self.save_grid(model, edit, xb, seq_test,
+                                   file_name=f"{mode}_{ofs + a.bs_train - 1}_{a.n_iter - 1}",
+                                   folder=folder, hs_coeff_list=hs_coeff_list,
+                                   x0=pairs["x0"][ofs:ofs + a.bs_train], collect_delta=harvesting)
                 grid_ms.append((time.perf_counter() - t0) * 1e3)
+                if not (harvesting and h is not None):
+                    continue
+                s = h.sum(axis=1)  # [S, h, w, C], summed over the batch
+                harvest_sum = s if harvest_sum is None else harvest_sum + s
+                n_done += xb.shape[0]
+                if n_done >= mean_dh_pending and ofs + a.bs_train >= n_img:
+                    # the reference's loop breaks on the last training image
+                    # before its save (diffusion_latent.py:803-828)
+                    log.warning("mean-of-delta-hs harvest complete but NOT saved: the harvest "
+                                "finished on the last train image and the reference's loop "
+                                "breaks before its save; use --num_mean_of_delta_hs < "
+                                "--n_train_img")
+                    break
+                if n_done >= mean_dh_pending:
+                    # per-timestep mean over the images, then the global mean as row 0
+                    tab = generation_table(seq_test, t_edit=self.t_edit)
+                    per_t = harvest_sum / n_done
+                    active = tab.use_delta > 0
+                    mean_rows = {int(t): per_t[i] for i, t in enumerate(tab.t) if active[i]}
+                    mean_rows[0] = per_t[active].mean(axis=0)
+                    delta_ckpt.save_delta_checkpoint(latent_path, delta_rows=mean_rows)
+                    log.info("mean-of-delta-h saved: %s", latent_path)
+                    mean_dh_pending = 0
+                    # the remaining images are edited with the harvested rows
+                    edit = self._edit_from_rows(mean_rows, hs_coeff, seq_test)
         if grid_ms:
-            log.info("serving on %s: %d grids, first %.1f ms, last %.1f ms (%d-step chain, bs %d)",
-                     self.device, len(grid_ms), grid_ms[0], grid_ms[-1], len(seq_test), a.bs_train)
+            # the first grid carries the warm-up; the steady-state p50 is over the rest
+            steady = sorted(grid_ms[1:] or grid_ms)
+            p50 = steady[len(steady) // 2]
+            log.info("serving on %s: %d grids, first %.1f ms; steady p50 %.1f ms/batch = %.1f "
+                     "ms/image = %.2f ms/gen-step (%d-step chain, bs %d)", self.device,
+                     len(grid_ms), grid_ms[0], p50, p50 / a.bs_train,
+                     p50 / a.bs_train / len(seq_test), len(seq_test), a.bs_train)
         return edit
 
 

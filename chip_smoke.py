@@ -111,7 +111,24 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      2x in bfloat16), where the cotangents reaching K2-bwd-MH must have a
      norm above 0 and a planted fault (D summed over all C instead of the
      head's d) must fail it.
-Every run of a path (phases 4, 7, 8, 9) fails if a K3, K3-bwd or DDPM-step
+  10. the h-rows path and the multi-edit serving modes on `custom.yml`
+     through the port's CLI, in-process, from phase 7's images and latents
+     and the random weights of --seed: (a) `--run_train --train_delta_h
+     --delta_injection add` (phase 7's recipe: CLIP and L1, 40-step grids,
+     t_edit 513, 2 iterations), float32 and --bf16, K1, K1-bwd, K2, K2-bwd,
+     K3 and K3-bwd launched; the float32 run again with the plain versions
+     (rows within 1e-3, their update within 5e-2); one timestep's gradient
+     w.r.t. the t = 999 row, kernels vs plain (1e-3 float32, 2x in bf16);
+     one iteration of `--delta_injection slerp` must save rows bit-identical
+     to the init; (b) `--run_test --train_delta_h` on (a)'s rows at 20 test
+     steps (the train→test remap), add and slerp; (c) `--multiple_attr
+     "smiling angry" --delta_interpolation --num_delta 3` on two seeded
+     blocks: 9 coefficient pairs, one generation each, float32 and bf16,
+     and the float32 sweep again with the plain versions (1e-3), with the
+     wall of each;
+     (d) `--num_mean_of_delta_hs 1` with two training images: finite
+     harvested rows, then the rest served from them.
+Every run of a path (phases 4, 7, 8, 9, 10) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
 off), as the port's runner sets it on CUDA.
@@ -123,6 +140,7 @@ line, which is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import glob
 import itertools
 import json
@@ -1113,7 +1131,7 @@ def main_path_phase(torch, card, log, ws_root):
         for k in ("x_lat", "x_rec"):
             if not np.isfinite(pairs[k]).all():
                 fail(f"serving path ({dname}): non-finite {k}")
-        _, n_grids, first_ms, last_ms, n_chain, _ = log.grids[-1]
+        _, n_grids, first_ms, last_ms, _, _, n_chain, _ = log.grids[-1]  # last: the p50 of the rest
         per_step = last_ms / (2 * n_chain)
         timings[dname] = {"grid_ms_first": first_ms, "grid_ms": last_ms, "ms_per_step": per_step,
                           "run_s": wall}
@@ -1397,8 +1415,8 @@ def train_phase(torch, card, log, ws_root, clip_ckpt: str):
     if rc != 0:
         fail(f"training path (plain versions) exited {rc}")
     plain = trained_block(ws, "plain")
-    whole = block_err(blocks["float32"], plain)
-    update = block_err(minus(blocks["float32"], init), minus(plain, init))
+    whole = tree_err(blocks["float32"], plain)
+    update = tree_err(tree_minus(blocks["float32"], init), tree_minus(plain, init))
     phase(f"  float32 training from the same latents, kernels vs plain versions, max |a - b| / "
           f"max |b| over the whole block: trained block {whole:.3e} (tol {TRAIN_TOL:g}), its "
           f"update from the init {update:.3e} (tol {UPDATE_TOL:g}); plain run {plain_s:.1f} s")
@@ -1503,17 +1521,29 @@ def gate(check, card) -> None:
              f"than {BF16_GRAD_FACTOR:g}x the plain versions' bfloat16 gradient")
 
 
-def minus(a, b):
-    """a - b, leaf by leaf, of two JAX-layout blocks."""
-    return {g: {k: a[g][k] - b[g][k] for k in b[g]} for g in b}
+def leaves(tree, prefix: str = ""):
+    """{path: array} of a nested dict of arrays (a JAX-layout block, or rows by timestep)."""
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(leaves(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
 
 
-def block_err(a, b) -> float:
-    """max |a - b| / max |b| over all leaves of two JAX-layout blocks."""
+def tree_err(a, b) -> float:
+    """max |a - b| / max |b| over the leaves of two trees of one layout."""
     import numpy as np
 
-    diff = max(float(np.abs(a[g][k] - b[g][k]).max()) for g in b for k in b[g])
-    return diff / max(float(np.abs(b[g][k]).max()) for g in b for k in b[g])
+    la, lb = leaves(a), leaves(b)
+    diff = max(float(np.abs(la[k] - lb[k]).max()) for k in lb)
+    return diff / max(float(np.abs(v).max()) for v in lb.values())
+
+
+def tree_minus(a, b):
+    """a - b, leaf by leaf."""
+    la = leaves(a)
+    return {k: la[k] - v for k, v in leaves(b).items()}
 
 
 def fmt(errs_by_leaf) -> str:
@@ -1801,7 +1831,7 @@ def afhq_phase(torch, card, log, root: str, model_path: str):
         for k in ("x_lat", "x_rec"):
             if not np.isfinite(pairs[k]).all():
                 fail(f"AFHQ serving path ({label}): non-finite {k}")
-        _, n_grids, first_ms, last_ms, n_chain, _ = log.grids[-1]
+        _, n_grids, first_ms, last_ms, _, _, n_chain, _ = log.grids[-1]  # last: the p50 of the rest
         per_step = last_ms / (2 * n_chain)
         timings[label] = {"grid_ms_first": first_ms, "grid_ms": last_ms, "ms_per_step": per_step,
                           "run_s": wall}
@@ -1811,6 +1841,370 @@ def afhq_phase(torch, card, log, root: str, model_path: str):
               f"1): first {first_ms:.1f} ms, second {last_ms:.1f} ms = {per_step:.2f} ms/step; "
               f"whole CLI run incl. loading and 2x{steps}+{steps} precompute steps {wall:.1f} s")
     return timings, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the h-rows path and the multi-edit serving modes
+# ---------------------------------------------------------------------------
+
+ROWS_TEST_STEPS = 20  # phase 10's serving grid: not the training grid, so rows are remapped
+SWEEP_ATTRS = ("smiling", "angry")
+
+
+def rows_argv(ws: str, imgs: str, clip_ckpt: str, exp: str, model_path: str, bf16: bool = False,
+              extra=()):
+    """Phase 7's training recipe with the per-timestep Δh rows
+    (`--train_delta_h --delta_injection add`) as the trainable, from the
+    random weights of --seed written once to `model_path`."""
+    argv = train_argv(ws, imgs, clip_ckpt, exp, bf16,
+                      ["--delta_injection", "add", "--model_path", model_path, *extra])
+    argv[argv.index("--train_delta_block")] = "--train_delta_h"
+    argv.remove("--allow_random_weights")
+    return argv
+
+
+def trained_rows(ws: str, exp: str, it: int = 1):
+    from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint
+
+    path = os.path.join(ws, "checkpoint", f"{exp}_LC_CUSTOM_t999_ninv{STEPS}_ngen{STEPS}_{it}.pth")
+    if not os.path.exists(path):
+        fail(f"rows training wrote no checkpoint {path}")
+    return load_delta_checkpoint(path)["delta_rows"]
+
+
+def rows_run(torch, card, log, argv, ws: str, exp: str, what: str, init, it: int = 1):
+    """One `--run_train --train_delta_h` run through the port's CLI,
+    in-process, with the launch counters zeroed just before it and read just
+    after: rc 0, every training kernel launched, finite losses, finite rows
+    moved from `init`. Returns (results, trained rows)."""
+    import numpy as np
+
+    from asyrp_official_torch.cli.main import main as cli_main
+
+    zero_counters()
+    n_logs = len(log.iters)
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    counts = counters()
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    require_launches(counts, TRAIN_KERNELS, what)
+    rows = trained_rows(ws, exp, it)
+    if sorted(rows) != sorted(init) or not all(np.isfinite(v).all() for v in rows.values()):
+        fail(f"{what}: rows {sorted(rows)} (want {sorted(init)}) or non-finite values")
+    moved = max(float(np.abs(rows[t] - init[t]).max()) for t in init)
+    losses = [float(re.search(r"mean loss (\S+)", m).group(1)) for m in log.iters[n_logs:]]
+    if not losses or not all(np.isfinite(losses)):
+        fail(f"{what}: losses {losses}")
+    timing = re.search(r"([\d.]+) ms/batch -> ([\d.]+) ms/edit-timestep", log.iters[-1])
+    res = {"rc": rc, "losses": losses, "run_s": wall, "launches": counts,
+           "rows_max_abs_change": moved, "ms_per_batch": float(timing.group(1)),
+           "ms_per_edit_timestep": float(timing.group(2))}
+    phase(f"  {what} on {card}: rc 0, losses per iteration {losses}, {len(rows)} rows moved by "
+          f"up to {moved:.3e}; {timing.group(1)} ms/batch -> {timing.group(2)} ms per edited "
+          f"timestep; launches {counts}; whole CLI run {wall:.1f} s")
+    return res, rows
+
+
+def rows_gradient_check(torch, argv, init):
+    """One edited timestep's (t = 999) gradient with respect to the Δh rows
+    (the CLIP term plus a fixed random linear functional of x0_t, as
+    `gradient_check`), kernels vs plain versions, float32 and bfloat16, from
+    the float32 run's latents; every row but 999's must get exactly 0."""
+    import numpy as np
+
+    from asyrp_official_torch.cli.main import build_contexts, build_parser, load_config
+    from asyrp_official_torch.core.schedule import train_seq
+    from asyrp_official_torch.losses.clip_loss import train_clip_term
+    from asyrp_official_torch.models.delta import EditState, rows_to_nchw
+    from asyrp_official_torch.ops import ddim_step as k3
+    from asyrp_official_torch.runner import AsyrpRunner
+
+    args = build_parser().parse_args(argv)
+    dev = torch.device(DEVICE)
+    ctx = build_contexts(args, dev)
+    runner = AsyrpRunner(args, load_config(CONFIG), clip_ctx=ctx, work_dir=args.work_dir)
+    runner.set_interval()
+    spec, model = runner.spec, runner.load_pretrained()
+    pairs = runner.get_pairs(model, "train")
+    x = torch.from_numpy(pairs["x_lat"][:1]).to(dev)
+    x0 = torch.from_numpy(pairs["x0"][:1]).to(dev)
+    seq, seq_next = train_seq(STEPS, 999, T_EDIT)
+    acp = torch.from_numpy(runner.schedule.alphas_cumprod_ext).to(dev)
+    t_b = torch.full((1,), 999.0, device=dev)
+    at, at_next = acp[1000].reshape(1), acp[seq_next[-1] + 1].reshape(1)
+    extra = train_clip_term(ctx, runner.src_txts[0], runner.trg_txts[0], 1.0)
+    cotangent = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    leaf = rows_to_nchw(np.stack([init[t] for t in seq])).to(dev).requires_grad_(True)
+    edit = EditState(mode="input", delta_rows=leaf, hs_coeff=torch.tensor([1.0, 1.0], device=dev),
+                     input_style="add", times=tuple(seq))
+    e = edit.at_step({"use_delta": 1.0, "delta_idx": len(seq) - 1})  # t = 999's row
+
+    def grad(dtype):
+        leaf.grad = None
+        eps, eps_mod, _, _ = spec.apply(model, x.to(dtype), t_b, edit=e, decode_mode="split")
+        _, x0_t = k3.ddim_step(x, eps, eps_mod, at, at_next, 0.0)
+        ((x0_t * cotangent).mean() + extra(x0, x0_t)).backward()
+        g = leaf.grad.float()
+        if g[:-1].abs().max() != 0:
+            fail("the rows gradient of t = 999 reached another timestep's row")
+        return g[-1].cpu().numpy()
+
+    def rel(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counters()
+        kernels = grad(torch.float32)
+        launches = counters()
+        kernels_bf = grad(torch.bfloat16)
+        with plain_versions():
+            plain, plain_bf = grad(torch.float32), grad(torch.bfloat16)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return {"float32": rel(kernels, plain), "bfloat16": {"kernels": rel(kernels_bf, plain),
+                                                         "plain": rel(plain_bf, plain)},
+            "grad_norm": float(np.linalg.norm(plain)), "launches": launches}
+
+
+def rows_serve_argv(ws: str, imgs: str, model_path: str, exp: str, extra=()):
+    return ["--config", CONFIG, "--exp", os.path.join(ws, "runs", exp), "--run_test",
+            "--edit_attr", "smiling", "--model_path", model_path, "--device", DEVICE,
+            "--custom_train_dataset_dir", imgs, "--custom_test_dataset_dir", imgs,
+            "--work_dir", ws, "--n_inv_step", str(STEPS), "--n_train_step", str(STEPS),
+            "--n_test_step", str(ROWS_TEST_STEPS), "--n_iter", "2", "--bs_train", "1",
+            "--n_train_img", "2", "--n_test_img", "1", "--user_defined_t_edit", str(T_EDIT),
+            "--user_defined_t_addnoise", str(T_ADDNOISE), "--seed", str(SEED), "--ni", *extra]
+
+
+def serve_run(torch, card, log, argv, what: str, kernels=("group_norm", "attention", "ddim_step"),
+              grids=None, plain=False):
+    """One `--run_test` through the port's CLI, in-process, counters zeroed
+    just before and read just after; every grid it writes must be finite.
+    With a list `grids`, each grid's float rows are appended to it as the
+    runner writes them. With `plain`, it runs the plain versions and must
+    launch no kernel. Returns its results."""
+    from unittest import mock
+
+    from asyrp_official_torch import runner
+    from asyrp_official_torch.cli.main import main as cli_main
+
+    def keep(rows, *a, **kw):
+        grids.append(rows)
+        return save_image(rows, *a, **kw)
+
+    save_image = runner.save_image
+    zero_counters()
+    n_logs = len(log.grids)
+    t0 = time.perf_counter()
+    patch = (mock.patch.object(runner, "save_image", keep) if grids is not None
+             else contextlib.nullcontext())
+    with patch, plain_versions() if plain else contextlib.nullcontext():
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    counts = counters()
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    require_launches(counts, kernels, what)
+    if plain and any(counts.values()):
+        fail(f"{what} launched a kernel: {counts}")
+    if len(log.grids) != n_logs + 1:
+        fail(f"{what}: no serving record")
+    _, n_grids, first_ms, p50_ms, _, _, n_chain, _ = log.grids[-1]
+    res = {"rc": rc, "grids": n_grids, "grid_ms_first": first_ms, "grid_ms_p50": p50_ms,
+           "chain_steps": n_chain, "run_s": wall, "launches": counts}
+    phase(f"  {what} on {card}: rc 0, {n_grids} grid(s), first {first_ms:.1f} ms, p50 "
+          f"{p50_ms:.1f} ms per grid ({n_chain}-step chain); launches {counts}; whole CLI run "
+          f"{wall:.1f} s")
+    return res
+
+
+def grid_files(ws: str, exp: str):
+    from PIL import Image
+    import numpy as np
+
+    root = os.path.join(ws, "runs", f"{exp}_LC_CUSTOM_t999_ninv{STEPS}_ngen{STEPS}")
+    out = {}
+    for r, _, fs in os.walk(root):
+        for f in fs:
+            if f.endswith(".png"):
+                out[f] = np.asarray(Image.open(os.path.join(r, f)))
+    return out
+
+
+def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
+    """Phase 10: (a) Δh-rows training, float32 and bf16, the float32 run
+    again with the plain versions, one timestep's rows gradient, and the dead
+    slerp injection; (b) rows serving on a 20-step grid (the train→test
+    remap), add and slerp; (c) the 9-pair multi-attribute sweep, float32
+    and bf16, and the float32 sweep with the plain versions; (d) the
+    mean-of-Δh harvest. Every run reuses phase 7's images and latents."""
+    import numpy as np
+
+    from asyrp_official_torch.cli.main import load_config, main as cli_main
+    from asyrp_official_torch.compat import save_delta_checkpoint
+    from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint
+    from asyrp_official_torch.core.schedule import train_seq
+    from asyrp_official_torch.models.delta import delta_block_init
+    from asyrp_official_torch.models.registry import spec_from_config
+    from asyrp_official_torch.utils import hostrng
+
+    t_phase = time.perf_counter()
+    imgs = os.path.join(ws_root, "train", "imgs")
+    cache = os.path.join(ws_root, "train", "float32", "precomputed")
+    root = os.path.join(ws_root, "rows")
+    spec = spec_from_config(load_config(CONFIG))
+    model_path = os.path.join(root, "unet_random.pt")
+    os.makedirs(root)
+    torch.save(spec.state_dict_from_jax(spec.init(hostrng.PRNGKey(SEED))), model_path)
+    seq = train_seq(STEPS, 999, T_EDIT)[0]
+    hw = spec.bottleneck_hw
+    draw = np.float32(0.2) * hostrng.normal(hostrng.PRNGKey(SEED),
+                                            (len(seq), hw, hw, spec.bottleneck_ch))
+    init = {t: draw[i] for i, t in enumerate(seq)}
+
+    def workspace(name):
+        ws = os.path.join(root, name)
+        shutil.copytree(cache, os.path.join(ws, "precomputed"))
+        return ws
+
+    out = {"launches": {}}
+    phase(f"  (a) --run_train --train_delta_h --delta_injection add: {len(seq)} rows of "
+          f"[{hw}, {hw}, {spec.bottleneck_ch}], 2 images, 2 iterations")
+    rows = {}
+    for dname in DTYPES:
+        ws = workspace(f"train_{dname}")
+        extra = () if dname == "float32" else ("--do_test", "0")
+        out[dname], rows[dname] = rows_run(
+            torch, card, log, rows_argv(ws, imgs, clip_ckpt, f"rows_{dname}", model_path,
+                                        dname == "bfloat16", extra),
+            ws, f"rows_{dname}", f"rows training {dname}", init)
+    out["launches"]["rows training float32"] = out["float32"]["launches"]
+    ws = workspace("train_plain")
+    t0 = time.perf_counter()
+    before = counters()
+    with plain_versions():
+        rc = cli_main(rows_argv(ws, imgs, clip_ckpt, "plain", model_path,
+                                extra=("--do_test", "0", "--save_train_image", "0")))
+    if rc != 0 or counters() != before:
+        fail(f"rows training with the plain versions: rc {rc}, or it launched a kernel")
+    plain = trained_rows(ws, "plain")
+    whole = tree_err(rows["float32"], plain)
+    update = tree_err(tree_minus(rows["float32"], init), tree_minus(plain, init))
+    phase(f"  float32 rows training, kernels vs plain versions, max |a - b| / max |b| over all "
+          f"rows: trained rows {whole:.3e} (tol {TRAIN_TOL:g}), their update {update:.3e} (tol "
+          f"{UPDATE_TOL:g}); plain run {time.perf_counter() - t0:.1f} s")
+    if whole > TRAIN_TOL or update > UPDATE_TOL:
+        fail(f"rows trained with the kernels disagree with the plain run: {whole:.3e}, "
+             f"{update:.3e}")
+    check = rows_gradient_check(torch, rows_argv(os.path.join(root, "train_float32"), imgs,
+                                                 clip_ckpt, "rows_float32", model_path), init)
+    bf = check["bfloat16"]
+    phase(f"  one edited timestep's gradient w.r.t. the t = 999 row (norm "
+          f"{check['grad_norm']:.3e}), max |a - b| / max |b|: float32 kernels vs plain "
+          f"{check['float32']:.3e} (tol {GRAD_TOL:g}); bfloat16 against the float32 plain: "
+          f"kernels {bf['kernels']:.3e}, plain {bf['plain']:.3e} (tol {BF16_GRAD_FACTOR:g}x); "
+          f"launches {check['launches']}")
+    if check["float32"] > GRAD_TOL or bf["kernels"] > BF16_GRAD_FACTOR * bf["plain"]:
+        fail(f"the rows gradient with the kernels disagrees with the plain one: {check}")
+    out["float32_vs_plain"] = {"rows_rel_err": whole, "update_rel_err": update}
+    out["gradient_check"] = check
+    ws = workspace("train_slerp")
+    rc = cli_main(rows_argv(ws, imgs, clip_ckpt, "slerp", model_path, extra=(
+        "--delta_injection", "slerp", "--n_iter", "1", "--do_test", "0", "--save_train_image",
+        "0")))
+    dead = trained_rows(ws, "slerp", it=0) if rc == 0 else {}
+    same = sorted(dead) == sorted(init) and all(
+        np.isfinite(dead[t]).all() and np.array_equal(dead[t], init[t]) for t in init)
+    phase(f"  --delta_injection slerp, 1 iteration (hs_coeff [1, 1]: t = 0, a dead mode): rc {rc}, "
+          f"saved rows bit-identical to the init and finite: {same}")
+    if not same:
+        fail("the slerp rows training moved its rows or made them non-finite")
+
+    phase(f"  (b) --run_test --train_delta_h on (a)'s float32 rows, {ROWS_TEST_STEPS}-step grid "
+          f"(remapped from the {STEPS}-step training grid)")
+    ws = os.path.join(root, "train_float32")
+    for inj in ("add", "slerp"):
+        res = serve_run(torch, card, log, rows_serve_argv(
+            ws, imgs, model_path, f"serve_{inj}", (
+                "--train_delta_h", "--delta_injection", inj, "--do_train", "0",
+                "--manual_checkpoint_name",
+                f"rows_float32_LC_CUSTOM_t999_ninv{STEPS}_ngen{STEPS}_1.pth")),
+            f"rows serving ({inj}) float32")
+        grids = grid_files(ws, f"serve_{inj}")
+        if len(grids) != 1 or not all(np.isfinite(g).all() for g in grids.values()):
+            fail(f"rows serving ({inj}): grids {sorted(grids)}")
+        out[f"serve_{inj}"] = res
+        out["launches"][f"rows serving {inj} float32"] = res["launches"]
+
+    phase(f"  (c) --run_test --train_delta_block --multiple_attr \"{' '.join(SWEEP_ATTRS)}\" "
+          f"--delta_interpolation --num_delta 3: 9 coefficient pairs, one generation each")
+    ws = workspace("sweep")
+    for i, attr in enumerate(SWEEP_ATTRS):
+        save_delta_checkpoint(os.path.join(ws, "checkpoint", f"{attr}_sweep.pth"), blocks=[
+            delta_block_init(hostrng.PRNGKey(SEED + 10 + i), spec.bottleneck_ch, spec.temb_ch)])
+
+    def sweep(exp, dtype_flags=()):
+        return rows_serve_argv(ws, imgs, model_path, exp, (
+            "--train_delta_block", "--manual_checkpoint_name", "attribute_sweep.pth",
+            "--multiple_attr", " ".join(SWEEP_ATTRS), "--delta_interpolation", "--num_delta", "3",
+            "--do_train", "0", *dtype_flags))
+
+    rows = {}
+    for dname in DTYPES:
+        rows[dname] = []
+        res = serve_run(torch, card, log,
+                        sweep(f"sweep_{dname}", ["--bf16"] * (dname != "float32")),
+                        f"9-pair sweep {dname}", grids=rows[dname])
+        (grid,) = grid_files(ws, f"sweep_{dname}").values()
+        if grid.shape != (9 * (IMAGE + 1) + 1, IMAGE + 2, 3) or len(rows[dname]) != 1:
+            fail(f"9-pair sweep {dname}: grid {grid.shape}, {len(rows[dname])} grids")
+        out[f"sweep_{dname}"] = res
+        out["launches"][f"9-pair sweep {dname}"] = res["launches"]
+    # the float32 sweep with the plain versions, same inputs
+    plain = []
+    res = serve_run(torch, card, log, sweep("sweep_plain"), "9-pair sweep float32, plain versions",
+                    kernels=(), grids=plain, plain=True)
+    (kern,), (ref,) = rows["float32"], plain
+    err = float(np.abs(kern - ref).max() / np.abs(ref).max())
+    walls = {k: out[f"sweep_{k}"]["grid_ms_p50"] for k in DTYPES}
+    walls["float32 plain"] = res["grid_ms_p50"]
+    phase(f"  9-pair sweep float32, kernels vs plain versions: max |a - b| / max |b| {err:.3e} "
+          f"(tol {CHAIN_TOL:g}); ms per grid of 9 edited {ROWS_TEST_STEPS}-step generations "
+          f"(bs 1): {walls} on {card}")
+    if err > CHAIN_TOL:
+        fail(f"the sweep with the kernels disagrees with the plain versions: {err:.3e}")
+    out["sweep_vs_plain"] = {"rel_err": err, "grid_ms": walls}
+
+    phase("  (d) --num_mean_of_delta_hs 1 on a DeltaBlock, 2 training images, then the test split")
+    ws = workspace("harvest")
+    save_delta_checkpoint(os.path.join(ws, "checkpoint", "harvest.pth"), blocks=[
+        delta_block_init(hostrng.PRNGKey(SEED + 20), spec.bottleneck_ch, spec.temb_ch)])
+    res = serve_run(torch, card, log, rows_serve_argv(
+        ws, imgs, model_path, "harvest", ("--train_delta_block", "--manual_checkpoint_name",
+                                          "harvest.pth", "--num_mean_of_delta_hs", "1",
+                                          "--do_train", "1", "--do_test", "1")),
+        "mean-of-Δh harvest float32")
+    latent = os.path.join(ws, "checkpoint_latent",
+                          f"harvest_LC_CUSTOM_t999_ninv{STEPS}_ngen{STEPS}_{ROWS_TEST_STEPS}_1.pth")
+    if not os.path.exists(latent):
+        fail(f"the harvest wrote no {latent}")
+    mean_rows = load_delta_checkpoint(latent)["delta_rows"]
+    finite = all(np.isfinite(v).all() for v in mean_rows.values())
+    grids = grid_files(ws, "harvest")
+    phase(f"  harvest: {len(mean_rows)} rows saved (t = {sorted(mean_rows)}), finite {finite}, "
+          f"largest |row| {max(float(np.abs(v).max()) for v in mean_rows.values()):.3e}; "
+          f"{len(grids)} grids (the second training image and the test image from the rows)")
+    if not finite or 0 not in mean_rows or len(grids) != 3:
+        fail(f"the harvest: rows {sorted(mean_rows)}, finite {finite}, grids {sorted(grids)}")
+    out["harvest"] = {**res, "rows": len(mean_rows)}
+    out["seconds"] = time.perf_counter() - t_phase
+    phase(f"  phase 10 took {out['seconds']:.1f} s")
+    return out
 
 
 def _ptxas_by_entry(log: str):
@@ -2023,13 +2417,18 @@ def main() -> int:
               "perturbed AFHQ .pt)")
         afhq_training, afhq_train_launches = afhq_train_phase(
             torch, card, log, afhq_root, os.environ["ASYRP_TPU_DATA"], model_path, clip_ckpt)
+        torch.cuda.empty_cache()
+        phase("phase 10: the h-rows path (--train_delta_h) and the multi-edit serving modes "
+              "through the port's CLI (custom.yml 256^2)")
+        rows_multi = rows_phase(torch, card, log, ws_root, clip_ckpt)
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
     runs = {"custom.yml serving float32": serve_launches,
             "custom.yml training float32": train_launches,
             **{f"afhq.yml serving {k}": v for k, v in afhq_launches.items()},
-            "afhq.yml training float32": afhq_train_launches}
+            "afhq.yml training float32": afhq_train_launches,
+            **{f"custom.yml {k}": v for k, v in rows_multi["launches"].items()}}
     afhq_f32, afhq_ddpm = afhq_launches["float32"], afhq_launches["ddpm float32"]
     gn_ref = ("asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
               "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)")
@@ -2111,6 +2510,7 @@ def main() -> int:
                         "chain_rel_err": afhq_chain_err,
                         "launches_per_invert_edit_chain": afhq_per_request,
                         "profile": afhq_profile, "training": afhq_training},
+               "rows_and_multi_edit": rows_multi,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

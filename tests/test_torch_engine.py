@@ -142,11 +142,11 @@ def test_invert_edit_matches_jax(weights):
 
 
 def test_generator_noise_is_split_invariant(weights):
-    """The two-segment chain draws the same eta noise as one segment: a
-    seeded generator gives the split chain and a one-loop chain (every step
-    through the edited callback, gate off below t_edit) the same result."""
+    """The edited chain, which runs the plain decode on gated-off steps,
+    draws the same eta noise as a chain that runs the dual decode at every
+    step (gate off below t_edit): a seeded generator gives both the same
+    result."""
     from asyrp_official_torch.core.sampler import sample_chain
-    from asyrp_official_torch.pipelines.engine import _edited_eps
 
     _, model, _, tedit = weights
     seq = uniform_seq(6, 999)
@@ -154,9 +154,13 @@ def test_generator_noise_is_split_invariant(weights):
     split, _ = tengine.make_edit_generate(SPEC, SCHED, seq, t_edit=T_EDIT, t_addnoise=T_ADDNOISE)(
         model, tedit, x, torch.Generator().manual_seed(3))
     table = generation_table(seq, t_edit=T_EDIT, t_addnoise=T_ADDNOISE)
+
+    def dual(x, t, aux):
+        eps, eps_mod, _, _ = SPEC.apply(model, x, t, edit=tedit.at_step(aux))
+        return eps.float(), eps_mod.float()
+
     with torch.no_grad():
-        whole, _ = sample_chain(_edited_eps(SPEC, model, tedit, torch.float32), SCHED,
-                                table, x, torch.Generator().manual_seed(3))
+        whole, _ = sample_chain(dual, SCHED, table, x, torch.Generator().manual_seed(3))
     close_to_scale(whole.numpy(), split.numpy(), "split vs whole")
 
 

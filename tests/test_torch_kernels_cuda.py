@@ -598,3 +598,180 @@ def test_step_kernels_take_per_sample_tensors_of_any_dtype_and_place(cuda_device
     close_to_scale(kddpm.ddpm_step_plain(*args).cpu().numpy(), kddpm.ddpm_step(*args).cpu().numpy(),
                    "ddpm, CPU, f64 and integer per-sample tensors", bound=1e-6)
     assert kddpm.ddpm_step.launches == n + 1
+
+
+# ---------------------------------------------------------------------------
+# the h-rows path on the full-width CelebA-HQ DDPM++ UNet (the seeded random
+# init of `--allow_random_weights`): one input-mode edited eval and one rows-training timestep's
+# gradient, kernels against the plain versions. Float32 within 1e-3 of scale
+# (the UNet's ~30 normalized layers carry K1's and K2's 1e-5); bfloat16 no
+# farther from the float32 plain result than 2x the plain versions in bf16.
+# ---------------------------------------------------------------------------
+
+
+def _plain_versions():
+    from contextlib import ExitStack
+    from unittest import mock
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(k1, "group_norm", k1.group_norm_plain))
+    stack.enter_context(mock.patch.object(k2, "attention", k2.attention_plain))
+    stack.enter_context(mock.patch.object(k3, "ddim_step", k3.ddim_step_plain))
+    return stack
+
+
+@pytest.fixture(scope="module")
+def celeba():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    from asyrp_official_torch.core.schedule import make_schedule
+    from asyrp_official_torch.models import delta
+    from asyrp_official_torch.models.registry import resolve
+    from asyrp_official_torch.utils import hostrng
+
+    dev = torch.device("cuda")
+    spec = resolve("CelebA_HQ")
+    model = spec.build()
+    model.load_state_dict(spec.state_dict_from_jax(spec.init(hostrng.PRNGKey(0))))
+    model = model.to(dev).eval().requires_grad_(False)
+    g = torch.Generator(device=dev).manual_seed(40)
+    hw, ch = spec.bottleneck_hw, spec.bottleneck_ch
+    rows = 0.2 * torch.randn(3, ch, hw, hw, generator=g, device=dev)
+    x = torch.randn(1, 256, 256, 3, generator=g, device=dev)
+    acp = torch.from_numpy(make_schedule().alphas_cumprod_ext).to(dev)
+    # full-f32 convolutions and matmuls, as the port's runner sets them on CUDA
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield dict(spec=spec, model=model, delta=delta, rows=rows, x=x, t=torch.full((1,), 999.0,
+               device=dev), at=acp[1000].reshape(1), at_next=acp[975].reshape(1),
+               cot=torch.randn(x.shape, generator=g, device=dev))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _two_dtypes(fn, check):
+    """fn(dtype) with the kernels and with the plain versions, cuDNN
+    deterministic: float32 within 1e-3; bf16 kernels within 2x the plain
+    bf16 distance from the float32 plain result."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        kern, kern_bf = fn(torch.float32), fn(torch.bfloat16)
+        with _plain_versions():
+            plain, plain_bf = fn(torch.float32), fn(torch.bfloat16)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    close_to_scale(plain.cpu().numpy(), kern.cpu().numpy(), f"{check} float32", bound=1e-3)
+    scale = plain.abs().max()
+    kern_err = float((kern_bf.float() - plain).abs().max() / scale)
+    plain_err = float((plain_bf.float() - plain).abs().max() / scale)
+    assert kern_err <= 2.0 * plain_err, (check, kern_err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("style", ["add", "slerp"])
+def test_input_mode_edited_eval_kernels_match_plain(celeba, style):
+    s = celeba
+    edit = s["delta"].EditState(mode="input", delta_rows=s["rows"], input_style=style,
+                                hs_coeff=torch.tensor([0.9, 1.2], device=s["x"].device),
+                                delta_idx=2)
+    launched = k1.group_norm.launches, k2.attention.launches
+
+    @torch.no_grad()
+    def eps_mod(dtype):
+        return s["spec"].apply(s["model"], s["x"].to(dtype), s["t"], edit=edit)[1].float()
+
+    _two_dtypes(eps_mod, f"eps_mod ({style})")
+    assert k1.group_norm.launches > launched[0] and k2.attention.launches > launched[1]
+
+
+def _gn_exact(x, weight, bias, *, groups=32, eps=1e-6, silu=False, pre_add=None,
+              scale_shift=None):
+    """K1's math in x's dtype throughout (the plain version computes in f32)."""
+    def per_channel(t):
+        return t.reshape(t.shape[:2] + (1,) * (x.dim() - 2))
+
+    if pre_add is not None:
+        x = x + per_channel(pre_add)
+    y = torch.nn.functional.group_norm(x, groups, weight.to(x.dtype), bias.to(x.dtype), eps)
+    if scale_shift is not None:
+        scale, shift = (per_channel(t) for t in scale_shift.chunk(2, dim=1))
+        y = y * (1.0 + scale) + shift
+    return torch.nn.functional.silu(y) if silu else y
+
+
+@pytest.fixture(scope="module")
+def celeba_torch_init(celeba):
+    """`celeba` with torch's default init of the UNet, seeded: smaller
+    activations than the seeded JAX-style init, and a rows gradient whose
+    largest entry is some 1e-5."""
+    torch.manual_seed(0)
+    model = celeba["spec"].build().to(celeba["x"].device).eval().requires_grad_(False)
+    return {**celeba, "model": model}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init,tf32", [("seeded", False), ("torch_default", False),
+                                       ("torch_default", True)])
+def test_rows_training_gradient_kernels_match_plain(request, init, tf32):
+    """One edited timestep's gradient w.r.t. the stacked rows: only the
+    step's row gets one, through K1-bwd, K2-bwd and K3-bwd. A float64
+    witness (the same composition in float64: torch's GroupNorm, the plain
+    attention, the DDIM step's x0 formula) is the truth both float32
+    results are held to: the kernels may be at most 2x as far from it as
+    the plain versions are. `tf32` runs the float32 convolutions in TF32
+    (torch's default for cuDNN; the port's runner turns it off). At the
+    seeded init the kernels are also held within 1e-3 of the plain versions
+    (2x in bf16), as everywhere else."""
+    import copy
+    from contextlib import ExitStack
+    from unittest import mock
+
+    s = request.getfixturevalue("celeba" if init == "seeded" else "celeba_torch_init")
+    leaf = s["rows"].clone().requires_grad_(True)
+    launched = (k1.group_norm.bwd_launches, k2.attention.bwd_launches, k3.ddim_step.bwd_launches)
+
+    def grad(dtype, leaf=leaf, model=s["model"], exact=False):
+        edit = s["delta"].EditState(mode="input", delta_rows=leaf, input_style="add",
+                                    hs_coeff=torch.tensor([1.0, 1.0], device=leaf.device))
+        e = edit.at_step({"use_delta": 1.0, "delta_idx": 1})
+        leaf.grad = None
+        x = s["x"].to(dtype)
+        eps, eps_mod, _, _ = s["spec"].apply(model, x, s["t"], edit=e, decode_mode="split")
+        if exact:
+            at = s["at"].to(dtype).reshape(1, 1, 1, 1)
+            x0_t = (x - eps_mod * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+        else:
+            _, x0_t = k3.ddim_step(s["x"], eps, eps_mod, s["at"], s["at_next"], 0.0)
+        (x0_t * s["cot"].to(x0_t.dtype)).mean().backward()
+        assert not leaf.grad[0].any() and not leaf.grad[2].any()
+        return leaf.grad[1]
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.backends.cudnn.allow_tf32 = tf32
+        kern = grad(torch.float32).float()
+        with _plain_versions():
+            plain = grad(torch.float32).float()
+        torch.backends.cudnn.allow_tf32 = False
+        with ExitStack() as stack:
+            stack.enter_context(mock.patch.object(k1, "group_norm", _gn_exact))
+            stack.enter_context(mock.patch.object(k2, "attention", k2.attention_plain))
+            leaf64 = s["rows"].double().requires_grad_(True)
+            truth = grad(torch.float64, leaf64, copy.deepcopy(s["model"]).double(), exact=True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.backends.cudnn.allow_tf32 = False  # as the `celeba` fixture set it
+    scale = float(truth.abs().max())
+
+    def dist(a, b):
+        return float((a.double() - b.double()).abs().max()) / scale
+
+    readings = {"init": init, "tf32": tf32, "grad_max": scale, "kernels_vs_plain": dist(kern, plain),
+                "kernels_vs_f64": dist(kern, truth), "plain_vs_f64": dist(plain, truth)}
+    print("rows gradient", readings)
+    assert readings["kernels_vs_f64"] <= 2.0 * readings["plain_vs_f64"], readings
+    if init == "seeded":
+        _two_dtypes(grad, "rows gradient")
+    assert (k1.group_norm.bwd_launches > launched[0] and k2.attention.bwd_launches > launched[1]
+            and k3.ddim_step.bwd_launches > launched[2])

@@ -169,7 +169,7 @@ def test_apply_edit_casts_coefficients_to_bf16():
 
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdelta.apply_edit(tdelta.EditState(mode="input"), torch.zeros(1, 8, 2, 2), None)
+        tdelta.apply_edit(tdelta.EditState(mode="global"), torch.zeros(1, 8, 2, 2), None)
     from asyrp_official_torch.models.registry import resolve
 
     # the OpenAI family serves (its own tests: test_torch_openai.py); the

@@ -553,16 +553,49 @@ def test_cli_serving_ddpm_sample_type(workspace):
     assert len(got) == 2 and all(g.shape == (2 * 33 + 1, 34, 3) for g in got.values())
 
 
-def test_run_train_on_an_openai_config_raises(workspace, tmp_path):
-    """What stays unported on the OpenAI family: `--train_delta_h` rows."""
+def test_run_train_on_an_openai_config_raises(train_setup, workspace, tmp_path):
+    """`--train_delta_h` rows on the OpenAI family: one `make_train_step(
+    train_target="rows")` call (four rows of [16, 16, 64], the L1 and CLIP
+    terms, the learn_sigma split and the 4-head attention backward on the
+    gradient's path) against JAX's, the per-step losses and the rows'
+    update within 1e-4 of scale; every row moved. What stays unported on the family raises:
+    IMAGENET's `--target_class_num`."""
     from asyrp_official_torch.cli.main import build_parser, load_config
     from asyrp_official_torch.runner import AsyrpRunner
 
-    argv = _argv(workspace, tmp_path, "--device", "cpu", "--train_delta_h")
+    s = train_setup
+    seq = train_seq(8, 999, T_EDIT)[0]
+    rows = np.float32(0.2) * np.asarray(jax.random.normal(jax.random.PRNGKey(3), (4, 16, 16, 64)))
+    jedit = jdelta.EditState(mode="input", delta_rows=jnp.asarray(rows),
+                             hs_coeff=jnp.array([1.0, 1.0]), input_style="add", times=tuple(seq))
+    opt = jtr.make_optimizer(LR)
+    jextra = jl.train_clip_term(s["jctx"], "dog", "smiling dog", 1.0)
+    jstep = jtr.make_train_step(
+        s["jspec"], j_make_schedule(), seq, t_edit=T_EDIT, optimizer=opt, train_target="rows",
+        loss_fn=lambda a, b, c: jtr.default_loss(a, b, c, l1_w=3.0, cosine=0.9, extra=jextra))
+    jedit, _, jm_ = jstep(s["params"], jedit, opt.init(jedit.delta_rows), jnp.asarray(s["x_lat"]),
+                          jnp.asarray(s["x0"]), LR)
+    leaf = tdelta.rows_to_nchw(rows).requires_grad_(True)
+    tedit = tdelta.EditState(mode="input", delta_rows=leaf, hs_coeff=torch.tensor([1.0, 1.0]),
+                             input_style="add", times=tuple(seq))
+    textra = pl.train_clip_term(s["pctx"], "dog", "smiling dog", 1.0)
+    tstep = ptr.make_train_step(
+        s["spec"], p_make_schedule(), seq, t_edit=T_EDIT, train_target="rows",
+        loss_fn=lambda a, b, c: ptr.default_loss(a, b, c, l1_w=3.0, cosine=0.9, extra=textra))
+    got = tstep(s["model"], tedit, ptr.make_optimizer([leaf], LR), torch.from_numpy(s["x_lat"]),
+                torch.from_numpy(s["x0"]), LR)
+    close_to_scale(np.asarray(jm_["loss_per_step"]), got["loss_per_step"].numpy(), "losses")
+    want_up = np.asarray(jedit.delta_rows) - rows
+    got_up = tdelta.rows_to_nhwc(leaf) - rows
+    assert all(np.abs(want_up[i]).max() > 0 for i in range(4))
+    close_to_scale(want_up, got_up, "row updates")
+
+    argv = _argv(workspace, tmp_path, "--device", "cpu", "--train_delta_h",
+                 "--target_class_num", "1")
     argv[argv.index("--run_test")] = "--run_train"
     args = build_parser().parse_args(argv)
     runner = AsyrpRunner(args, load_config(args.config), work_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="train_delta_h"):
+    with pytest.raises(NotImplementedError, match="target_class_num"):
         runner.run_training()
 
 

@@ -105,9 +105,10 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--run_train", "--train_delta_h"], ["--lpips"], ["--diff_style"],
-    ["--run_test", "--train_delta_h"], ["--run_test", "--train_delta_block", "--dp", "2"],
-    ["--run_test", "--train_delta_block", "--delta_interpolation"],
+    ["--run_fidelity"], ["--lpips"], ["--diff_style"],
+    ["--run_test", "--train_delta_block", "--target_class_num", "1"],
+    ["--run_test", "--train_delta_block", "--dp", "2"],
+    ["--run_train", "--train_delta_block", "--dp", "2"],
 ])
 def test_cli_unported_modes_exit_1(tmp_path, extra):
     assert _cli(tmp_path, *extra, "--device", "cpu") == 1
