@@ -17,12 +17,31 @@ plus `--device` (default `cuda`), driving the port's AsyrpRunner.
         --n_inv_step 40 --n_test_step 40 \
         --user_defined_t_edit 513 --user_defined_t_addnoise 167 --ni
 
-`--run_train` / `--just_precompute` and `--run_test` are ported; the other
-modes raise NotImplementedError. Like the JAX CLI, every failure after
-argument parsing is logged and returns 1.
+    # the LPIPS calibration stage: the four per-timestep tsvs in {work_dir}/utils/
+    python -m asyrp_official_torch.cli.main --lpips --config custom.yml \
+        --exp ./runs/calib --device cuda --model_path pretrained/celeba_hq.ckpt \
+        --lpips_ckpt pretrained/lpips_alex.npz --custom_train_dataset_dir ./imgs \
+        --n_inv_step 1000 --n_train_img 100 --bs_train 1
+
+    # the fidelity runbook: invert→edit the test images, LPIPS against the
+    # reference's outputs of the same names
+    python -m asyrp_official_torch.cli.main --run_fidelity --train_delta_block \
+        --config custom.yml --exp ./runs/smiling --device cuda \
+        --model_path pretrained/celeba_hq.ckpt --manual_checkpoint_name smiling.pth \
+        --fidelity_ref_dir ./ref_outputs --lpips_ckpt pretrained/lpips_alex.npz \
+        --n_inv_step 40 --n_test_step 40 --user_defined_t_edit 513 \
+        --user_defined_t_addnoise 167 --ni
+
+`--run_train` / `--just_precompute` (with the ID term: `--id_loss_w` and
+`--ir_se50_ckpt`), `--run_test`, `--lpips` and `--run_fidelity` are ported,
+with `--align_face` and `--trace_dir`; `--diff_style` raises
+NotImplementedError. Like the JAX CLI, every failure after argument parsing
+is logged and returns 1.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import logging
 import os
 import random
@@ -37,7 +56,7 @@ from asyrp_official_torch.cli.args import load_config
 
 __all__ = ["build_parser", "build_contexts", "load_config", "main"]
 
-_UNPORTED_MODES = ("lpips", "run_fidelity", "diff_style")
+_UNPORTED_MODES = ("diff_style",)
 
 
 def build_parser():
@@ -50,17 +69,79 @@ def build_parser():
 
 
 def build_contexts(args, device: torch.device):
-    """The CLIP context of `--clip_ckpt` (an OpenAI ViT state dict or
-    TorchScript archive), frozen, on `device`; None without the flag."""
-    if not args.clip_ckpt:
-        return None
+    """The optional loss networks, frozen, on `device`, from user-supplied
+    weights (None for a flag not given): the CLIP context of `--clip_ckpt`
+    (an OpenAI ViT state dict or TorchScript archive), IR-SE50 from
+    `--ir_se50_ckpt` (the reference's `ir_se50.pth`, a strict load) and
+    LPIPS from `--lpips_ckpt` (an npz whose 'params' entry holds the JAX
+    tree of `losses.lpips.params_from_torch`).
+    Returns (clip_ctx, id_net, lpips_net)."""
     from asyrp_official_torch.compat.delta_ckpt import load_state_dict_numpy
-    from asyrp_official_torch.losses import clip_model
-    from asyrp_official_torch.losses.clip_loss import CLIPContext
 
-    model = clip_model.from_state_dict(load_state_dict_numpy(args.clip_ckpt))
-    model = model.to(device).eval().requires_grad_(False)
-    return CLIPContext(model, model.cfg)
+    clip_ctx = id_net = lpips_net = None
+    if args.clip_ckpt:
+        from asyrp_official_torch.losses import clip_model
+        from asyrp_official_torch.losses.clip_loss import CLIPContext
+
+        model = clip_model.from_state_dict(load_state_dict_numpy(args.clip_ckpt))
+        model = model.to(device).eval().requires_grad_(False)
+        clip_ctx = CLIPContext(model, model.cfg)
+    if args.ir_se50_ckpt:
+        from asyrp_official_torch.losses.id_loss import IRSE50
+
+        id_net = IRSE50()  # frozen, in inference mode
+        id_net.load_state_dict({k: torch.as_tensor(v) for k, v in
+                                load_state_dict_numpy(args.ir_se50_ckpt).items()})
+        id_net = id_net.to(device)
+    if args.lpips_ckpt:
+        from asyrp_official_torch.compat.from_jax import lpips_state_dict_from_jax
+        from asyrp_official_torch.losses.lpips import LPIPS
+
+        blob = np.load(args.lpips_ckpt, allow_pickle=True)
+        if "params" not in blob:
+            raise ValueError(
+                f"--lpips_ckpt {args.lpips_ckpt}: expected an npz with a 'params' entry "
+                f"(np.savez(path, params=np.array(tree, dtype=object))); found keys "
+                f"{list(blob.files)} — convert torch lpips weights via "
+                "losses.lpips.params_from_torch")
+        lpips_net = LPIPS()
+        lpips_net.load_state_dict(lpips_state_dict_from_jax(blob["params"].item()))
+        lpips_net = lpips_net.to(device).eval().requires_grad_(False)
+    return clip_ctx, id_net, lpips_net
+
+
+def align_dataset_dirs(args) -> None:
+    """--align_face: FFHQ-align every image of the custom dataset dirs into
+    `{work_dir}/aligned/...` and point the args there, so every later stage
+    reads aligned faces (the reference ships `run_alignment` but never calls
+    it). Needs dlib and its shape predictor (`utils/align.py`)."""
+    from asyrp_official_torch.utils.align import run_alignment
+
+    exts = (".png", ".jpg", ".jpeg", ".webp", ".bmp")
+    done = {}
+    for attr in ("custom_train_dataset_dir", "custom_test_dataset_dir"):
+        src = getattr(args, attr, None)
+        if not src or not os.path.isdir(src):
+            continue
+        key = os.path.abspath(src)
+        if key in done:  # train dir == test dir: align once
+            setattr(args, attr, done[key])
+            continue
+        tag = hashlib.sha1(key.encode()).hexdigest()[:8]
+        dst = os.path.join(args.work_dir or ".", "aligned",
+                           f"{os.path.basename(os.path.normpath(src))}_{tag}")
+        os.makedirs(dst, exist_ok=True)
+        n = 0
+        for name in sorted(os.listdir(src)):
+            if not name.lower().endswith(exts):
+                continue
+            out = os.path.join(dst, name)
+            if not os.path.exists(out):  # idempotent across runs
+                run_alignment(os.path.join(src, name)).save(out)
+            n += 1
+        logging.info("--align_face: %d aligned images: %s -> %s", n, src, dst)
+        done[key] = dst
+        setattr(args, attr, dst)
 
 
 def main(argv=None) -> int:
@@ -82,24 +163,31 @@ def main(argv=None) -> int:
             mode = "test" if args.run_test else "train" if args.run_train else "run"
             base = os.path.basename(args.sh_file_name).split(".")[0]
             shutil.copy(args.sh_file_name, os.path.join(args.exp, f"{base}_{mode}.sh"))
-        for flag in ("align_face", "ir_se50_ckpt", "lpips_ckpt", "trace_dir"):
-            if getattr(args, flag, None):
-                raise NotImplementedError(f"--{flag} is not ported yet (ROADMAP.md Queue 1)")
         for mode in _UNPORTED_MODES:
             if getattr(args, mode, False):
                 raise NotImplementedError(f"--{mode} is not ported yet (ROADMAP.md Queue 1)")
-        if not (args.run_train or args.just_precompute or args.run_test):
-            print("nothing to do: pass --run_train / --run_test")
+        if not (args.run_train or args.just_precompute or args.run_test or args.lpips
+                or args.run_fidelity):
+            print("nothing to do: pass --run_train / --run_test / --lpips / --run_fidelity")
             return 1
+        if getattr(args, "align_face", 0):
+            align_dataset_dirs(args)
 
         from asyrp_official_torch.runner import AsyrpRunner, resolve_device
+        from asyrp_official_torch.utils.profiling import trace
 
-        clip_ctx = build_contexts(args, resolve_device(args.device))
-        runner = AsyrpRunner(args, config, clip_ctx=clip_ctx, work_dir=args.work_dir)
-        if args.run_train or args.just_precompute:
-            runner.run_training()
-        else:
-            runner.run_test()
+        clip_ctx, id_net, lpips_net = build_contexts(args, resolve_device(args.device))
+        runner = AsyrpRunner(args, config, clip_ctx=clip_ctx, id_net=id_net,
+                             lpips_net=lpips_net, work_dir=args.work_dir)
+        with trace(args.trace_dir) if args.trace_dir else contextlib.nullcontext():
+            if args.run_train or args.just_precompute:
+                runner.run_training()
+            elif args.run_test:
+                runner.run_test()
+            elif args.lpips:
+                runner.run_lpips()
+            else:
+                runner.run_fidelity()
     except Exception:
         logging.exception("run failed")
         return 1

@@ -8,7 +8,10 @@ The exact inverse of `asyrp_official_tpu/compat/torch_convert.py`'s
 
 The same bridge loads Δ checkpoints, since
 `compat/delta_ckpt.load_delta_checkpoint` returns JAX-layout blocks, and it
-turns the JAX-layout random init into the port's weights.
+turns the JAX-layout random init into the port's weights. The two loss
+networks cross it too: LPIPS-Alex (the `--lpips_ckpt` npz tree) and IR-SE50
+(BatchNorm mean/var/scale/bias → running_mean/running_var/weight/bias,
+PReLU `a` → weight).
 """
 from __future__ import annotations
 
@@ -18,9 +21,11 @@ import numpy as np
 import torch
 
 from asyrp_official_torch.compat.delta_ckpt import blocks_to_torch_sd
+from asyrp_official_torch.losses.id_loss import IRSE50_BLOCKS
 
 __all__ = ["ddpmpp_state_dict_from_jax", "openai_unet_state_dict_from_jax",
-           "delta_block_state_dict_from_jax"]
+           "delta_block_state_dict_from_jax", "lpips_state_dict_from_jax",
+           "irse50_state_dict_from_jax"]
 
 
 def _conv(p, prefix, out):
@@ -146,3 +151,54 @@ def delta_block_state_dict_from_jax(block: Dict[str, Any], flavor: str = "ddpm"
     """A DeltaBlock tree (JAX layout) → the flavor's DeltaBlock state dict."""
     return _tensors({k: np.asarray(v, np.float32)
                      for k, v in blocks_to_torch_sd(block, flavor).items()})
+
+
+def lpips_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX LPIPS tree ({"convs": [{"w" HWIO, "b"}], "lins": [{"w" [C]}]})
+    → `losses.lpips.LPIPS` state dict."""
+    out: Dict[str, np.ndarray] = {}
+    for i, p in enumerate(params["convs"]):
+        _conv(p, f"convs.{i}", out)
+    for i, p in enumerate(params["lins"]):
+        out[f"lins.{i}"] = np.asarray(p["w"], np.float32)
+    return _tensors(out)
+
+
+def irse50_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX IR-SE50 tree → `losses.id_loss.IRSE50` state dict, under the
+    reference Backbone's key names (the inverse of the JAX
+    `id_loss.params_from_torch`)."""
+    out: Dict[str, np.ndarray] = {}
+
+    def conv(p, prefix):
+        out[f"{prefix}.weight"] = np.transpose(np.asarray(p["w"], np.float32), (3, 2, 0, 1))
+
+    def bn(p, prefix):
+        out[f"{prefix}.running_mean"] = np.asarray(p["mean"], np.float32)
+        out[f"{prefix}.running_var"] = np.asarray(p["var"], np.float32)
+        out[f"{prefix}.weight"] = np.asarray(p["scale"], np.float32)
+        out[f"{prefix}.bias"] = np.asarray(p["bias"], np.float32)
+
+    conv(params["input_conv"], "input_layer.0")
+    bn(params["input_bn"], "input_layer.1")
+    out["input_layer.2.weight"] = np.asarray(params["input_prelu"]["a"], np.float32)
+    for i, (p, (cin, depth, _)) in enumerate(zip(params["body"], IRSE50_BLOCKS)):
+        base = f"body.{i}"
+        bn(p["bn1"], f"{base}.res_layer.0")
+        conv(p["conv1"], f"{base}.res_layer.1")
+        out[f"{base}.res_layer.2.weight"] = np.asarray(p["prelu"]["a"], np.float32)
+        conv(p["conv2"], f"{base}.res_layer.3")
+        bn(p["bn2"], f"{base}.res_layer.4")
+        conv(p["se"]["fc1"], f"{base}.res_layer.5.fc1")
+        conv(p["se"]["fc2"], f"{base}.res_layer.5.fc2")
+        if cin != depth:
+            conv(p["short_conv"], f"{base}.shortcut_layer.0")
+            bn(p["short_bn"], f"{base}.shortcut_layer.1")
+    bn(params["out_bn2d"], "output_layer.0")
+    _lin(params["out_linear"], "output_layer.3", out)
+    bn(params["out_bn1d"], "output_layer.4")
+    sd = _tensors(out)
+    # the BatchNorms' counters, which a strict load expects and eval ignores
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    return sd

@@ -10,15 +10,22 @@ OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device:
     coefficient tuple), the mean-of-Δh harvest
     (`--num_mean_of_delta_hs`), `--load_random_noise` latents, the
     per-step process dumps and `--pass_editing`; `--sample_type ddim` or
-    `ddpm`.
+    `ddpm`;
+  * the ArcFace ID term of the training loss (`--id_loss_w` with an IR-SE50
+    net), anchored to the un-edited x0_t_origin;
+  * `run_lpips`: the LPIPS calibration stage (`--lpips`), which writes the
+    four per-timestep tsvs that `set_interval` reads;
+  * `run_fidelity`: the fidelity runbook (`--run_fidelity`), invert→edit of
+    every test image and, against `--fidelity_ref_dir`, the LPIPS report.
 
-Not ported yet (each raises `NotImplementedError`): the LPIPS stage,
-DiffStyle (`--diff_style`, `--use_mask`), fidelity, the ID loss, IMAGENET's
-`--target_class_num` and the multi-device flags (ROADMAP.md Queue 1).
+Not ported yet (each raises `NotImplementedError`): DiffStyle
+(`--diff_style`, `--use_mask`), IMAGENET's `--target_class_num` and the
+multi-device flags (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -38,7 +45,9 @@ from asyrp_official_torch.models.delta import (EditState, delta_block_from_tree,
                                                rows_to_nchw, rows_to_nhwc)
 from asyrp_official_torch.models.registry import spec_from_config
 from asyrp_official_torch.pipelines import engine, precompute as pc, train as tr
+from asyrp_official_torch.pipelines.fidelity import compare_output_dirs
 from asyrp_official_torch.pipelines.interval import select_interval
+from asyrp_official_torch.pipelines.lpips_stage import compute_lpips_distance
 from asyrp_official_torch.utils import assets, hostrng
 
 log = logging.getLogger(__name__)
@@ -71,7 +80,11 @@ def _route_key(config) -> str:
 
 
 class AsyrpRunner:
-    def __init__(self, args, config: Dict[str, Any], *, clip_ctx=None, work_dir: str = "."):
+    def __init__(self, args, config: Dict[str, Any], *, clip_ctx=None, id_net=None,
+                 lpips_net=None, work_dir: str = "."):
+        """`id_net`: a frozen `losses.id_loss.IRSE50` (the `--id_loss_w`
+        term); `lpips_net`: a `losses.lpips.LPIPS` (`--lpips`, and
+        `--run_fidelity` with a reference dir); both on the run's device."""
         for flag in ("dp", "sp", "tp_spatial"):
             if getattr(args, flag, 0):
                 raise NotImplementedError(f"--{flag}: multi-device runs {_TODO} (M10)")
@@ -92,6 +105,8 @@ class AsyrpRunner:
             var_type=config["model"].get("var_type", "fixedsmall"),
         )
         self.clip_ctx = clip_ctx
+        self.id_net = id_net
+        self.lpips_net = lpips_net
         self.work_dir = work_dir
         self.compute_dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
         # the prompts of --edit_attr, or --src_txts / --trg_txts
@@ -180,6 +195,17 @@ class AsyrpRunner:
         return cosine
 
     # ------------------------------------------------------------------
+    def _datasets(self):
+        """(train, test) datasets of the config, the CUSTOM category reading
+        --custom_train_dataset_dir / --custom_test_dataset_dir."""
+        a, d = self.args, self.config["data"]
+        paths = dict(DATASET_PATHS)
+        if d["category"] == "CUSTOM":
+            paths["custom_train"] = a.custom_train_dataset_dir
+            paths["custom_test"] = a.custom_test_dataset_dir
+        return data.get_dataset(d["dataset"], paths, category=d["category"],
+                                image_size=d["image_size"])
+
     def get_pairs(self, model, mode: str) -> Dict[str, np.ndarray]:
         a = self.args
         d = self.config["data"]
@@ -192,12 +218,7 @@ class AsyrpRunner:
                 category=d["category"], cache_dir=self._dir("precomputed"),
                 saved_noise=getattr(a, "saved_random_noise", False), batch_size=a.bs_train,
                 seed=a.seed, compute_dtype=self.compute_dtype, t_0=a.t_0)
-        paths = dict(DATASET_PATHS)
-        if d["category"] == "CUSTOM":
-            paths["custom_train"] = a.custom_train_dataset_dir
-            paths["custom_test"] = a.custom_test_dataset_dir
-        train_ds, test_ds = data.get_dataset(d["dataset"], paths, category=d["category"],
-                                             image_size=d["image_size"])
+        train_ds, test_ds = self._datasets()
         save_dir = None
         if getattr(a, "save_precomputed_images", False):
             save_dir = self._dir(os.path.join(a.exp, "image_samples"))
@@ -288,6 +309,16 @@ class AsyrpRunner:
 
             extra_loss = train_clip_term(self.clip_ctx, self.src_txts[0], self.trg_txts[0],
                                          a.clip_loss_w)
+        if self.id_net is not None and a.id_loss_w:
+            clip_extra, id_net = extra_loss, self.id_net
+
+            def extra_loss(x0, x0_t, x0_t_origin):  # noqa: F811
+                # the reference anchors identity to the un-edited x0_t_origin,
+                # not to the source image (diffusion_latent.py:346); x0_t's
+                # features are detached, as its IDLoss does
+                out = a.id_loss_w * id_net.id_loss(x0_t.permute(0, 3, 1, 2),
+                                                   x0_t_origin.permute(0, 3, 1, 2)).mean()
+                return out if clip_extra is None else out + clip_extra(x0, x0_t, x0_t_origin)
 
         def loss_fn(x0_t, x0_t_origin, x0):
             return tr.default_loss(x0_t, x0_t_origin, x0, l1_w=a.l1_loss_w, cosine=cosine,
@@ -702,6 +733,102 @@ class AsyrpRunner:
                      len(grid_ms), grid_ms[0], p50, p50 / a.bs_train,
                      p50 / a.bs_train / len(seq_test), len(seq_test), a.bs_train)
         return edit
+
+    # ------------------------------------------------------------------
+    def run_lpips(self) -> Dict[str, Dict[int, float]]:
+        """The LPIPS calibration stage: per-timestep LPIPS(x_t, x0) and
+        LPIPS(x0_t, x0) over a 1000-step (--n_inv_step) inversion of the
+        training images; the four tsvs go to {work_dir}/utils/, where
+        `set_interval` reads them."""
+        a = self.args
+        if self.lpips_net is None:
+            raise RuntimeError("LPIPS weights are required for the calibration stage: pass "
+                               "--lpips_ckpt (an npz of the lpips package's AlexNet + lin "
+                               "weights, converted by losses.lpips.params_from_torch)")
+        model = self.load_pretrained()
+        train_ds, _ = self._datasets()
+        name = getattr(a, "custom_dataset_name", None) or _dataset_key(self.config)
+        # the reference processes n_train_img + 1 images: its loop breaks on
+        # `step == n_train_img` after processing that step
+        # (diffusion_latent.py:1276-1278)
+        return compute_lpips_distance(
+            self.spec, model, self.schedule, train_ds, self.lpips_net,
+            n_img=a.n_train_img + 1, n_inv_step=a.n_inv_step, t_0=a.t_0,
+            batch_size=a.bs_train, out_dir=self._dir("utils"), dataset_name=name,
+            compute_dtype=self.compute_dtype)
+
+    def run_fidelity(self) -> Dict[str, Any]:
+        """The fidelity runbook: invert→edit every test image
+        (`engine.make_invert_edit`, per --bs_train batch) with a trained Δ
+        checkpoint, write `{exp}/fidelity/test_{i}.png`, and, given
+        --fidelity_ref_dir with the reference's outputs under the same
+        names, write the LPIPS report `lpips_report.json` (gate: mean ≤
+        0.01). Every missing artefact is reported at once."""
+        a = self.args
+        missing = []
+        if not getattr(a, "model_path", None) and not getattr(a, "allow_random_weights", False):
+            missing.append("base diffusion ckpt: --model_path <ckpt>")
+        elif getattr(a, "model_path", None) and not os.path.exists(a.model_path):
+            missing.append(f"base diffusion ckpt: --model_path {a.model_path!r} not found")
+        # the precedence of run_test: manual > choose_checkpoint_num > exp name
+        if getattr(a, "manual_checkpoint_name", None):
+            ckpt = os.path.join(self._dir("checkpoint"), a.manual_checkpoint_name)
+        elif getattr(a, "choose_checkpoint_num", None):
+            ckpt = self._ckpt_path(a.n_iter - 1, a.choose_checkpoint_num)
+        else:
+            ckpt = self._ckpt_path(a.n_iter - 1)
+        if not os.path.exists(ckpt):
+            missing.append(f"trained Δ checkpoint: {ckpt} (the reference's released .pth "
+                           "load as they are)")
+        ref_dir = getattr(a, "fidelity_ref_dir", None)
+        if ref_dir and self.lpips_net is None:
+            missing.append("LPIPS weights: --lpips_ckpt (npz converted by "
+                           "losses.lpips.params_from_torch from the lpips package's AlexNet "
+                           "+ lin heads)")
+        if ref_dir and not os.path.isdir(ref_dir):
+            missing.append(f"reference outputs: --fidelity_ref_dir {ref_dir!r} not found")
+        if missing:
+            raise FileNotFoundError("fidelity runbook is missing artifacts:\n  - "
+                                    + "\n  - ".join(missing))
+
+        self.set_interval()
+        model = self.load_pretrained()
+        n_train_eff = a.n_train_step or a.t_0
+        n_test_eff = a.n_test_step or a.t_0
+        scaling = n_train_eff / n_test_eff * a.hs_coeff_delta_h
+        if "blocks" not in delta_ckpt.load_delta_checkpoint(ckpt):
+            raise ValueError("the fidelity runbook expects a DeltaBlock checkpoint "
+                             "(--train_delta_block, the released format)")
+        edit = EditState(
+            blocks=(self._load_blocks(ckpt),),
+            hs_coeff=torch.tensor([1.0 * a.hs_coeff_origin_h, 1.0 * scaling], device=self.device),
+            flavor=self.spec.delta_flavor, ignore_timestep=a.ignore_timesteps)
+        run = engine.make_invert_edit(
+            self.spec, self.schedule, uniform_seq(a.n_inv_step, a.t_0),
+            uniform_seq(a.n_test_step, a.t_0), t_edit=self.t_edit, t_addnoise=self.t_addnoise,
+            compute_dtype=self.compute_dtype)
+        _, test_ds = self._datasets()
+        out_dir = self._dir(os.path.join(a.exp, "fidelity"))
+        n = min(a.n_test_img, len(test_ds))
+        for ofs in range(0, n, a.bs_train):
+            idxs = list(range(ofs, min(ofs + a.bs_train, n)))
+            x0 = torch.from_numpy(np.stack([np.asarray(test_ds[i]) for i in idxs])).to(self.device)
+            out = run(model, edit, x0, self._generator()).cpu().numpy()
+            for k, i in enumerate(idxs):
+                # one H x W image, as torchvision's save_image writes a single
+                # image (the JAX runbook's one-image grid is 8 columns wide)
+                save_image(out[k], os.path.join(out_dir, f"test_{i}.png"), pm1=True)
+        log.info("fidelity outputs: %s (%d images)", out_dir, n)
+        if not ref_dir:
+            return {"out_dir": out_dir, "n": n}
+
+        report = compare_output_dirs(out_dir, ref_dir, self.lpips_net)
+        report_path = os.path.join(out_dir, "lpips_report.json")
+        with open(report_path, "w") as f:
+            json.dump(report, f, indent=1)
+        log.info("fidelity LPIPS mean=%.4f max=%.4f n=%d -> %s (gate: mean <= 0.01)",
+                 report["mean"], report["max"], report["n"], report_path)
+        return report
 
 
 def _dataset_key(config) -> str:

@@ -4,7 +4,10 @@ package's `utils/assets.py`, over the port's own copies of the files in
 
   * src_trg_prompts.json — attribute → (source texts, target texts);
   * clip_templates.json — CLIP prompt-augmentation templates;
-  * calibration_tables.npz — per-timestep LPIPS curves ([N, 2] (t, value)).
+  * calibration_tables.npz — per-timestep LPIPS curves ([N, 2] (t, value));
+
+and the writer of the `--lpips` stage's tsv tables, which `load_lpips_tsv`
+reads back.
 """
 from __future__ import annotations
 
@@ -15,7 +18,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-__all__ = ["ASSETS_DIR", "src_trg_prompts", "clip_templates", "lpips_curve", "load_lpips_tsv"]
+__all__ = ["ASSETS_DIR", "src_trg_prompts", "clip_templates", "lpips_curve", "load_lpips_tsv",
+           "write_lpips_tsv"]
 
 ASSETS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets")
 
@@ -57,3 +61,17 @@ def load_lpips_tsv(path: str) -> Dict[int, float]:
                 t, v = line.split("\t")
                 out[int(t)] = float(v)
     return out
+
+
+def write_lpips_tsv(
+    out_dir: str, dataset: str, curves: Dict[str, Dict[int, float]]
+) -> None:
+    """Write curves in the reference's tsv format (the `--lpips` stage
+    output, diffusion_latent.py:1296-1303) so both frameworks can consume
+    each other's calibration runs."""
+    os.makedirs(out_dir, exist_ok=True)
+    for kind, curve in curves.items():
+        path = os.path.join(out_dir, f"{dataset}_LPIPS_distance_{kind}.tsv")
+        with open(path, "w") as f:
+            for t in curve:
+                f.write(f"{t}\t{curve[t]}\n")

@@ -128,7 +128,26 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      wall of each;
      (d) `--num_mean_of_delta_hs 1` with two training images: finite
      harvested rows, then the rest served from them.
-Every run of a path (phases 4, 7, 8, 9, 10) fails if a K3, K3-bwd or DDPM-step
+  11. M7 on `custom.yml` through the port's CLI, in-process, from phase
+     7's images, phase 10's seeded `.pt` and phase 4's block: (a) the LPIPS
+     calibration stage (`--lpips`, 2 images, a random AlexNet + lin written
+     in the `--lpips_ckpt` npz format) f32 at the recipe's 1000 steps, bf16
+     at 100, f32 at 100 with the kernels and with the plain versions (the
+     four curves within 1e-3 of scale), f32 at `--bs_train 2` over 10 steps
+     (cuDNN's f32 FFT path, recorded, not gated); K1, K2 and K3 launched, K3
+     exactly once per inversion step and batch; the four tsvs with the
+     seq[1:] keys, finite, >= 0; `set_interval` reads the fresh x0_t tsv;
+     (b) phase 7's training recipe plus `--id_loss_w 1 --ir_se50_ckpt` (a
+     random IR-SE50 under the reference's key names), f32 and bf16 (every
+     forward and backward counter > 0), the f32 run against a plain run
+     (1e-3 block, 5e-2 update), one timestep's gradient through ID + CLIP
+     (+ a fixed functional for L1) at 1e-3 f32 and 2x in bf16, the ID
+     term's value and its input gradient > 0 (it reaches no parameter, as
+     in the reference), IR-SE50's device ms per timestep; (c)
+     `--run_fidelity` with phase 4's block: the plain versions' outputs as
+     the reference of the kernels' (mean LPIPS <= 0.01), a self-comparison
+     exactly 0.
+Every run of a path (phases 4, 7-11) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
 off), as the port's runner sets it on CUDA.
@@ -1044,11 +1063,11 @@ def step_rows(torch, dev, randn):
 
 class _RunnerLog(logging.Handler):
     """Collects the runner's per-grid serving records and per-iteration
-    training records."""
+    training records, and the LPIPS stage's per-batch records."""
 
     def __init__(self):
         super().__init__()
-        self.grids, self.iters = [], []
+        self.grids, self.iters, self.lpips = [], [], []
 
     def emit(self, record):
         msg = record.getMessage()
@@ -1056,6 +1075,8 @@ class _RunnerLog(logging.Handler):
             self.grids.append(record.args)
         elif msg.startswith("iter "):
             self.iters.append(msg)
+        elif msg.startswith("lpips chain batch"):
+            self.lpips.append(record.args)
 
 
 def write_images(ws: str, n: int = 2, sub: str = "imgs") -> str:
@@ -1621,7 +1642,7 @@ def gradient_check(torch, argv, config: str, faults):
 
     args = build_parser().parse_args(argv)
     dev = torch.device(DEVICE)
-    ctx = build_contexts(args, dev)
+    ctx, _, _ = build_contexts(args, dev)
     runner = AsyrpRunner(args, load_config(config), clip_ctx=ctx, work_dir=args.work_dir)
     runner.set_interval()
     spec = runner.spec
@@ -1923,7 +1944,7 @@ def rows_gradient_check(torch, argv, init):
 
     args = build_parser().parse_args(argv)
     dev = torch.device(DEVICE)
-    ctx = build_contexts(args, dev)
+    ctx, _, _ = build_contexts(args, dev)
     runner = AsyrpRunner(args, load_config(CONFIG), clip_ctx=ctx, work_dir=args.work_dir)
     runner.set_interval()
     spec, model = runner.spec, runner.load_pretrained()
@@ -2207,6 +2228,448 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LPIPS calibration stage, ID-loss training, the fidelity runbook
+# ---------------------------------------------------------------------------
+
+LPIPS_STEPS = 1000  # the calibration recipe's --n_inv_step
+LPIPS_SHORT = 100  # the bf16 run, and the plain-versions comparison
+LPIPS_BS2_STEPS = 10  # --bs_train 2: cuDNN's f32 FFT convolutions (ROADMAP Queue 3)
+LPIPS_TOL = 1e-3  # the f32 curves, kernels vs plain, of each curve's scale
+FIDELITY_GATE = 0.01  # mean LPIPS, the runbook's gate
+LPIPS_KINDS = ("x", "x_std", "x0_t", "x0_t_std")
+
+
+def write_lpips_npz(path: str) -> str:
+    """A random AlexNet + lin (lin = |N(0, 1)| * 0.1, as the JAX init) of
+    --seed, in the `--lpips_ckpt` npz format through the port's
+    `params_from_torch`."""
+    import numpy as np
+
+    from asyrp_official_torch.losses.lpips import ALEX_CONVS, params_from_torch
+
+    rng = np.random.RandomState(SEED)
+    alex, lin, cin = {}, {}, 3
+    for i, (j, (cout, k, _, _)) in enumerate(zip((0, 3, 6, 8, 10), ALEX_CONVS)):
+        alex[f"features.{j}.weight"] = (rng.randn(cout, cin, k, k)
+                                        * (cin * k * k) ** -0.5).astype(np.float32)
+        alex[f"features.{j}.bias"] = np.zeros(cout, np.float32)
+        lin[f"lin{i}.model.1.weight"] = (np.abs(rng.randn(1, cout, 1, 1)) * 0.1).astype(np.float32)
+        cin = cout
+    np.savez(path, params=np.array(params_from_torch(alex, lin), dtype=object))
+    return path
+
+
+def lpips_argv(ws: str, imgs: str, model_path: str, npz: str, steps: int, bf16: bool = False,
+               bs: int = 1, extra=()):
+    """`--lpips` on `custom.yml` at full width: --n_train_img 1 (the
+    reference's n + 1: 2 images), the seeded random UNet."""
+    return ["--config", CONFIG, "--exp", os.path.join(ws, "runs", "calib"), "--lpips",
+            "--lpips_ckpt", npz, "--model_path", model_path, "--device", DEVICE,
+            "--custom_train_dataset_dir", imgs, "--custom_test_dataset_dir", imgs,
+            "--work_dir", ws, "--n_inv_step", str(steps), "--n_train_img", "1",
+            "--bs_train", str(bs), "--seed", str(SEED), "--ni", *(["--bf16"] if bf16 else []),
+            *extra]
+
+
+def lpips_run(torch, card, log, argv, ws: str, steps: int, what: str, bs: int = 1,
+              plain: bool = False):
+    """One `--lpips` stage through the port's CLI, in-process, the counters
+    zeroed just before and read just after: K1, K2 and K3 launched (K3 once
+    per inversion step and batch), or none with `plain`; the four tsvs with
+    the seq[1:] keys, finite and >= 0. Returns (results, curves)."""
+    import numpy as np
+
+    from asyrp_official_torch.cli.main import main as cli_main
+    from asyrp_official_torch.core.schedule import uniform_seq
+    from asyrp_official_torch.utils.assets import load_lpips_tsv
+
+    n_batches = -(-2 // bs)
+    zero_counters()
+    n_logs = len(log.lpips)
+    t0 = time.perf_counter()
+    with plain_versions() if plain else contextlib.nullcontext():
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    counts = counters()
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    if plain:
+        if any(counts.values()):
+            fail(f"{what} launched a kernel: {counts}")
+    else:
+        require_launches(counts, ("group_norm", "attention", "ddim_step"), what)
+        if counts["ddim_step"] != (steps - 1) * n_batches:
+            fail(f"{what}: K3 launched {counts['ddim_step']} times, not the inversion table's "
+                 f"{steps - 1} steps x {n_batches} batches")
+    curves = {}
+    keys = uniform_seq(steps, 999)[1:]
+    for kind in LPIPS_KINDS:
+        tsv = os.path.join(ws, "utils", f"celeba_LPIPS_distance_{kind}.tsv")
+        if not os.path.exists(tsv):
+            fail(f"{what} wrote no {tsv}")
+        curves[kind] = load_lpips_tsv(tsv)
+        vals = np.asarray(list(curves[kind].values()))
+        if list(curves[kind]) != keys or not np.isfinite(vals).all() or vals.min() < 0:
+            fail(f"{what}: {kind} tsv has keys {list(curves[kind])[:3]}... or values "
+                 f"outside [0, inf)")
+    batches = log.lpips[n_logs:]
+    if len(batches) != n_batches:
+        fail(f"{what}: {len(batches)} batch records, not {n_batches}")
+    # the last batch's time per step: the first batch carries the warm-up
+    n_img, batch_ms, _, ms_step = batches[-1]
+    res = {"rc": rc, "steps": steps, "bs": bs, "run_s": wall, "launches": counts,
+           "batch_ms": [b[1] for b in batches], "ms_per_step": ms_step,
+           "ms_per_step_per_image": ms_step / n_img,
+           "x0_t_at_999": curves["x0_t"][999], "x_at_999": curves["x"][999]}
+    phase(f"  {what} on {card}: rc 0, {len(batches)} batch(es) of {n_img}: "
+          f"{', '.join(f'{b[1]:.0f}' for b in batches)} ms; last batch {ms_step:.2f} ms per "
+          f"inversion step ({ms_step / n_img:.2f} per image); launches {counts}; LPIPS(x0_t, x0) at "
+          f"t=999 {curves['x0_t'][999]:.4f}, LPIPS(x_t, x0) {curves['x'][999]:.4f}; whole CLI run "
+          f"{wall:.1f} s")
+    return res, curves
+
+
+def id_gradient_check(torch, argv, tree):
+    """One edited timestep (t = 999) with the block `tree`, through the
+    training loss of the runner with the ID term: id_loss_w x
+    id_loss(x0_t, x0_t_origin) + the CLIP term + a fixed random linear
+    functional of x0_t in place of the L1 term (as `gradient_check`: at the
+    first step x0_t - x0_t_origin is within float noise on many elements,
+    and the L1 term's sign flips there; with it, kernels vs plain read
+    1.03e-2 on the H100). Its gradient w.r.t. the DeltaBlock, kernels vs
+    plain versions, f32 and bf16; the ID term's value, and its gradient
+    w.r.t. the image it differentiates (x0_t_origin: x0_t's features are
+    detached, so no gradient reaches the block through it, as in the JAX
+    package and the reference); the IR-SE50 device time per timestep (its
+    two forwards) and one profiled timestep with the L1 term."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from asyrp_official_torch.cli.main import build_contexts, build_parser, load_config
+    from asyrp_official_torch.core.schedule import train_seq
+    from asyrp_official_torch.losses.clip_loss import train_clip_term
+    from asyrp_official_torch.models.delta import EditState, delta_block_from_tree
+    from asyrp_official_torch.ops import ddim_step as k3
+    from asyrp_official_torch.pipelines import train as tr
+    from asyrp_official_torch.runner import AsyrpRunner
+
+    args = build_parser().parse_args(argv)
+    dev = torch.device(DEVICE)
+    ctx, id_net, _ = build_contexts(args, dev)
+    runner = AsyrpRunner(args, load_config(CONFIG), clip_ctx=ctx, id_net=id_net,
+                         work_dir=args.work_dir)
+    runner.set_interval()
+    spec = runner.spec
+    model = runner.load_pretrained()
+    pairs = runner.get_pairs(model, "train")  # the run's cache
+    x = torch.from_numpy(pairs["x_lat"][:1]).to(dev)
+    x0 = torch.from_numpy(pairs["x0"][:1]).to(dev)
+    seq, seq_next = train_seq(STEPS, 999, T_EDIT)
+    acp = torch.from_numpy(runner.schedule.alphas_cumprod_ext).to(dev)
+    t, t_next = seq[-1], seq_next[-1]
+    t_b = torch.full((1,), float(t), device=dev)
+    at, at_next = acp[t + 1].reshape(1), acp[t_next + 1].reshape(1)
+    clip = train_clip_term(ctx, runner.src_txts[0], runner.trg_txts[0], 1.0)
+    cotangent = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
+                            device=dev)
+    block = delta_block_from_tree(tree, spec.bottleneck_ch, spec.temb_ch,
+                                  flavor=spec.delta_flavor).to(dev).train()
+    edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=dev),
+                     flavor=spec.delta_flavor).at_step({"use_delta": 1.0})
+
+    def id_term(x0_t, x0_t_origin):
+        return args.id_loss_w * id_net.id_loss(x0_t.permute(0, 3, 1, 2),
+                                               x0_t_origin.permute(0, 3, 1, 2)).mean()
+
+    def forward(dtype):
+        with torch.no_grad():
+            eps = spec.apply(model, x.to(dtype), t_b)[0]
+            _, x0_origin = k3.ddim_step(x, eps, eps, at, at_next, 0.0)
+        eps, eps_mod, _, _ = spec.apply(model, x.to(dtype), t_b, edit=edit, decode_mode="split")
+        _, x0_t = k3.ddim_step(x, eps, eps_mod, at, at_next, 0.0)
+        return x0_t, x0_origin
+
+    def grads(dtype, l1: bool = False):
+        block.zero_grad(set_to_none=True)
+        x0_t, x0_origin = forward(dtype)
+        loss = id_term(x0_t, x0_origin) + clip(x0, x0_t)
+        if l1:
+            loss = loss + tr.default_loss(x0_t, x0_origin, x0, l1_w=3.0)
+        else:
+            loss = loss + (x0_t * cotangent).mean()
+        loss.backward()
+        return {k: p.grad.detach().float().cpu().numpy() for k, p in block.named_parameters()}
+
+    def rel(a, b):
+        return {k: float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-30)) for k in b}
+
+    out = {"launches": {}}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        zero_counters()
+        kernels = grads(torch.float32)
+        out["launches"]["float32"] = counters()
+        with plain_versions():
+            plain = grads(torch.float32)
+        out["float32"] = rel(kernels, plain)
+        zero_counters()
+        kernels_bf = grads(torch.bfloat16)
+        out["launches"]["bfloat16"] = counters()
+        with plain_versions():
+            plain_bf = grads(torch.bfloat16)
+        out["bfloat16"] = {"kernels": rel(kernels_bf, plain), "plain": rel(plain_bf, plain),
+                           "kernels_vs_plain": rel(kernels_bf, plain_bf)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    with torch.no_grad():
+        x0_t, x0_origin = forward(torch.float32)
+    x_hat = x0_origin.clone().requires_grad_(True)
+    value = id_term(x0_t, x_hat)
+    (g_hat,) = torch.autograd.grad(value, x_hat)
+    out["id_term"] = float(value.detach())
+    out["id_term_grad_norm_x0_t_origin"] = float(g_hat.norm())
+    out["id_term_reaches_block"] = id_term(*forward(torch.float32)).requires_grad
+    # IR-SE50's share of a timestep: the ID term's two forwards at bs 1
+    out["irse50_device_ms"] = profiled_device_ms(lambda: id_term(x0_t, x0_origin))
+    for _ in range(2):
+        grads(torch.float32, l1=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        grads(torch.float32, l1=True)
+        wall = (time.perf_counter() - t0) * 1e3
+    out["profile"] = device_time(prof, wall, "ID-loss training timestep float32")
+    return out
+
+
+def fidelity_argv(ws: str, imgs: str, model_path: str, extra=()):
+    return ["--config", CONFIG, "--exp", os.path.join(ws, "runs", "fid"), "--run_fidelity",
+            "--train_delta_block", "--model_path", model_path, "--device", DEVICE,
+            "--custom_train_dataset_dir", imgs, "--custom_test_dataset_dir", imgs,
+            "--work_dir", ws, "--manual_checkpoint_name", "smoke_delta.pth",
+            "--n_inv_step", str(STEPS), "--n_test_step", str(STEPS), "--n_train_step", str(STEPS),
+            "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
+            "--bs_train", "1", "--n_test_img", "2", "--seed", str(SEED), "--ni", *extra]
+
+
+def m7_phase(torch, card, log, ws_root, clip_ckpt: str):
+    """Phase 11 on full-width `custom.yml` at bs 1 through the port's CLI,
+    in-process, from phase 4/7's images and phase 10's seeded random UNet:
+    (a) `--lpips` f32 at 1000 steps, bf16 at 100, f32 at 100 with the
+    kernels and with the plain versions (curves within LPIPS_TOL), f32 at
+    --bs_train 2 over 10 steps (recorded, not gated), then `set_interval`
+    on the fresh tsvs; (b) phase 7's training with `--id_loss_w 1
+    --ir_se50_ckpt` (a random IR-SE50 written under the reference's key
+    names), f32 and bf16, the f32 run again with the plain versions, and
+    one timestep's gradient; (c) `--run_fidelity` with phase 4's seeded
+    block: the plain versions' outputs as the reference of the kernels'."""
+    import numpy as np
+
+    from asyrp_official_torch.cli.main import build_parser, load_config, main as cli_main
+    from asyrp_official_torch.compat.from_jax import lpips_state_dict_from_jax
+    from asyrp_official_torch.losses.id_loss import IRSE50
+    from asyrp_official_torch.losses.lpips import LPIPS
+    from asyrp_official_torch.models.delta import delta_block_init
+    from asyrp_official_torch.models.registry import spec_from_config
+    from asyrp_official_torch.pipelines.fidelity import compare_output_dirs
+    from asyrp_official_torch.pipelines.interval import select_interval
+    from asyrp_official_torch.runner import AsyrpRunner
+    from asyrp_official_torch.utils import hostrng
+    from asyrp_official_torch.utils.assets import lpips_curve
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ws_root, "m7")
+    os.makedirs(root)
+    imgs = os.path.join(ws_root, "train", "imgs")  # phase 7's two images
+    model_path = os.path.join(ws_root, "rows", "unet_random.pt")  # phase 10's seeded UNet
+    npz = write_lpips_npz(os.path.join(root, "lpips_random.npz"))
+    out = {"launches": {}}
+
+    # (a) the LPIPS calibration stage
+    phase(f"  (a) --lpips: 2 images (--n_train_img 1), bs 1; random AlexNet + lin of --seed")
+    lp, curves = {}, {}
+    for label, steps, bf16, bs, plain in (
+            ("float32", LPIPS_STEPS, False, 1, False),
+            ("bfloat16", LPIPS_SHORT, True, 1, False),
+            ("float32 short", LPIPS_SHORT, False, 1, False),
+            ("float32 short plain", LPIPS_SHORT, False, 1, True),
+            ("float32 bs 2", LPIPS_BS2_STEPS, False, 2, False)):
+        ws = os.path.join(root, "lpips_" + label.replace(" ", "_"))
+        lp[label], curves[label] = lpips_run(
+            torch, card, log, lpips_argv(ws, imgs, model_path, npz, steps, bf16, bs), ws, steps,
+            f"--lpips {label} ({steps} steps{', plain versions' if plain else ''})", bs, plain)
+        if not plain:
+            out["launches"][f"lpips {label}"] = lp[label]["launches"]
+    errs_by_kind = {}
+    for kind in LPIPS_KINDS:
+        k = np.asarray(list(curves["float32 short"][kind].values()))
+        p = np.asarray(list(curves["float32 short plain"][kind].values()))
+        errs_by_kind[kind] = float(np.abs(k - p).max() / max(np.abs(p).max(), 1e-30))
+    phase(f"  f32 {LPIPS_SHORT}-step curves, kernels vs plain versions, max |a - b| / max |b|: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs_by_kind.items()) + f" (tol {LPIPS_TOL:g})")
+    if max(errs_by_kind.values()) > LPIPS_TOL:
+        fail(f"the LPIPS curves with the kernels disagree with the plain versions: {errs_by_kind}")
+    bs1, bs2 = lp["float32 short"]["ms_per_step_per_image"], lp["float32 bs 2"]["ms_per_step_per_image"]
+    phase(f"  f32 ms per inversion step per image: bs 1 {bs1:.2f} ({LPIPS_SHORT} steps), "
+          f"{lp['float32']['ms_per_step']:.2f} ({LPIPS_STEPS} steps); bs 2 {bs2:.2f} "
+          f"({lp['float32 bs 2']['ms_per_step']:.2f} per step of 2 images, {LPIPS_BS2_STEPS} "
+          f"steps): {bs2 / bs1:.1f}x bs 1's (cuDNN's f32 FFT convolutions, ROADMAP Queue 3; "
+          "recorded, not gated)")
+    # interval selection reads the fresh tsv (thresholds at a fraction of its
+    # range: random weights give no calibrated scale)
+    ws = os.path.join(root, "lpips_float32")
+    x0_t_curve = curves["float32"]["x0_t"]
+    edit_th, addnoise_th = 0.5 * max(x0_t_curve.values()), 0.25 * max(x0_t_curve.values())
+    args = build_parser().parse_args(
+        ["--config", CONFIG, "--exp", os.path.join(ws, "runs", "interval"), "--work_dir", ws,
+         "--device", DEVICE, "--lpips_edit_th", repr(edit_th), "--lpips_addnoise_th",
+         repr(addnoise_th), "--ni"])
+    r = AsyrpRunner(args, load_config(CONFIG), work_dir=ws)
+    r.set_interval()
+    want = select_interval("celeba", 1.0, lpips_edit_th=edit_th, lpips_addnoise_th=addnoise_th,
+                           curve_x0_t=x0_t_curve)
+    bundled = select_interval("celeba", 1.0, lpips_edit_th=edit_th,
+                              lpips_addnoise_th=addnoise_th, curve_x0_t=lpips_curve("celeba"))
+    phase(f"  set_interval on the fresh {LPIPS_STEPS}-step x0_t tsv (thresholds {edit_th:.4f} / "
+          f"{addnoise_th:.4f}: 1/2 and 1/4 of its largest value): t_edit {r.t_edit}, t_addnoise "
+          f"{r.t_addnoise} (the bundled celeba table would give {bundled[0]} / {bundled[1]})")
+    if (r.t_edit, r.t_addnoise) != want:
+        fail(f"set_interval picked {(r.t_edit, r.t_addnoise)}, not the fresh tsv's {want}")
+    out["lpips"] = {"runs": lp, "f32_kernels_vs_plain": errs_by_kind,
+                    "bs2_over_bs1_per_image": bs2 / bs1,
+                    "interval": {"t_edit": r.t_edit, "t_addnoise": r.t_addnoise,
+                                 "edit_th": edit_th, "addnoise_th": addnoise_th}}
+
+    # (b) Δ-training with the ID term
+    phase("  (b) phase 7's training recipe + --id_loss_w 1 --ir_se50_ckpt (a random IR-SE50 "
+          "of --seed under the reference's key names)")
+    torch.manual_seed(SEED)
+    ir_pth = os.path.join(root, "ir_se50_random.pth")
+    torch.save(IRSE50().state_dict(), ir_pth)
+    spec = spec_from_config(load_config(CONFIG))
+    init = delta_block_init(hostrng.PRNGKey(SEED), spec.bottleneck_ch, spec.temb_ch)
+
+    def id_argv(ws, exp, bf16=False, extra=()):
+        argv = train_argv(ws, imgs, clip_ckpt, exp, bf16, [
+            "--id_loss_w", "1", "--ir_se50_ckpt", ir_pth, "--model_path", model_path, *extra])
+        argv.remove("--allow_random_weights")
+        return argv
+
+    idres, blocks = {}, {}
+    for dname in DTYPES:
+        ws, exp = os.path.join(root, f"id_{dname}"), f"id_{dname}"
+        shutil.copytree(os.path.join(ws_root, "train", dname, "precomputed"),
+                        os.path.join(ws, "precomputed"))
+        idres[dname], blocks[dname] = cli_train_run(
+            torch, card, log, id_argv(ws, exp, dname == "bfloat16"), ws, exp,
+            f"ID-loss training {dname}", TRAIN_KERNELS, init)
+        out["launches"][f"id-loss training {dname}"] = idres[dname]["launches"]
+    ws_f32 = os.path.join(root, "id_float32")
+    ws = os.path.join(root, "id_plain")
+    shutil.copytree(os.path.join(ws_f32, "precomputed"), os.path.join(ws, "precomputed"))
+    before = counters()
+    t0 = time.perf_counter()
+    with plain_versions():
+        rc = cli_main(id_argv(ws, "id_plain", extra=["--do_test", "0",
+                                                           "--save_train_image", "0"]))
+    plain_s = time.perf_counter() - t0
+    if rc != 0 or counters() != before:
+        fail(f"ID-loss training (plain versions): rc {rc}, or it launched a kernel")
+    plain_blk = trained_block(ws, "id_plain")
+    whole = tree_err(blocks["float32"], plain_blk)
+    update = tree_err(tree_minus(blocks["float32"], init), tree_minus(plain_blk, init))
+    phase(f"  f32 ID-loss training, kernels vs plain versions, max |a - b| / max |b| over the "
+          f"block: trained block {whole:.3e} (tol {TRAIN_TOL:g}), its update {update:.3e} (tol "
+          f"{UPDATE_TOL:g}); plain run {plain_s:.1f} s")
+    if whole > TRAIN_TOL or update > UPDATE_TOL:
+        fail(f"the ID-loss block trained with the kernels disagrees with the plain run: block "
+             f"{whole:.3e}, update {update:.3e}")
+    check = id_gradient_check(torch, id_argv(ws_f32, "id_float32"), blocks["float32"])
+    f32, bf = check["float32"], check["bfloat16"]
+    phase(f"  one edited timestep (t=999, the f32-trained block) through ID + CLIP + a fixed "
+          f"linear functional of x0_t (for L1), gradient w.r.t. the DeltaBlock per leaf, f32 "
+          f"kernels vs plain: {fmt(f32)}; worst "
+          f"{max(f32.values()):.3e} (tol {GRAD_TOL:g}); bf16 against the f32 plain versions: "
+          f"kernels {max(bf['kernels'].values()):.3e}, plain {max(bf['plain'].values()):.3e} "
+          f"(tol {BF16_GRAD_FACTOR:g}x); launches {check['launches']}")
+    phase(f"  the ID term: {check['id_term']:.6e}; its gradient w.r.t. x0_t_origin (the side it "
+          f"differentiates) has norm {check['id_term_grad_norm_x0_t_origin']:.3e}; it reaches "
+          f"the block: {check['id_term_reaches_block']} (x0_t's features are detached, as in "
+          f"the JAX package); IR-SE50 device time per timestep (2 forwards, bs 1) "
+          f"{check['irse50_device_ms']}; "
+          f"ms per edited timestep f32 {idres['float32']['ms_per_edit_timestep']:.1f} / bf16 "
+          f"{idres['bfloat16']['ms_per_edit_timestep']:.1f}")
+    phase(f"  one ID-loss training timestep (f32, kernels) on {card}: "
+          + fmt_device_time(check["profile"]))
+    if max(f32.values()) > GRAD_TOL:
+        fail(f"the f32 gradient through the ID-loss path disagrees with the plain one: {f32}")
+    if max(bf["kernels"].values()) > BF16_GRAD_FACTOR * max(bf["plain"].values()):
+        fail("the bf16 gradient through the ID-loss path with the kernels is farther from the "
+             f"f32 one than {BF16_GRAD_FACTOR:g}x the plain versions' bf16 gradient")
+    if not (check["id_term"] > 0 and check["id_term_grad_norm_x0_t_origin"] > 0):
+        fail(f"the ID term or its gradient is 0: {check['id_term']}, "
+             f"{check['id_term_grad_norm_x0_t_origin']}")
+    if check["id_term_reaches_block"]:
+        fail("the ID term has a gradient path to the block; the reference detaches x0_t's side")
+    out["id_training"] = {"runs": idres, "float32_vs_plain": {"whole_block_rel_err": whole,
+                                                              "update_rel_err": update},
+                          "gradient_check": check}
+
+    # (c) the fidelity runbook
+    phase("  (c) --run_fidelity with phase 4's seeded block, 2 test images, 40 + 40 steps, bs 1")
+    test_imgs = os.path.join(ws_root, "float32", "imgs")  # phase 4's images
+    fid = {}
+    for label, plain in (("plain", True), ("kernels", False)):
+        ws = os.path.join(root, f"fid_{label}")
+        os.makedirs(os.path.join(ws, "checkpoint"))
+        shutil.copy(os.path.join(ws_root, "float32", "checkpoint", "smoke_delta.pth"),
+                    os.path.join(ws, "checkpoint"))
+        extra = [] if plain else ["--fidelity_ref_dir", fid["plain"]["out_dir"],
+                                  "--lpips_ckpt", npz]
+        zero_counters()
+        t0 = time.perf_counter()
+        with plain_versions() if plain else contextlib.nullcontext():
+            rc = cli_main(fidelity_argv(ws, test_imgs, model_path, extra))
+        wall = time.perf_counter() - t0
+        counts = counters()
+        if rc != 0:
+            fail(f"--run_fidelity ({label}) exited {rc}")
+        if plain and any(counts.values()):
+            fail(f"--run_fidelity (plain) launched a kernel: {counts}")
+        if not plain:
+            require_launches(counts, ("group_norm", "attention", "ddim_step"), "--run_fidelity")
+            out["launches"]["fidelity float32"] = counts
+        out_dir = os.path.join(ws, "runs", f"fid_LC_CUSTOM_t999_ninv{STEPS}_ngen{STEPS}",
+                               "fidelity")
+        names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        if names != ["test_0.png", "test_1.png"]:
+            fail(f"--run_fidelity ({label}) wrote {names}")
+        fid[label] = {"out_dir": out_dir, "run_s": wall, "launches": counts}
+        phase(f"  --run_fidelity {label} on {card}: rc 0, {names}; launches {counts}; whole CLI "
+              f"run {wall:.1f} s")
+    report = json.load(open(os.path.join(fid["kernels"]["out_dir"], "lpips_report.json")))
+    net = LPIPS()
+    net.load_state_dict(lpips_state_dict_from_jax(np.load(npz, allow_pickle=True)["params"].item()))
+    net = net.to(DEVICE).eval()
+    self_report = compare_output_dirs(fid["kernels"]["out_dir"], fid["kernels"]["out_dir"], net)
+    phase(f"  fidelity report, kernels' outputs vs the plain versions': mean {report['mean']:.3e}, "
+          f"max {report['max']:.3e}, n {report['n']} (gate: mean <= {FIDELITY_GATE:g}); "
+          f"self-comparison mean {self_report['mean']:g}, max {self_report['max']:g}")
+    if report["n"] != 2 or not report["mean"] <= FIDELITY_GATE:
+        fail(f"the fidelity report misses its gate: {report}")
+    if self_report["mean"] != 0.0 or self_report["max"] != 0.0:
+        fail(f"the fidelity self-comparison is not exactly 0: {self_report}")
+    out["fidelity"] = {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "out_dir"}
+                                for k, v in fid.items()},
+                       "report": {k: report[k] for k in ("mean", "max", "n")},
+                       "self_report": {k: self_report[k] for k in ("mean", "max", "n")}}
+    out["seconds"] = time.perf_counter() - t_phase
+    phase(f"  phase 11 took {out['seconds']:.1f} s")
+    return out
+
+
 def _ptxas_by_entry(log: str):
     """{mangled entry name: {"registers": n, "spills": ptxas's spill line}}
     from nvcc's -Xptxas -v output."""
@@ -2383,6 +2846,7 @@ def main() -> int:
     clip_ckpt = os.path.join(ws_root, "clip_vit_b16_random.pt")
     torch.save(CLIP(VIT_B16, seed=SEED).state_dict(), clip_ckpt)
     logging.getLogger("asyrp_official_torch.runner").addHandler(log)
+    logging.getLogger("asyrp_official_torch.pipelines.lpips_stage").addHandler(log)
     try:
         phase("phase 4: serving path through the port's CLI (--run_test, custom.yml 256^2)")
         timings, serve_launches = main_path_phase(torch, card, log, ws_root)
@@ -2421,6 +2885,11 @@ def main() -> int:
         phase("phase 10: the h-rows path (--train_delta_h) and the multi-edit serving modes "
               "through the port's CLI (custom.yml 256^2)")
         rows_multi = rows_phase(torch, card, log, ws_root, clip_ckpt)
+        torch.cuda.empty_cache()
+        phase("phase 11: the LPIPS calibration stage (--lpips), ID-loss training (--id_loss_w) "
+              "and the fidelity runbook (--run_fidelity) through the port's CLI (custom.yml "
+              "256^2)")
+        m7 = m7_phase(torch, card, log, ws_root, clip_ckpt)
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
@@ -2428,7 +2897,8 @@ def main() -> int:
             "custom.yml training float32": train_launches,
             **{f"afhq.yml serving {k}": v for k, v in afhq_launches.items()},
             "afhq.yml training float32": afhq_train_launches,
-            **{f"custom.yml {k}": v for k, v in rows_multi["launches"].items()}}
+            **{f"custom.yml {k}": v for k, v in rows_multi["launches"].items()},
+            **{f"custom.yml {k}": v for k, v in m7["launches"].items()}}
     afhq_f32, afhq_ddpm = afhq_launches["float32"], afhq_launches["ddpm float32"]
     gn_ref = ("asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
               "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)")
@@ -2510,7 +2980,7 @@ def main() -> int:
                         "chain_rel_err": afhq_chain_err,
                         "launches_per_invert_edit_chain": afhq_per_request,
                         "profile": afhq_profile, "training": afhq_training},
-               "rows_and_multi_edit": rows_multi,
+               "rows_and_multi_edit": rows_multi, "lpips_id_fidelity": m7,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

@@ -2,23 +2,27 @@
 
   * a subprocess imports every module of `asyrp_official_torch`, runs the
     tiny `--run_train` recipe and then a tiny `--run_test` with the trained
-    block on `--device cpu`, then the tiny OpenAI-family `--run_train` (a
-    learn_sigma UNet with 4-head attention, from a perturbed `.pt`), and
-    finds neither `jax` nor any `asyrp_official_tpu` module in
-    `sys.modules`;
+    block on `--device cpu`, a tiny `--lpips` stage and a tiny
+    `--run_fidelity` with a reference dir, then the tiny OpenAI-family
+    `--run_train` (a learn_sigma UNet with 4-head attention, from a
+    perturbed `.pt`), and finds neither `jax` nor any `asyrp_official_tpu`
+    module in `sys.modules`;
   * an AST scan finds no import of either in the port's sources or in
     `chip_smoke.py`;
   * the data files the port copied (configs, assets) are byte-identical to
     the JAX package's, and the copied host functions (schedules, step
     tables, hostrng draws, interval selection, checkpoint names, the CLI
-    parser's defaults) equal their originals on a few inputs.
+    parser's defaults, the face alignment, the LPIPS tsv writer) equal their
+    originals on a few inputs.
 """
 import ast
+import inspect
 import json
 import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -68,7 +72,10 @@ def _openai_workspace(root: pathlib.Path) -> list:
 
 
 def test_port_trains_and_serves_without_the_jax_package(tmp_path):
+    from PIL import Image
+
     from asyrp_official_tpu.utils.tinyws import tiny_base_argv, write_tiny_workspace
+    from parity_utils import tiny_lpips_ckpt
 
     cfg, imgs = write_tiny_workspace(str(tmp_path))
     exp = str(tmp_path / "runs" / "exp")
@@ -78,16 +85,30 @@ def test_port_trains_and_serves_without_the_jax_package(tmp_path):
     serve = tiny_base_argv(cfg, imgs, str(tmp_path), exp, extra=[
         "--run_test", "--train_delta_block", "--n_iter", "2", "--do_train", "0",
         "--device", "cpu"])
+    lpips_npz = tiny_lpips_ckpt(tmp_path / "lpips.npz")
+    lpips = tiny_base_argv(cfg, imgs, str(tmp_path), str(tmp_path / "runs" / "calib"), extra=[
+        "--lpips", "--lpips_ckpt", lpips_npz, "--device", "cpu"])
+    ref = tmp_path / "ref_outputs"
+    ref.mkdir()
+    for i in range(2):
+        Image.fromarray(np.full((32, 32, 3), 60 * i, np.uint8)).save(ref / f"test_{i}.png")
+    fidelity = tiny_base_argv(cfg, imgs, str(tmp_path), exp, extra=[
+        "--run_fidelity", "--train_delta_block", "--n_iter", "2", "--fidelity_ref_dir", str(ref),
+        "--lpips_ckpt", lpips_npz, "--device", "cpu"])
     train_oai = _openai_workspace(tmp_path / "oai")
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    out = subprocess.run([sys.executable, "-c", RUN, json.dumps([train, serve, train_oai])],
+    recipes = [train, serve, lpips, fidelity, train_oai]
+    out = subprocess.run([sys.executable, "-c", RUN, json.dumps(recipes)],
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "PORT_STANDS_ALONE" in out.stdout
     assert (tmp_path / "checkpoint" / "exp_LC_CUSTOM_t999_ninv4_ngen4_1.pth").exists()
     assert (tmp_path / "oai" / "checkpoint" / "oai_LC_CUSTOM_t999_ninv4_ngen4_0.pth").exists()
-    grids = list((tmp_path / "runs").rglob("test_*.png"))
+    grids = [g for g in (tmp_path / "runs").rglob("test_*.png") if g.parent.name != "fidelity"]
     assert len(grids) == 1, grids
+    assert (tmp_path / "utils" / "celeba_LPIPS_distance_x0_t.tsv").exists()
+    report = json.loads(next((tmp_path / "runs").rglob("lpips_report.json")).read_text())
+    assert report["n"] == 2 and report["mean"] > 0
 
 
 def _imports(path: pathlib.Path):
@@ -130,6 +151,8 @@ def _pairs():
     from asyrp_official_tpu.core import schedule as j_sched, steptable as j_tab
     from asyrp_official_tpu.pipelines import interval as j_int
     from asyrp_official_tpu.utils import assets as j_assets, hostrng as j_rng
+    from asyrp_official_torch.utils import align as p_align
+    from asyrp_official_tpu.utils import align as j_align
 
     def sched(m):
         s = m.make_schedule(num_timesteps=1000, beta_start=1e-4, beta_end=0.02,
@@ -175,6 +198,26 @@ def _pairs():
         back = to_tree(sd)
         return flat(sd) + flat({f"{g}.{k}": v for g, kv in back.items() for k, v in kv.items()})
 
+    def align(m):
+        # the geometry's source is the original's, line for line; its output
+        # on a synthetic face, pixel for pixel
+        from PIL import Image
+
+        rng = np.random.RandomState(0)
+        lm = np.zeros((68, 2))
+        lm[36:42] = [70, 80] + rng.rand(6, 2) * 6
+        lm[42:48] = [130, 80] + rng.rand(6, 2) * 6
+        lm[48:60] = [100, 140] + rng.rand(12, 2) * 14
+        img = Image.fromarray((rng.rand(200, 200, 3) * 255).astype(np.uint8))
+        return [inspect.getsource(m.align_face_from_landmarks),
+                np.asarray(m.align_face_from_landmarks(img, lm, output_size=128))]
+
+    def lpips_tsv(m):
+        curves = {"x0_t": {999: 0.25, 499: 1.0 / 3.0}, "x_std": {999: 1e-9, 499: 0.0}}
+        with tempfile.TemporaryDirectory() as d:
+            m.write_lpips_tsv(d, "tiny", curves)
+            return [(f, open(os.path.join(d, f), "rb").read()) for f in sorted(os.listdir(d))]
+
     return {
         "uniform_seq": (lambda: [p_sched.uniform_seq(n, 999) for n in (4, 40, 1000)],
                         lambda: [j_sched.uniform_seq(n, 999) for n in (4, 40, 1000)]),
@@ -193,12 +236,15 @@ def _pairs():
                             lambda: j_assets.src_trg_prompts()["smiling"]),
         "openai_delta_block": (lambda: openai_block(p_ckpt, p_ckpt.convert_delta_block),
                                lambda: openai_block(j_ckpt, j_conv.convert_delta_block)),
+        "align_face": (lambda: align(p_align), lambda: align(j_align)),
+        "write_lpips_tsv": (lambda: lpips_tsv(p_assets), lambda: lpips_tsv(j_assets)),
     }
 
 
 @pytest.mark.parametrize("name", ["uniform_seq", "train_seq", "make_schedule", "step_tables",
                                   "hostrng", "select_interval", "checkpoint_name",
-                                  "parser_defaults", "src_trg_prompts", "openai_delta_block"])
+                                  "parser_defaults", "src_trg_prompts", "openai_delta_block",
+                                  "align_face", "write_lpips_tsv"])
 def test_copied_function_equals_the_original(name):
     port, ref = _pairs()[name]
     got, want = port(), ref()

@@ -105,7 +105,8 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--run_fidelity"], ["--lpips"], ["--diff_style"],
+    ["--run_test", "--train_delta_block", "--use_mask"],
+    ["--run_train", "--train_delta_block", "--target_class_num", "1"], ["--diff_style"],
     ["--run_test", "--train_delta_block", "--target_class_num", "1"],
     ["--run_test", "--train_delta_block", "--dp", "2"],
     ["--run_train", "--train_delta_block", "--dp", "2"],
