@@ -8,10 +8,11 @@ The exact inverse of `asyrp_official_tpu/compat/torch_convert.py`'s
 
 The same bridge loads Δ checkpoints, since
 `compat/delta_ckpt.load_delta_checkpoint` returns JAX-layout blocks, and it
-turns the JAX-layout random init into the port's weights. The two loss
-networks cross it too: LPIPS-Alex (the `--lpips_ckpt` npz tree) and IR-SE50
-(BatchNorm mean/var/scale/bias → running_mean/running_var/weight/bias,
-PReLU `a` → weight).
+turns the JAX-layout random init into the port's weights (the UNets, and
+the ADM classifier `EncoderUNet`). The two loss networks cross it too:
+LPIPS-Alex (the `--lpips_ckpt` npz tree) and IR-SE50 (BatchNorm
+mean/var/scale/bias → running_mean/running_var/weight/bias, PReLU `a` →
+weight).
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ from asyrp_official_torch.compat.delta_ckpt import blocks_to_torch_sd
 from asyrp_official_torch.losses.id_loss import IRSE50_BLOCKS
 
 __all__ = ["ddpmpp_state_dict_from_jax", "openai_unet_state_dict_from_jax",
-           "delta_block_state_dict_from_jax", "lpips_state_dict_from_jax",
-           "irse50_state_dict_from_jax"]
+           "encoder_state_dict_from_jax", "delta_block_state_dict_from_jax",
+           "lpips_state_dict_from_jax", "irse50_state_dict_from_jax"]
 
 
 def _conv(p, prefix, out):
@@ -129,9 +130,18 @@ def openai_unet_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, to
     out: Dict[str, np.ndarray] = {}
     _lin(params["time_embed"]["dense0"], "time_embed.0", out)
     _lin(params["time_embed"]["dense1"], "time_embed.2", out)
-    if "label_emb" in params:
+    if "label_emb" in params:  # absent from an unconditional checkpoint's tree
         out["label_emb.weight"] = np.asarray(params["label_emb"]["w"], np.float32)
-    for stem in ("input", "output"):
+    _openai_stems(params, plan, out)
+    _norm(params["out_norm"], "out.0", out)
+    _conv(params["out_conv"], "out.2", out)
+    return _tensors(out)
+
+
+def _openai_stems(params, plan, out, stems=("input", "output")):
+    """The OpenAI UNet's input / output blocks and middle block, walked by
+    the plan."""
+    for stem in stems:
         blocks = params[f"{stem}_blocks"]
         if len(blocks) != len(plan[stem]):
             raise ValueError(f"{stem}: the plan has {len(plan[stem])} blocks, the params "
@@ -141,8 +151,35 @@ def openai_unet_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, to
                 _openai_layer(spec["kind"], p, f"{stem}_blocks.{bi}.{li}", out)
     for li, (spec, p) in enumerate(zip(plan["middle"], params["middle_block"])):
         _openai_layer(spec["kind"], p, f"middle_block.{li}", out)
-    _norm(params["out_norm"], "out.0", out)
-    _conv(params["out_conv"], "out.2", out)
+
+
+def encoder_state_dict_from_jax(params: Dict[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """The JAX `encoder_unet` params → `EncoderUNet` state dict under the
+    reference's keys (the inverse of the JAX `encoder_params_from_torch`):
+    the attention pool's positional embedding [T+1, C] → [C, T+1]."""
+    from asyrp_official_torch.models.encoder_unet import encoder_plan
+
+    out: Dict[str, np.ndarray] = {}
+    _lin(params["time_embed"]["dense0"], "time_embed.0", out)
+    _lin(params["time_embed"]["dense1"], "time_embed.2", out)
+    _openai_stems(params, encoder_plan(cfg), out, stems=("input",))
+    head = params["out"]
+    if cfg.pool == "adaptive":
+        _norm(head["norm"], "out.0", out)
+        _mat(head["conv"], "out.3", out)
+    elif cfg.pool == "attention":
+        _norm(head["norm"], "out.0", out)
+        pool = head["pool"]
+        out["out.2.positional_embedding"] = np.asarray(pool["positional_embedding"], np.float32).T
+        _mat1d(pool["qkv"], "out.2.qkv_proj", out)
+        _mat1d(pool["c_proj"], "out.2.c_proj", out)
+    elif cfg.pool in ("spatial", "spatial_v2"):
+        _lin(head["lin1"], "out.0", out)
+        if cfg.pool == "spatial_v2":
+            _norm(head["norm"], "out.1", out)
+        _lin(head["lin2"], "out.3" if cfg.pool == "spatial_v2" else "out.2", out)
+    else:
+        raise ValueError(cfg.pool)
     return _tensors(out)
 
 

@@ -7,22 +7,36 @@
   * AFHQDataset — `{root}/{mode}/dog/*.png`;
   * CelebAHQLMDB / LSUNLMDB — stylegan2-layout LMDB readers (need the
     `lmdb` package);
-  * CelebADialogDataset — paired images by attribute intensity.
-
-IMAGENET is not ported yet and raises NotImplementedError.
+  * CelebADialogDataset — paired images by attribute intensity;
+  * ImageNetDataset — one class's `{root}/{mode}/{wnid}/{wnid}/*` images
+    (`--target_class_num`), the ADM preprocessing: BOX halvings, then
+    BICUBIC, then a random (Python `random`) or center crop.
 """
 from __future__ import annotations
 
+import json
+import math
 import os
+import random
 from glob import glob
 from io import BytesIO
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 from PIL import Image
 
-__all__ = ["ImageFolderDataset", "AFHQDataset", "CelebAHQLMDB", "LSUNLMDB", "CelebADialogDataset",
-           "get_dataset"]
+from asyrp_official_torch.utils.assets import ASSETS_DIR
+
+__all__ = ["ImageFolderDataset", "AFHQDataset", "ImageNetDataset", "CelebAHQLMDB", "LSUNLMDB",
+           "CelebADialogDataset", "get_dataset", "imagenet_classes", "center_crop_arr",
+           "random_crop_arr"]
+
+
+def imagenet_classes() -> Dict[str, Tuple[str, str]]:
+    """Class number (a string) -> (wnid, class name), from the port's copy
+    of `assets/imagenet_classes.json`."""
+    with open(os.path.join(ASSETS_DIR, "imagenet_classes.json")) as f:
+        return {k: tuple(v) for k, v in json.load(f).items()}
 
 
 def _to_pm1(img: Image.Image) -> np.ndarray:
@@ -62,6 +76,74 @@ class AFHQDataset:
     def __getitem__(self, idx) -> np.ndarray:
         img = Image.open(self.paths[idx]).resize((self.image_size, self.image_size))
         return _to_pm1(img)
+
+
+def center_crop_arr(pil_image: Image.Image, image_size: int) -> np.ndarray:
+    """BOX-downsample by powers of two then BICUBIC, center crop
+    (datasets/IMAGENET_dataset.py:69-86 — the ADM preprocessing)."""
+    while min(*pil_image.size) >= 2 * image_size:
+        pil_image = pil_image.resize(
+            tuple(x // 2 for x in pil_image.size), resample=Image.BOX
+        )
+    scale = image_size / min(*pil_image.size)
+    pil_image = pil_image.resize(
+        tuple(round(x * scale) for x in pil_image.size), resample=Image.BICUBIC
+    )
+    arr = np.array(pil_image)
+    cy = (arr.shape[0] - image_size) // 2
+    cx = (arr.shape[1] - image_size) // 2
+    return arr[cy : cy + image_size, cx : cx + image_size]
+
+
+def random_crop_arr(
+    pil_image: Image.Image, image_size: int, min_crop_frac=0.8, max_crop_frac=1.0
+) -> np.ndarray:
+    min_dim = math.ceil(image_size / max_crop_frac)
+    max_dim = math.ceil(image_size / min_crop_frac)
+    dim = random.randrange(min_dim, max_dim + 1)
+    while min(*pil_image.size) >= 2 * dim:
+        pil_image = pil_image.resize(
+            tuple(x // 2 for x in pil_image.size), resample=Image.BOX
+        )
+    scale = dim / min(*pil_image.size)
+    pil_image = pil_image.resize(
+        tuple(round(x * scale) for x in pil_image.size), resample=Image.BICUBIC
+    )
+    arr = np.array(pil_image)
+    cy = random.randrange(arr.shape[0] - image_size + 1)
+    cx = random.randrange(arr.shape[1] - image_size + 1)
+    return arr[cy : cy + image_size, cx : cx + image_size]
+
+
+class ImageNetDataset:
+    """One class of an ImageNet tree, `{root}/{mode}/{wnid}/{wnid}/*.jpeg`
+    for train and `*.JPEG` otherwise, sorted; a random crop (from Python's
+    `random`, which the CLI seeds with --seed) or a center crop, an optional
+    random horizontal flip."""
+
+    def __init__(self, root: str, mode: str = "val", class_num: Optional[int] = None,
+                 image_size: int = 256, random_crop: bool = True, random_flip: bool = False):
+        if class_num is None:
+            raise ValueError("class_num is required (reference exits without it)")
+        wnid = imagenet_classes()[str(class_num)][0]
+        pat = os.path.join(root, mode, wnid, wnid, "*.jpeg" if mode == "train" else "*.JPEG")
+        self.paths = sorted(glob(pat))
+        self.image_size = image_size
+        self.random_crop = random_crop
+        self.random_flip = random_flip
+
+    def __len__(self):
+        return len(self.paths)
+
+    def __getitem__(self, idx) -> np.ndarray:
+        img = Image.open(self.paths[idx])
+        img.load()
+        img = img.convert("RGB")
+        arr = (random_crop_arr(img, self.image_size) if self.random_crop
+               else center_crop_arr(img, self.image_size))
+        if self.random_flip and random.random() < 0.5:
+            arr = arr[:, ::-1]
+        return arr.astype(np.float32) / 127.5 - 1.0
 
 
 def _open_lmdb(path: str, max_readers: int):
@@ -200,8 +282,9 @@ def get_dataset(dataset_type: str, dataset_paths: Dict[str, str], *, category: s
         return (CelebADialogDataset(root, train=True, image_size=image_size),
                 CelebADialogDataset(root, train=False, image_size=image_size) if val else None)
     if dataset_type == "IMAGENET":
-        raise NotImplementedError("IMAGENET: its dataset reader is not ported yet (ROADMAP.md "
-                                  "Queue 1, M8)")
+        root = dataset_paths["IMAGENET"]
+        return (ImageNetDataset(root, "train", target_class_num, image_size),
+                ImageNetDataset(root, "val", target_class_num, image_size))
     if dataset_type in ("MetFACE", "FFHQ"):
         d = dataset_paths[dataset_type]
         if dataset_type == "MetFACE":

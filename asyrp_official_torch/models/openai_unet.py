@@ -276,6 +276,17 @@ class OpenAIUNet(nn.Module):
         self.out = nn.ModuleList([cm.GroupNorm(ch, eps=_EPS), _slot(),
                                   nn.Conv2d(ch, cfg.out_channels, 3, padding=1)])
 
+    def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
+        """`nn.Module.load_state_dict`, except that a class-conditional
+        UNet takes a state dict without `label_emb.weight` (ADM's released
+        unconditional checkpoint, which `imagenet.yml` reads under
+        `class_cond: true`): the embedding is then dropped, as the JAX tree
+        keeps no `label_emb` leaf, and `get_temb` ignores `y`. Any other
+        missing or unexpected key still raises under `strict`."""
+        if hasattr(self, "label_emb") and "label_emb.weight" not in state_dict:
+            del self.label_emb
+        return super().load_state_dict(state_dict, strict=strict, assign=assign)
+
     # -- forward pieces (JAX openai_unet.py get_temb / apply / _decode)
     def get_temb(self, t, y=None):
         emb = cm.timestep_embedding_openai(t, self.cfg.model_channels)
@@ -377,12 +388,9 @@ def _layer_init(key, spec, cfg):
 def init_params(key: np.ndarray, cfg: OpenAIUNetConfig) -> Dict[str, Any]:
     """The JAX `openai_unet.init(key, cfg)` tree for a numpy (hostrng) key,
     zero leaves (the resblocks' and the final `out_conv`, the attention
-    `proj_out`) included."""
-    if cfg.num_classes is not None:
-        raise NotImplementedError(
-            "random init of a class-conditional OpenAI UNet: its label_emb is a normal draw "
-            "(JAX rnormal, XLA's erf_inv) that the port has no bit-exact copy of; pass "
-            "--model_path")
+    `proj_out`) included. A class-conditional config draws `label_emb`
+    (0.02 N(0, 1)) from the third key of the split, between `time_embed`
+    and the input blocks, as the JAX init does."""
     plan = build_plan(cfg)
     keys = iter(hostrng.split(key, 4096))
     nxt = lambda: next(keys)
@@ -392,6 +400,9 @@ def init_params(key: np.ndarray, cfg: OpenAIUNetConfig) -> Dict[str, Any]:
             "dense1": hostinit.linear_init(nxt(), cfg.temb_ch, cfg.temb_ch),
         }
     }
+    if cfg.num_classes is not None:
+        params["label_emb"] = {
+            "w": hostrng.normal(nxt(), (cfg.num_classes, cfg.temb_ch)) * np.float32(0.02)}
     params["input_blocks"] = [[_layer_init(nxt(), s, cfg) for s in block] for block in plan["input"]]
     params["middle_block"] = [_layer_init(nxt(), s, cfg) for s in plan["middle"]]
     params["output_blocks"] = [[_layer_init(nxt(), s, cfg) for s in block]

@@ -1,7 +1,8 @@
 """Latent precompute — the port of the JAX `pipelines/precompute.py`
 `precompute_pairs`: invert the first `n_img` dataset images and reconstruct
 them, in batches, with the same cache naming
-(`{category}_{mode}_t{t0}_nim{N}_ninv{ninv}_pairs.npz`), `.npz` payload
+(`{category}_{mode}_t{t0}_nim{N}_ninv{ninv}_pairs.npz`, the category
+`{category}_{class_name}` for one ImageNet class), `.npz` payload
 ({"x0", "x_rec", "x_lat"}, NHWC float32) and partial resume as the JAX
 package, so the two packages read each other's caches; and
 `random_noise_pairs`, the Gaussian latents of `--load_random_noise`."""
@@ -22,9 +23,11 @@ __all__ = ["pairs_cache_path", "load_pairs_cache", "precompute_pairs", "random_n
 
 
 def pairs_cache_path(cache_dir: str, category: str, mode: str, t_0: int, nim: int,
-                     n_inv: int, *, random_noise: bool = False) -> str:
+                     n_inv: int, *, random_noise: bool = False,
+                     class_name: Optional[str] = None) -> str:
+    cat = f"{category}_{class_name}" if class_name else category
     mid = "random_noise_" if random_noise else f"t{t_0}_"
-    return os.path.join(cache_dir, f"{category}_{mode}_{mid}nim{nim}_ninv{n_inv}_pairs")
+    return os.path.join(cache_dir, f"{cat}_{mode}_{mid}nim{nim}_ninv{n_inv}_pairs")
 
 
 def load_pairs_cache(base_path: str) -> Optional[Dict[str, np.ndarray]]:
@@ -64,12 +67,14 @@ def precompute_pairs(
     batch_size: int = 8,
     re_precompute: bool = False,
     compute_dtype=torch.float32,
+    class_name: Optional[str] = None,
     save_imgs_dir: Optional[str] = None,
     shuffle_seed: Optional[int] = None,
 ) -> Dict[str, np.ndarray]:
     """Returns {"x0", "x_rec", "x_lat"}, each [n_img, H, W, C] numpy."""
     n_img = min(n_img, len(dataset))
-    base = pairs_cache_path(cache_dir, category, mode, t_0, n_img, n_inv_step)
+    base = pairs_cache_path(cache_dir, category, mode, t_0, n_img, n_inv_step,
+                            class_name=class_name)
     done: Optional[Dict[str, np.ndarray]] = None
     if not re_precompute:
         cached = load_pairs_cache(base)
@@ -77,7 +82,7 @@ def precompute_pairs(
             return {k: v[:n_img] for k, v in cached.items()}
         for nim in reversed(range(1, n_img)):  # partial resume: largest smaller cache
             done = load_pairs_cache(pairs_cache_path(cache_dir, category, mode, t_0, nim,
-                                                     n_inv_step))
+                                                     n_inv_step, class_name=class_name))
             if done is not None:
                 break
 

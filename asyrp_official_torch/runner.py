@@ -16,11 +16,12 @@ OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device:
   * `run_lpips`: the LPIPS calibration stage (`--lpips`), which writes the
     four per-timestep tsvs that `set_interval` reads;
   * `run_fidelity`: the fidelity runbook (`--run_fidelity`), invert→edit of
-    every test image and, against `--fidelity_ref_dir`, the LPIPS report.
+    every test image and, against `--fidelity_ref_dir`, the LPIPS report;
+  * IMAGENET (`imagenet.yml`): `--target_class_num` picks the class that
+    serving and training read, and names their latent caches.
 
 Not ported yet (each raises `NotImplementedError`): DiffStyle
-(`--diff_style`, `--use_mask`), IMAGENET's `--target_class_num` and the
-multi-device flags (ROADMAP.md Queue 1).
+(`--diff_style`) and the multi-device flags (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -57,9 +58,7 @@ __all__ = ["AsyrpRunner", "resolve_device"]
 _TODO = "is not ported yet (ROADMAP.md Queue 1)"
 
 # run_test options outside the ported path: flag -> value that means "off"
-_UNPORTED_TEST_FLAGS = {"diff_style": False, "use_mask": False, "target_class_num": None}
-# run_training options outside the ported path
-_UNPORTED_TRAIN_FLAGS = {"target_class_num": "--target_class_num (M8)"}
+_UNPORTED_TEST_FLAGS = {"diff_style": False}
 # the origin-trajectory cache stays on the device up to this many bytes
 _ORIGIN_CACHE_BYTES = 4 * 2**30
 
@@ -195,16 +194,19 @@ class AsyrpRunner:
         return cosine
 
     # ------------------------------------------------------------------
-    def _datasets(self):
+    def _datasets(self, target_class_num=None):
         """(train, test) datasets of the config, the CUSTOM category reading
-        --custom_train_dataset_dir / --custom_test_dataset_dir."""
+        --custom_train_dataset_dir / --custom_test_dataset_dir. Only the
+        latent precompute passes `target_class_num`, as the JAX runner does:
+        the LPIPS stage and the fidelity runbook read no class, so IMAGENET's
+        reader raises there."""
         a, d = self.args, self.config["data"]
         paths = dict(DATASET_PATHS)
         if d["category"] == "CUSTOM":
             paths["custom_train"] = a.custom_train_dataset_dir
             paths["custom_test"] = a.custom_test_dataset_dir
         return data.get_dataset(d["dataset"], paths, category=d["category"],
-                                image_size=d["image_size"])
+                                image_size=d["image_size"], target_class_num=target_class_num)
 
     def get_pairs(self, model, mode: str) -> Dict[str, np.ndarray]:
         a = self.args
@@ -218,16 +220,20 @@ class AsyrpRunner:
                 category=d["category"], cache_dir=self._dir("precomputed"),
                 saved_noise=getattr(a, "saved_random_noise", False), batch_size=a.bs_train,
                 seed=a.seed, compute_dtype=self.compute_dtype, t_0=a.t_0)
-        train_ds, test_ds = self._datasets()
+        class_num = getattr(a, "target_class_num", None)
+        train_ds, test_ds = self._datasets(class_num)
         save_dir = None
         if getattr(a, "save_precomputed_images", False):
             save_dir = self._dir(os.path.join(a.exp, "image_samples"))
+        class_name = None
+        if d["dataset"] == "IMAGENET" and class_num is not None:
+            class_name = data.imagenet_classes()[str(class_num)][1]
         return pc.precompute_pairs(
             self.spec, model, self.schedule, train_ds if mode == "train" else test_ds,
             n_img=n_img, n_inv_step=a.n_inv_step, device=self.device, t_0=a.t_0, mode=mode,
             category=d["category"], cache_dir=self._dir("precomputed"), batch_size=a.bs_train,
             re_precompute=getattr(a, "re_precompute", False), compute_dtype=self.compute_dtype,
-            save_imgs_dir=save_dir,
+            class_name=class_name, save_imgs_dir=save_dir,
             shuffle_seed=(a.seed if mode == "train" and getattr(a, "shuffle_train_dataloader", False)
                           else None),
         )
@@ -265,9 +271,6 @@ class AsyrpRunner:
         iteration is loaded and the iteration skipped (plain SGD keeps no
         optimizer state). `--do_test` then writes the test grids."""
         a = self.args
-        for flag, what in _UNPORTED_TRAIN_FLAGS.items():
-            if getattr(a, flag, None):
-                raise NotImplementedError(f"{what} {_TODO}")
         train_target = "rows" if a.train_delta_h else "blocks"
         if train_target == "blocks" and a.get_h_num < 1:
             # the reference's default 0 leaves its optimizer with no parameters
@@ -569,7 +572,8 @@ class AsyrpRunner:
             mode="input", delta_rows=rows_to_nchw(rows).to(self.device),
             hs_coeff=torch.tensor(hs_coeff, dtype=torch.float32, device=self.device),
             input_style=getattr(a, "delta_injection", "add"), ignore_timestep=a.ignore_timesteps,
-            use_mask=bool(getattr(a, "masked_h", False)), times=tuple(times) if times else None)
+            use_mask=bool(getattr(a, "masked_h", False) or getattr(a, "use_mask", False)),
+            times=tuple(times) if times else None)
 
     @staticmethod
     def _remap_rows(rows_dict, seq_train, seq_test_edit):

@@ -63,8 +63,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      family, kernel count, and the device's idle share;
   7. the training path through the port's CLI, in-process: `--run_train
      --train_delta_block` on `custom.yml` with the CLIP directional loss (a
-     random ViT-B/16 written by the port's CLIP module) and the L1 term, two
-     random images, 40-step grids, t_edit 513, 2 iterations at batch 1, then
+     random ViT-B/16 written by the port's CLIP module) and the L1 term, one
+     random image (two until the IMAGENET phase came: cut for the time
+     limit), 40-step grids, t_edit 513, 2 iterations at batch 1, then
      the `--do_test` grid; once in float32 and once with --bf16. The launch
      counters (forward and backward, K3-bwd included) are zeroed just
      before each run and must all be > 0 after it. The float32 run is repeated from the same
@@ -131,9 +132,10 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   11. M7 on `custom.yml` through the port's CLI, in-process, from phase
      7's images, phase 10's seeded `.pt` and phase 4's block: (a) the LPIPS
      calibration stage (`--lpips`, 2 images, a random AlexNet + lin written
-     in the `--lpips_ckpt` npz format) f32 at the recipe's 1000 steps, bf16
-     at 100, f32 at 100 with the kernels and with the plain versions (the
-     four curves within 1e-3 of scale), f32 at `--bs_train 2` over 10 steps
+     in the `--lpips_ckpt` npz format) f32 at 200 steps (the recipe runs
+     1000; cut for the time limit), bf16 at 100, f32 at 100 with the kernels
+     and with the plain versions (the four curves within 1e-3 of scale), f32
+     at `--bs_train 2` over 10 steps
      (cuDNN's f32 FFT path, recorded, not gated); K1, K2 and K3 launched, K3
      exactly once per inversion step and batch; the four tsvs with the
      seq[1:] keys, finite, >= 0; `set_interval` reads the fresh x0_t tsv;
@@ -147,7 +149,28 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      `--run_fidelity` with phase 4's block: the plain versions' outputs as
      the reference of the kernels' (mean LPIPS <= 0.01), a self-comparison
      exactly 0.
-Every run of a path (phases 4, 7-11) fails if a K3, K3-bwd or DDPM-step
+  12. IMAGENET (`imagenet.yml`: ADM 256^2, 553,838,086 params, 8 heads of
+     64 at 32^2 and 16 at 16^2 and 8^2, learn_sigma, class_cond) through the
+     port's CLI, in-process: (a) the seeded init with its all-zero layers
+     redrawn, saved as a `.pt` without `label_emb.weight` (ADM's released
+     unconditional layout), two random 256^2 images per split as
+     `imagenet/{val,train}/<wnid>/<wnid>/*.{JPEG,jpeg}` of one class, a Δ
+     checkpoint at 1024 channels; (b) `--run_test --target_class_num`, 40 +
+     40 steps at batch 1, float32 and --bf16: K1, the multi-head K2 and K3
+     launched, the one-head K2 never, the latent cache named by the class;
+     (c) the float32 invert+edit chain against the plain versions (1e-3,
+     eps std > 0.1) and where the time goes in one eval (as in 6); (d)
+     `--run_train --train_delta_block --target_class_num` on phase 9's
+     recipe, float32 and --bf16 (K1-bwd, K2-bwd-MH and K3-bwd launched, peak
+     device memory), the float32 run again with the plain versions (block
+     1e-3, update 5e-2) and phase 9's gradient gate; (e) the ADM 256^2
+     classifier (EncoderUNet with guided-diffusion's classifier flags, pool
+     attention) at batch 1 and 8 against the plain versions (1e-3), the
+     attention pool's K2-MH launch at T = 65 among the recorded launches.
+     Phase 3 also holds K1, K2-MH, K1-bwd and K2-bwd-MH at every shape of
+     one IMAGENET eval and training-mode eval (f32 [1, 512, 256, 256]
+     streams part of its group), and K2-MH at the pool's [1|8, 65, 512].
+Every run of a path (phases 4, 7-12) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
 off), as the port's runner sets it on CUDA.
@@ -176,6 +199,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 40
 CONFIG, IMAGE, DEVICE = "custom.yml", 256, "cuda"
 AFHQ_CONFIG, DDPM_STEPS = "afhq.yml", 10
+IMAGENET_CONFIG = "imagenet.yml"
 T_EDIT, T_ADDNOISE = 513, 167
 SEED = 1234
 TOL = {"group_norm": {"float32": 1e-5, "bfloat16": 2e-2},
@@ -186,6 +210,10 @@ TOL = {"group_norm": {"float32": 1e-5, "bfloat16": 2e-2},
        "attention_bwd": {"float32": 1e-4, "bfloat16": 5e-2},
        "group_norm_bwd_afhq": {"float32": 1e-4, "bfloat16": 5e-2},
        "attention_bwd_mh": {"float32": 1e-4, "bfloat16": 5e-2},
+       "group_norm_imagenet": {"float32": 1e-5, "bfloat16": 2e-2},
+       "attention_mh_imagenet": {"float32": 1e-5, "bfloat16": 2e-2},
+       "group_norm_bwd_imagenet": {"float32": 1e-4, "bfloat16": 5e-2},
+       "attention_bwd_mh_imagenet": {"float32": 1e-4, "bfloat16": 5e-2},
        "ddim_step": {"float32": 1e-6, "bfloat16": 1e-6}, "ddim_step_learn_sigma": 1e-6,
        "ddpm_step": 1e-6,
        # keyed by the gradient's dtype (eps's): a bf16 output rounds once more
@@ -200,8 +228,8 @@ CONTROL_MIN = 1e-2
 FUSED_TOL = 1e-6
 TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention", "attention_bwd", "ddim_step",
                  "ddim_step_bwd")
-AFHQ_TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention_mh", "attention_mh_bwd",
-                      "ddim_step", "ddim_step_bwd")
+OPENAI_TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention_mh", "attention_mh_bwd",
+                        "ddim_step", "ddim_step_bwd")
 # the step kernels' device kernel names (`csrc/steps.cu`)
 STEP_KERNEL = {"ddim_step": "ddim_fwd", "ddim_step_learn_sigma": "ddim_fwd",
                "ddim_step_bwd": "ddim_bwd", "ddpm_step": "ddpm_fwd"}
@@ -491,14 +519,49 @@ def record_afhq_shapes(torch, dev):
     though not run here, and the 8^2 middle-block attention's backward (the
     training path runs the encoder without grad). The plain versions stand
     in while recording."""
+    from asyrp_official_torch.models.openai_unet import AFHQ_CONFIG
+
+    names = ("group_norm_afhq", "attention_mh", "group_norm_bwd_afhq", "attention_bwd_mh")
+    seen = record_openai_shapes(torch, dev, AFHQ_CONFIG, names)
+    # shapes off the eval (count 0): IMAGENET's 32^2 level, ragged T, batch 8
+    for shape in ((1, 1024, 512), (2, 100, 512), (8, 256, 512)):
+        seen["attention_mh"][(shape, 8, True)] = 0
+    for shape in ((1, 64, 512), (1, 1024, 512), (2, 100, 512), (1, 200, 512), (8, 256, 512),
+                  (1, 4096, 512)):
+        seen["attention_bwd_mh"].setdefault((shape, 8, True), 0)
+    return seen
+
+
+def record_imagenet_shapes(torch, dev):
+    """As `record_afhq_shapes`, for the full-width IMAGENET UNet
+    (`imagenet.yml`, ADM 256^2, 553.8M params: 8 heads of 64 at 32^2, 16 at
+    16^2 and 8^2, the 512-channel 256^2 GroupNorms of the decoder); and,
+    off the eval (count 0), the ADM classifier's attention pool (T = 65, 8
+    heads) at batch 1 and 8, which phase 12 (e) runs."""
+    from asyrp_official_torch.cli.main import load_config
+    from asyrp_official_torch.models.registry import spec_from_config
+
+    names = ("group_norm_imagenet", "attention_mh_imagenet", "group_norm_bwd_imagenet",
+             "attention_bwd_mh_imagenet")
+    seen = record_openai_shapes(torch, dev, spec_from_config(load_config(IMAGENET_CONFIG)).config,
+                                names)
+    for batch in (1, 8):
+        seen["attention_mh_imagenet"][((batch, 65, 512), 8, True)] = 0
+    return seen
+
+
+def record_openai_shapes(torch, dev, cfg, names):
+    """The recording of `record_afhq_shapes` for the OpenAI UNet of `cfg`,
+    into `names` (K1, K2-MH, K1-bwd, K2-bwd-MH rows), with the total calls
+    of the training-mode eval under `train_<K1 name>` and `train_<K2 name>`."""
     from unittest import mock
 
     from asyrp_official_torch.models.delta import EditState, OpenAIDeltaBlock
-    from asyrp_official_torch.models.openai_unet import AFHQ_CONFIG, OpenAIUNet
+    from asyrp_official_torch.models.openai_unet import OpenAIUNet
     from asyrp_official_torch.ops import attention as k2, groupnorm as k1
 
-    seen = {"group_norm_afhq": {}, "attention_mh": {}, "group_norm_bwd_afhq": {},
-            "attention_bwd_mh": {}, "train_group_norm_afhq": 0, "train_attention_mh": 0}
+    gn_name, attn_name, gn_bwd_name, attn_bwd_name = names
+    seen = {**{n: {} for n in names}, f"train_{gn_name}": 0, f"train_{attn_name}": 0}
     training = [False]
 
     def bump(key, k):
@@ -506,25 +569,24 @@ def record_afhq_shapes(torch, dev):
 
     def gn(x, w, b, **kw):
         if not training[0]:
-            bump("group_norm_afhq", gn_fwd_key(x, kw))
+            bump(gn_name, gn_fwd_key(x, kw))
         else:
-            seen["train_group_norm_afhq"] += 1
+            seen[f"train_{gn_name}"] += 1
             key = gn_bwd_key(torch, x, w, kw)
             if key:
-                bump("group_norm_bwd_afhq", key)
+                bump(gn_bwd_name, key)
         return k1.group_norm_plain(x, w, b, **kw)
 
     def attn(q, k, v, num_heads=1, legacy_scale=False):
         if not training[0]:
-            bump("attention_mh", (tuple(q.shape), num_heads, legacy_scale))
+            bump(attn_name, (tuple(q.shape), num_heads, legacy_scale))
         else:
-            seen["train_attention_mh"] += 1
+            seen[f"train_{attn_name}"] += 1
             if torch.is_grad_enabled() and q.requires_grad:
-                bump("attention_bwd_mh", (tuple(q.shape), num_heads, legacy_scale))
+                bump(attn_bwd_name, (tuple(q.shape), num_heads, legacy_scale))
         return k2.attention_plain(q, k, v, num_heads=num_heads, legacy_scale=legacy_scale)
 
     torch.manual_seed(0)
-    cfg = AFHQ_CONFIG
     model = OpenAIUNet(cfg).to(dev).eval().requires_grad_(False)
     block = OpenAIDeltaBlock(cfg.bottleneck_ch, cfg.temb_ch).to(dev).eval().requires_grad_(False)
     edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=dev),
@@ -537,12 +599,6 @@ def record_afhq_shapes(torch, dev):
         training[0] = True
         block.train().requires_grad_(True)
         model.apply(x, t, edit=edit, decode_mode="split")
-    # shapes off the eval (count 0): IMAGENET's 32^2 level, ragged T, batch 8
-    for shape in ((1, 1024, 512), (2, 100, 512), (8, 256, 512)):
-        seen["attention_mh"][(shape, 8, True)] = 0
-    for shape in ((1, 64, 512), (1, 1024, 512), (2, 100, 512), (1, 200, 512), (8, 256, 512),
-                  (1, 4096, 512)):
-        seen["attention_bwd_mh"].setdefault((shape, 8, True), 0)
     del model, block
     torch.cuda.empty_cache()
     return seen
@@ -641,7 +697,8 @@ def kernel_rows(torch, dev, seen):
 
     names = [n for n in ("group_norm", "group_norm_bwd", "attention", "attention_bwd",
                          "group_norm_afhq", "attention_mh", "group_norm_bwd_afhq",
-                         "attention_bwd_mh") if n in seen]
+                         "attention_bwd_mh", "group_norm_imagenet", "attention_mh_imagenet",
+                         "group_norm_bwd_imagenet", "attention_bwd_mh_imagenet") if n in seen]
     out = {n: {} for n in names + ["ddim_step", "ddim_step_learn_sigma", "ddpm_step"]}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
@@ -651,7 +708,8 @@ def kernel_rows(torch, dev, seen):
                    "max_abs_err": 0.0, "max_rel_err": 0.0, "calls": 0}
             bound_ms_by = {"bytes": 0.0, "operations": 0.0}
             for key, count in sorted(seen[name].items(), key=lambda kv: str(kv[0])):
-                if name in ("group_norm", "group_norm_afhq"):
+                gn_fwd = name.startswith("group_norm") and not name.startswith("group_norm_bwd")
+                if gn_fwd:
                     shape, silu, gn_eps, fused = key
                     x = (randn(*shape) * 2.0 + 0.5).to(dtype)
                     w, b = 1.0 + 0.1 * randn(shape[1]), 0.1 * randn(shape[1])
@@ -678,7 +736,7 @@ def kernel_rows(torch, dev, seen):
                     label = (f"{list(shape)} silu={int(silu)} eps={gn_eps:g}"
                              f"{f' fused={fused}' if fused else ''}"
                              f"{gn_plan_note(k1, shape, dtype)}")
-                elif name in ("group_norm_bwd", "group_norm_bwd_afhq"):
+                elif name.startswith("group_norm_bwd"):
                     shape, silu, wgrad, gn_eps = key if len(key) == 4 else (*key, 1e-6)
                     x = (randn(*shape) * 2.0 + 0.5).to(dtype).requires_grad_()
                     w = (1.0 + 0.1 * randn(shape[1])).requires_grad_(wgrad)
@@ -706,8 +764,8 @@ def kernel_rows(torch, dev, seen):
                                        n * (14 + 10 * silu + 3 * wgrad), PEAK_FLOPS["float32"])
                     label = (f"{list(shape)} silu={int(silu)} dweight={int(wgrad)} eps={gn_eps:g}"
                              f"{gn_plan_note(k1, shape, dtype, wgrad)}")
-                elif name in ("attention", "attention_mh"):
-                    shape, heads, legacy = key if name == "attention_mh" else (key, 1, False)
+                elif not name.startswith("attention_bwd"):  # attention, attention_mh*
+                    shape, heads, legacy = key if name != "attention" else (key, 1, False)
                     q, kk, v = (randn(*shape, dtype=dtype) for _ in range(3))
                     bsz, t_len, c = shape
                     hd = c // heads
@@ -728,8 +786,8 @@ def kernel_rows(torch, dev, seen):
                                        PEAK_FLOPS[dname])
                     label = (f"{list(shape)}" if name == "attention"
                              else f"{list(shape)} heads={heads} legacy_scale={int(legacy)}")
-                else:  # attention_bwd, attention_bwd_mh
-                    shape, heads, legacy = key if name == "attention_bwd_mh" else (key, 1, False)
+                else:  # attention_bwd, attention_bwd_mh*
+                    shape, heads, legacy = key if name != "attention_bwd" else (key, 1, False)
                     kw = dict(num_heads=heads, legacy_scale=legacy)
                     q, kk, v = (randn(*shape, dtype=dtype).requires_grad_() for _ in range(3))
                     d_o = randn(*shape, dtype=dtype)
@@ -773,7 +831,7 @@ def kernel_rows(torch, dev, seen):
                     if not same_bits(run_k(), run_k()):
                         fail(f"{name} {label} {dname}: two calls on the same inputs differ")
                     extra_note = "; bitwise equal across two calls"
-                if name in ("group_norm", "group_norm_afhq"):
+                if gn_fwd:
                     # one device kernel per call, fused ops included
                     events, kernels = device_kernels_per_call(run_k)
                     extra_note += ("; device kernels per call in torch.profiler not measured"
@@ -788,13 +846,13 @@ def kernel_rows(torch, dev, seen):
                 tol = TOL[name][dname]
                 ok = rel_err <= tol
                 control = ""
-                if name == "attention_mh":
+                if name.startswith("attention_mh"):
                     # the check must tell head splits apart: against the
                     # one-head plain version the kernel's output is far off
                     ctrl = errs(got[0].float(), k2.attention_plain(q, kk, v).float())[1]
                     control = f", vs one head {ctrl:.3e} (must exceed {CONTROL_MIN:g})"
                     ok = ok and ctrl > CONTROL_MIN
-                elif name == "attention_bwd_mh":
+                elif name.startswith("attention_bwd_mh"):
                     # the multi-head backward read as one head (the gradient
                     # of the one-head plain forward) must be far off
                     one = torch.autograd.grad(k2.attention_plain(q, kk, v), (q, kk, v), d_o)
@@ -1079,7 +1137,7 @@ class _RunnerLog(logging.Handler):
             self.lpips.append(record.args)
 
 
-def write_images(ws: str, n: int = 2, sub: str = "imgs") -> str:
+def write_images(ws: str, n: int = 2, sub: str = "imgs", ext: str = "png") -> str:
     import numpy as np
     from PIL import Image
 
@@ -1088,7 +1146,7 @@ def write_images(ws: str, n: int = 2, sub: str = "imgs") -> str:
     rng = np.random.RandomState(SEED)
     for i in range(n):
         Image.fromarray((rng.rand(IMAGE, IMAGE, 3) * 255).astype(np.uint8)).save(
-            os.path.join(imgs, f"{i}.png"))
+            os.path.join(imgs, f"{i}.{ext}"))
     return imgs
 
 
@@ -1321,7 +1379,7 @@ def train_argv(ws: str, imgs: str, clip_ckpt: str, exp: str, bf16: bool = False,
             "--allow_random_weights", "--device", DEVICE, "--clip_ckpt", clip_ckpt,
             "--clip_loss_w", "1", "--l1_loss_w", "3", "--get_h_num", "1",
             "--n_inv_step", str(STEPS), "--n_train_step", str(STEPS), "--n_iter", "2",
-            "--n_train_img", "2", "--bs_train", "1", "--lr_training", "0.5",
+            "--n_train_img", "1", "--bs_train", "1", "--lr_training", "0.5",
             "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
             "--do_test", "1", "--n_test_img", "1",
             "--custom_train_dataset_dir", imgs, "--custom_test_dataset_dir", imgs,
@@ -1379,7 +1437,8 @@ def cli_train_run(torch, card, log, argv, ws: str, exp: str, what: str, kernels,
     grid = np.asarray(Image.open(grids[0]), np.float32)
     if grid.shape != (IMAGE + 2, IMAGE + 2, 3) or not np.isfinite(grid).all():
         fail(f"{what}: test grid {grids[0]} has shape {grid.shape}")
-    (test_pairs,) = glob.glob(os.path.join(ws, "precomputed", f"{category}_test_*_pairs.npz"))
+    # the category, and for IMAGENET the class name, name the cache
+    (test_pairs,) = glob.glob(os.path.join(ws, "precomputed", f"{category}_*test_*_pairs.npz"))
     if not np.isfinite(np.load(test_pairs)["x_lat"]).all():
         fail(f"{what}: non-finite test latents")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
@@ -1397,7 +1456,7 @@ def cli_train_run(torch, card, log, argv, ws: str, exp: str, what: str, kernels,
 def train_phase(torch, card, log, ws_root, clip_ckpt: str):
     """Phase 7: Δ-training through the port's CLI, float32 and bfloat16,
     then the float32 run again with the plain versions."""
-    from asyrp_official_torch.cli.main import load_config, main as cli_main
+    from asyrp_official_torch.cli.main import load_config
     from asyrp_official_torch.models.delta import delta_block_init
     from asyrp_official_torch.utils import hostrng
     from asyrp_official_torch.models.registry import spec_from_config
@@ -1416,84 +1475,121 @@ def train_phase(torch, card, log, ws_root, clip_ckpt: str):
         if dname == "float32":
             launches = results[dname]["launches"]
 
-    # The float32 run again, from the same latents (its pairs cache), with the
-    # plain versions. 76 SGD steps through the L1 term's sign amplify any
-    # rounding difference (two runs of the kernels, whose cuDNN backward sums
-    # in no fixed order, drift apart about as far as kernels and plain), so
-    # the trained update is a coarse end-to-end check; the one-timestep
-    # gradient below is the kernels' gate.
     ws_f32 = os.path.join(ws_root, "train", "float32")
     ws = os.path.join(ws_root, "train", "plain")
+    results["float32_vs_plain"] = plain_training_run(
+        ws_f32, ws, train_argv(ws, imgs, clip_ckpt, "plain",
+                               extra=["--do_test", "0", "--save_train_image", "0"]),
+        "plain", init, blocks["float32"])
+    check = gradient_check(torch, train_argv(ws_f32, imgs, clip_ckpt, "train_float32"), CONFIG,
+                           {"K1-bwd dweight x 1.01": lambda: k1_bwd_fault(1.01, 1.0),
+                            "K1-bwd dx x 1.01": lambda: k1_bwd_fault(1.0, 1.01)})
+    gate(check, card)
+    results["gradient_check"] = check
+    return results, launches
+
+
+def plain_training_run(ws_f32: str, ws: str, argv, exp: str, init, trained,
+                       category: str = "CUSTOM"):
+    """The float32 training run of `ws_f32` again, from the same latents
+    (its pairs cache), with the plain versions: the block `trained` with the
+    kernels within TRAIN_TOL of it, its update from `init` within
+    UPDATE_TOL. 76 SGD steps through the L1 term's sign amplify any rounding
+    difference (two runs of the kernels, whose cuDNN backward sums in no
+    fixed order, drift apart about as far as kernels and plain), so the
+    trained update is a coarse end-to-end check; the one-timestep gradient
+    is the kernels' gate."""
+    from asyrp_official_torch.cli.main import main as cli_main
+
     shutil.copytree(os.path.join(ws_f32, "precomputed"), os.path.join(ws, "precomputed"))
     before = counters()
     t0 = time.perf_counter()
     with plain_versions():
-        rc = cli_main(train_argv(ws, imgs, clip_ckpt, "plain",
-                                 extra=["--do_test", "0", "--save_train_image", "0"]))
+        rc = cli_main(argv)
     plain_s = time.perf_counter() - t0
     if counters() != before:
         fail("the plain training run launched a kernel")
     if rc != 0:
         fail(f"training path (plain versions) exited {rc}")
-    plain = trained_block(ws, "plain")
-    whole = tree_err(blocks["float32"], plain)
-    update = tree_err(tree_minus(blocks["float32"], init), tree_minus(plain, init))
+    plain = trained_block(ws, exp, category)
+    whole = tree_err(trained, plain)
+    update = tree_err(tree_minus(trained, init), tree_minus(plain, init))
     phase(f"  float32 training from the same latents, kernels vs plain versions, max |a - b| / "
           f"max |b| over the whole block: trained block {whole:.3e} (tol {TRAIN_TOL:g}), its "
           f"update from the init {update:.3e} (tol {UPDATE_TOL:g}); plain run {plain_s:.1f} s")
     if whole > TRAIN_TOL or update > UPDATE_TOL:
         fail(f"the block trained with the kernels disagrees with the plain run: block {whole:.3e}, "
              f"update {update:.3e}")
-
-    check = gradient_check(torch, train_argv(ws_f32, imgs, clip_ckpt, "train_float32"), CONFIG,
-                           {"K1-bwd dweight x 1.01": lambda: k1_bwd_fault(1.01, 1.0),
-                            "K1-bwd dx x 1.01": lambda: k1_bwd_fault(1.0, 1.01)})
-    gate(check, card)
-    results["float32_vs_plain"] = {"whole_block_rel_err": whole, "update_rel_err": update,
-                                   "plain_run_s": plain_s}
-    results["gradient_check"] = check
-    return results, launches
+    return {"whole_block_rel_err": whole, "update_rel_err": update, "plain_run_s": plain_s}
 
 
-def afhq_train_argv(ws: str, model_path: str, clip_ckpt: str, exp: str, bf16: bool = False):
-    argv = ["--config", AFHQ_CONFIG, "--exp", os.path.join(ws, "runs", exp),
+def openai_family(fam: str):
+    """(config, category, the category of its latent caches, extra flags)
+    of an OpenAI-family configuration the smoke run serves and trains:
+    `afhq` (iDDPM AFHQ-dog, `afhq.yml`) or `imagenet` (ADM 256^2,
+    `imagenet.yml`, one class by --target_class_num, whose name the
+    caches carry)."""
+    if fam == "afhq":
+        return AFHQ_CONFIG, "AFHQ", "AFHQ", ()
+    from asyrp_official_torch.data.datasets import imagenet_classes
+
+    name = imagenet_classes()[str(IMAGENET_CLASS)][1]
+    return (IMAGENET_CONFIG, "IMAGENET", f"IMAGENET_{name}",
+            ("--target_class_num", str(IMAGENET_CLASS)))
+
+
+def openai_train_argv(fam: str, ws: str, model_path: str, clip_ckpt: str, exp: str,
+                      bf16: bool = False, extra=()):
+    config, _, _, flags = openai_family(fam)
+    argv = ["--config", config, "--exp", os.path.join(ws, "runs", exp),
             "--run_train", "--train_delta_block", "--edit_attr", AFHQ_ATTR,
             "--model_path", model_path, "--device", DEVICE, "--clip_ckpt", clip_ckpt,
             "--clip_loss_w", "1", "--l1_loss_w", "3", "--get_h_num", "1",
             "--n_inv_step", str(STEPS), "--n_train_step", str(STEPS), "--n_iter", "2",
             "--n_train_img", "2", "--bs_train", "1", "--lr_training", "0.5",
             "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
-            "--do_test", "1", "--n_test_img", "1", "--work_dir", ws, "--seed", str(SEED), "--ni"]
-    return argv + (["--bf16"] if bf16 else [])
+            "--do_test", "1", "--n_test_img", "1", "--work_dir", ws, "--seed", str(SEED), "--ni",
+            *flags]
+    return argv + (["--bf16"] if bf16 else []) + list(extra)
 
 
-def afhq_train_phase(torch, card, log, root: str, data: str, model_path: str, clip_ckpt: str):
-    """Phase 9: Δ-training of an OpenAI DeltaBlock on the full-width AFHQ
-    UNet (the perturbed `.pt` of phase 8) through the port's CLI, float32
-    and bfloat16, each run in a work dir of its own; then the gate of the
-    multi-head attention backward (K2-bwd-MH)."""
+def openai_train_phase(torch, card, log, fam: str, root: str, model_path: str, clip_ckpt: str,
+                       plain_run: bool = False):
+    """Phase 9 (`afhq`) and phase 12 (d) (`imagenet`): Δ-training of an
+    OpenAI DeltaBlock on the full-width UNet of `model_path` through the
+    port's CLI, float32 and bfloat16, each run in a work dir of its own
+    (the training images are in place); with `plain_run`, the float32 run
+    again with the plain versions; then the gate of the multi-head
+    attention backward (K2-bwd-MH)."""
     from asyrp_official_torch.cli.main import load_config
     from asyrp_official_torch.models.delta import delta_block_init
     from asyrp_official_torch.models.registry import spec_from_config
     from asyrp_official_torch.utils import hostrng
 
-    write_images(os.path.join(data, "afhq", "train"), sub="dog")
-    spec = spec_from_config(load_config(AFHQ_CONFIG))
+    config, category, _, _ = openai_family(fam)
+    spec = spec_from_config(load_config(config))
     init = delta_block_init(hostrng.PRNGKey(SEED), spec.bottleneck_ch, spec.temb_ch,
                             flavor="openai")
-    results = {}
+    results, blocks = {}, {}
     for dname in DTYPES:
-        ws, exp = os.path.join(root, f"train_{dname}"), f"afhq_{dname}"
-        results[dname], _ = cli_train_run(
+        ws, exp = os.path.join(root, f"train_{dname}"), f"{fam}_{dname}"
+        results[dname], blocks[dname] = cli_train_run(
             torch, card, log,
-            afhq_train_argv(ws, model_path, clip_ckpt, exp, bf16=dname == "bfloat16"), ws, exp,
-            f"AFHQ training path {dname}", AFHQ_TRAIN_KERNELS, init, category="AFHQ")
+            openai_train_argv(fam, ws, model_path, clip_ckpt, exp, bf16=dname == "bfloat16"), ws,
+            exp, f"{category} training path {dname}", OPENAI_TRAIN_KERNELS, init,
+            category=category)
         counts = results[dname]["launches"]
         if counts["attention"] or counts["attention_bwd"]:
-            fail(f"AFHQ training path {dname} launched the single-head attention: {counts}")
+            fail(f"{category} training path {dname} launched the single-head attention: {counts}")
+    ws_f32 = os.path.join(root, "train_float32")
+    if plain_run:
+        ws = os.path.join(root, "train_plain")
+        results["float32_vs_plain"] = plain_training_run(
+            ws_f32, ws, openai_train_argv(fam, ws, model_path, clip_ckpt, f"{fam}_plain",
+                                          extra=["--do_test", "0", "--save_train_image", "0"]),
+            f"{fam}_plain", init, blocks["float32"], category)
     check = gradient_check(
-        torch, afhq_train_argv(os.path.join(root, "train_float32"), model_path, clip_ckpt,
-                               "afhq_float32"), AFHQ_CONFIG,
+        torch, openai_train_argv(fam, ws_f32, model_path, clip_ckpt, f"{fam}_float32"), config,
         {"K2-bwd-MH D summed over all C": d_over_all_channels})
     norms = check["mh_bwd_cotangent_norms"]
     phase(f"  the cotangents reaching K2-bwd-MH in that timestep: {len(norms)} calls, norms "
@@ -1505,7 +1601,6 @@ def afhq_train_phase(torch, card, log, root: str, data: str, model_path: str, cl
     gate(check, card)
     results["gradient_check"] = check
     return results, results["float32"]["launches"]
-
 
 def gate(check, card) -> None:
     """Prints one timestep's gradient check and fails where it does: the
@@ -1796,73 +1891,81 @@ def make_afhq_workspace(torch, root: str, data: str) -> str:
     return model_path
 
 
-def afhq_argv(ws: str, model_path: str, bf16: bool = False, steps: int = STEPS,
-              sample_type: str = "ddim"):
-    argv = ["--config", AFHQ_CONFIG, "--exp", os.path.join(ws, "runs", "afhq"),
+def openai_argv(fam: str, ws: str, model_path: str, bf16: bool = False, steps: int = STEPS,
+                sample_type: str = "ddim"):
+    config, _, _, flags = openai_family(fam)
+    argv = ["--config", config, "--exp", os.path.join(ws, "runs", fam),
             "--run_test", "--train_delta_block", "--model_path", model_path, "--device", DEVICE,
-            "--work_dir", ws, "--manual_checkpoint_name", "afhq_delta.pth",
+            "--work_dir", ws, "--manual_checkpoint_name", f"{fam}_delta.pth",
             "--n_inv_step", str(steps), "--n_test_step", str(steps),
             "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
             "--bs_train", "1", "--n_test_img", "2", "--do_train", "0", "--save_x_origin",
-            "--sample_type", sample_type, "--seed", str(SEED), "--ni"]
+            "--sample_type", sample_type, "--seed", str(SEED), "--ni", *flags]
     return argv + (["--bf16"] if bf16 else [])
 
 
 AFHQ_RUNS = (  # (label, --bf16, steps, --sample_type)
     ("float32", False, STEPS, "ddim"), ("bfloat16", True, STEPS, "ddim"),
     ("ddpm float32", False, DDPM_STEPS, "ddpm"))
+IMAGENET_RUNS = AFHQ_RUNS[:2]
 
 
-def afhq_phase(torch, card, log, root: str, model_path: str):
-    """Phase 8: OpenAI-family serving through the port's CLI, one run per
-    AFHQ_RUNS entry, each in a work dir of its own; the counters are zeroed
-    just before each run and read just after it."""
+def openai_phase(torch, card, log, fam: str, root: str, model_path: str, runs):
+    """Phase 8 (`afhq`) and phase 12 (b) (`imagenet`): OpenAI-family serving
+    through the port's CLI, one run per entry of `runs`, each in a work dir
+    of its own; the counters are zeroed just before each run and read just
+    after it. The test latents' cache must carry the family's cache
+    category (for IMAGENET, the class name)."""
     import numpy as np
     from PIL import Image
 
     from asyrp_official_torch.cli.main import main as cli_main
 
+    _, category, cache_category, _ = openai_family(fam)
     timings, launches = {}, {}
-    for label, bf16, steps, sample_type in AFHQ_RUNS:
+    for label, bf16, steps, sample_type in runs:
+        what = f"{category} serving path ({label})"
         ws = os.path.join(root, label.replace(" ", "_"))
         os.makedirs(os.path.join(ws, "checkpoint"))
-        shutil.copy(os.path.join(root, "afhq_delta.pth"), os.path.join(ws, "checkpoint"))
+        shutil.copy(os.path.join(root, f"{fam}_delta.pth"), os.path.join(ws, "checkpoint"))
         zero_counters()
         t0 = time.perf_counter()
-        rc = cli_main(afhq_argv(ws, model_path, bf16, steps, sample_type))
+        rc = cli_main(openai_argv(fam, ws, model_path, bf16, steps, sample_type))
         wall = time.perf_counter() - t0
         counts = counters()
         if rc != 0:
-            fail(f"AFHQ serving path ({label}) exited {rc}")
+            fail(f"{what} exited {rc}")
         require_launches(counts, ("group_norm", "attention_mh", "ddim_step")
-                         + (("ddpm_step",) if sample_type == "ddpm" else ()),
-                         f"AFHQ serving path ({label})")
+                         + (("ddpm_step",) if sample_type == "ddpm" else ()), what)
         if counts["attention"]:
-            fail(f"AFHQ serving path ({label}) launched the single-head attention: {counts}")
+            fail(f"{what} launched the single-head attention: {counts}")
         grids = sorted(os.path.join(r, f) for r, _, fs in os.walk(os.path.join(ws, "runs"))
                        for f in fs if f.endswith(".png"))
         if len(grids) != 2:
-            fail(f"AFHQ serving path ({label}): expected 2 grids, found {grids}")
+            fail(f"{what}: expected 2 grids, found {grids}")
         for g in grids:
             arr = np.asarray(Image.open(g))
             if arr.shape != (2 * IMAGE + 3, IMAGE + 2, 3):
                 fail(f"grid {g} has shape {arr.shape}")
-        pairs = np.load(os.path.join(ws, "precomputed",
-                                     f"AFHQ_test_t999_nim2_ninv{steps}_pairs.npz"))
+        cache = f"{cache_category}_test_t999_nim2_ninv{steps}_pairs.npz"
+        caches = sorted(os.listdir(os.path.join(ws, "precomputed")))
+        if caches != [cache]:
+            fail(f"{what}: expected the latent cache {cache}, found {caches}")
+        pairs = np.load(os.path.join(ws, "precomputed", cache))
         for k in ("x_lat", "x_rec"):
             if not np.isfinite(pairs[k]).all():
-                fail(f"AFHQ serving path ({label}): non-finite {k}")
+                fail(f"{what}: non-finite {k}")
         _, n_grids, first_ms, last_ms, _, _, n_chain, _ = log.grids[-1]  # last: the p50 of the rest
         per_step = last_ms / (2 * n_chain)
         timings[label] = {"grid_ms_first": first_ms, "grid_ms": last_ms, "ms_per_step": per_step,
                           "run_s": wall}
         launches[label] = counts
-        phase(f"  AFHQ serving path {label} ({sample_type}) on {card}: rc 0, 2 grids, launches "
-              f"{counts}; per grid ({n_chain}-step plain + {n_chain}-step edited generation, bs "
-              f"1): first {first_ms:.1f} ms, second {last_ms:.1f} ms = {per_step:.2f} ms/step; "
-              f"whole CLI run incl. loading and 2x{steps}+{steps} precompute steps {wall:.1f} s")
+        phase(f"  {category} serving path {label} ({sample_type}) on {card}: rc 0, 2 grids, "
+              f"cache {cache}, launches {counts}; per grid ({n_chain}-step plain + "
+              f"{n_chain}-step edited generation, bs 1): first {first_ms:.1f} ms, second "
+              f"{last_ms:.1f} ms = {per_step:.2f} ms/step; whole CLI run incl. loading and "
+              f"2x{steps}+{steps} precompute steps {wall:.1f} s")
     return timings, launches
-
 
 # ---------------------------------------------------------------------------
 # phase 10: the h-rows path and the multi-edit serving modes
@@ -2095,7 +2198,7 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
 
     out = {"launches": {}}
     phase(f"  (a) --run_train --train_delta_h --delta_injection add: {len(seq)} rows of "
-          f"[{hw}, {hw}, {spec.bottleneck_ch}], 2 images, 2 iterations")
+          f"[{hw}, {hw}, {spec.bottleneck_ch}], 1 image, 2 iterations")
     rows = {}
     for dname in DTYPES:
         ws = workspace(f"train_{dname}")
@@ -2232,7 +2335,7 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
 # phase 11: the LPIPS calibration stage, ID-loss training, the fidelity runbook
 # ---------------------------------------------------------------------------
 
-LPIPS_STEPS = 1000  # the calibration recipe's --n_inv_step
+LPIPS_STEPS = 200  # the calibration recipe runs 1000; cut for the script's time limit
 LPIPS_SHORT = 100  # the bf16 run, and the plain-versions comparison
 LPIPS_BS2_STEPS = 10  # --bs_train 2: cuDNN's f32 FFT convolutions (ROADMAP Queue 3)
 LPIPS_TOL = 1e-3  # the f32 curves, kernels vs plain, of each curve's scale
@@ -2457,7 +2560,7 @@ def fidelity_argv(ws: str, imgs: str, model_path: str, extra=()):
 def m7_phase(torch, card, log, ws_root, clip_ckpt: str):
     """Phase 11 on full-width `custom.yml` at bs 1 through the port's CLI,
     in-process, from phase 4/7's images and phase 10's seeded random UNet:
-    (a) `--lpips` f32 at 1000 steps, bf16 at 100, f32 at 100 with the
+    (a) `--lpips` f32 at LPIPS_STEPS steps, bf16 at 100, f32 at 100 with the
     kernels and with the plain versions (curves within LPIPS_TOL), f32 at
     --bs_train 2 over 10 steps (recorded, not gated), then `set_interval`
     on the fresh tsvs; (b) phase 7's training with `--id_loss_w 1
@@ -2670,6 +2773,162 @@ def m7_phase(torch, card, log, ws_root, clip_ckpt: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: IMAGENET (imagenet.yml, ADM 256^2) and the ADM 256^2 classifier
+# ---------------------------------------------------------------------------
+
+IMAGENET_CLASS = 207  # n02099601 golden_retriever: a dog, for the dog_* prompts
+IMAGENET_PARAMS = 553_838_086  # ADM 256^2 with its class embedding (1000 x 1024)
+# guided-diffusion's published 256^2 classifier flags (classifier_width 128,
+# depth 2, attention at 32,16,8, pool attention, scale-shift, resblock up/down)
+CLASSIFIER = dict(image_size=256, in_channels=3, model_channels=128, out_channels=1000,
+                  num_res_blocks=2, attention_ds=(8, 16, 32), channel_mult=(1, 1, 2, 2, 4, 4),
+                  num_head_channels=64, use_scale_shift_norm=True, resblock_updown=True,
+                  pool="attention")
+
+
+def make_imagenet_workspace(torch, root: str, data: str):
+    """The full-width IMAGENET UNet from the seeded init with its all-zero
+    output layers redrawn (`perturbed`), saved as a `.pt` WITHOUT
+    `label_emb.weight` (the layout of ADM's released unconditional
+    checkpoint, which `imagenet.yml` reads under class_cond); two random
+    256^2 images per split as `{data}/imagenet/{val,train}/<wnid>/<wnid>/`
+    `*.JPEG` / `*.jpeg` of IMAGENET_CLASS; an OpenAI-flavor Δ checkpoint at
+    1024 channels. Returns (the `.pt` path, seconds of the host init)."""
+    from asyrp_official_torch.cli.main import load_config
+    from asyrp_official_torch.compat import save_delta_checkpoint
+    from asyrp_official_torch.data.datasets import imagenet_classes
+    from asyrp_official_torch.models.delta import delta_block_init
+    from asyrp_official_torch.models.registry import spec_from_config
+    from asyrp_official_torch.utils import hostrng
+
+    os.makedirs(root)
+    spec = spec_from_config(load_config(IMAGENET_CONFIG))
+    t0 = time.perf_counter()
+    sd = spec.state_dict_from_jax(perturbed(spec.init(hostrng.PRNGKey(SEED)), SEED))
+    init_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in sd.values())
+    if n_params != IMAGENET_PARAMS:
+        fail(f"the imagenet.yml UNet has {n_params} parameters, not {IMAGENET_PARAMS:,}")
+    del sd["label_emb.weight"]
+    model_path = os.path.join(root, "imagenet_uncond_perturbed.pt")
+    torch.save(sd, model_path)
+    del sd
+    wnid = imagenet_classes()[str(IMAGENET_CLASS)][0]
+    for mode, ext in (("val", "JPEG"), ("train", "jpeg")):
+        write_images(os.path.join(data, "imagenet", mode, wnid), sub=wnid, ext=ext)
+    block = delta_block_init(hostrng.PRNGKey(7), spec.bottleneck_ch, spec.temb_ch, flavor="openai")
+    save_delta_checkpoint(os.path.join(root, "imagenet_delta.pth"), blocks=[block], flavor="openai")
+    phase(f"  (a) {n_params:,} parameters from the seeded init (host: {init_s:.1f} s), saved "
+          f"without label_emb.weight ({os.path.getsize(model_path) / 2**30:.2f} GiB); class "
+          f"{IMAGENET_CLASS} ({wnid}): 2 val .JPEG and 2 train .jpeg images; a Δ checkpoint of "
+          f"{spec.bottleneck_ch} channels")
+    return model_path, init_s
+
+
+def classifier_phase(torch, dev, card):
+    """Phase 12 (e): the ADM 256^2 classifier (EncoderUNet, CLASSIFIER) from
+    its seeded init with the all-zero layers redrawn: one forward at batch
+    1 and 8 with the kernels against the plain versions (CHAIN_TOL of
+    scale); K1 and the multi-head K2 launched, K2 once per attention call,
+    the attention pool's among them (T = 65, 8 heads of 64), the one-head
+    K2 never."""
+    from unittest import mock
+
+    from asyrp_official_torch.compat.from_jax import encoder_state_dict_from_jax
+    from asyrp_official_torch.models.encoder_unet import (EncoderUNet, EncoderUNetConfig,
+                                                          encoder_init)
+    from asyrp_official_torch.ops import attention as k2
+    from asyrp_official_torch.utils import hostrng
+
+    cfg = EncoderUNetConfig(**CLASSIFIER)
+    model = EncoderUNet(cfg)
+    model.load_state_dict(encoder_state_dict_from_jax(
+        perturbed(encoder_init(hostrng.PRNGKey(SEED), cfg), SEED), cfg))
+    model = model.to(dev).eval().requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    out = {"params": n_params}
+    real = k2._attention_cuda
+    for batch in (1, 8):
+        x = torch.randn(batch, IMAGE, IMAGE, 3, generator=gen, device=dev)
+        t = torch.full((batch,), 500.0, device=dev)
+        calls = []
+
+        def launch(q, k, v, with_lse, num_heads=1, legacy_scale=False):
+            calls.append((tuple(q.shape), num_heads))  # each K2 launch's shape
+            return real(q, k, v, with_lse, num_heads, legacy_scale)
+
+        zero_counters()
+        with torch.no_grad(), mock.patch.object(k2, "_attention_cuda", launch):
+            got = model.apply(x, t)
+        counts = counters()
+        with torch.no_grad(), plain_versions():
+            want = model.apply(x, t)
+        if counters() != counts:
+            fail("the plain classifier forward launched a kernel")
+        if got.shape != (batch, cfg.out_channels) or not torch.isfinite(got).all():
+            fail(f"classifier logits {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}")
+        err = errs(got, want)[1]
+        side = cfg.image_size // 2 ** (len(cfg.channel_mult) - 1)  # the pool's map: 8^2
+        pool = ((batch, side * side + 1, cfg.bottleneck_ch),
+                cfg.bottleneck_ch // cfg.num_head_channels)
+        if (counts["attention_mh"] != len(calls) or pool not in calls or counts["attention"]
+                or not counts["group_norm"]):
+            fail(f"classifier batch {batch}: launches {counts}, attention calls {calls}")
+        with torch.no_grad():
+            ms = time_ms(lambda: model.apply(x, t), runs=10)
+        std = float(want.std())
+        out[batch] = {"rel_err": err, "logit_std": std, "launches": counts, "ms": ms}
+        phase(f"  (e) classifier forward, batch {batch}, kernels vs plain: rel err {err:.3e} (tol "
+              f"{CHAIN_TOL:g}), logit std {std:.3f}; launches {counts} (the attention pool "
+              f"{list(pool[0])} with {pool[1]} heads among {len(calls)} K2-MH calls); "
+              f"{ms:.2f} ms per forward on {card}")
+        if err > CHAIN_TOL or not std > 0.0:
+            fail(f"the classifier's logits with the kernels disagree with the plain ones: "
+                 f"{err:.3e} (logit std {std:.3e})")
+    phase(f"  (e) the classifier has {n_params:,} parameters")
+    return out
+
+
+def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
+    """Phase 12: IMAGENET through the port's CLI, in-process — (a) the
+    weights and inputs, (b) serving f32 and bf16, (c) the f32 invert+edit
+    chain against the plain versions and one eval's profile, (d) Δ-training
+    f32 and bf16 with a plain run and the gradient gate, (e) the ADM
+    classifier."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ws_root, "imagenet")
+    model_path, init_s = make_imagenet_workspace(torch, root, os.environ["ASYRP_TPU_DATA"])
+    _, _, cache_category, _ = openai_family("imagenet")
+    phase(f"  (b) --run_test --target_class_num {IMAGENET_CLASS}, {STEPS} + {STEPS} steps, bs 1")
+    serving, launches = openai_phase(torch, card, log, "imagenet", root, model_path,
+                                     IMAGENET_RUNS)
+    phase("  (c) the float32 IMAGENET serving chain, kernels vs plain versions:")
+    ws = os.path.join(root, "float32")
+    chain_err, chain_ms, per_request, served = chain_phase(
+        torch, dev, card, ws, openai_argv("imagenet", ws, model_path), IMAGENET_CONFIG,
+        "imagenet_delta.pth", f"{cache_category}_test_t999_nim2_ninv{STEPS}_pairs.npz",
+        eps_check=True)
+    phase("  where the time goes in one IMAGENET UNet eval at batch 1 (torch.profiler):")
+    profile = profile_phase(torch, dev, card, served)
+    del served
+    torch.cuda.empty_cache()
+    phase(f"  (d) --run_train --train_delta_block --target_class_num {IMAGENET_CLASS} "
+          f"--edit_attr {AFHQ_ATTR}, 2 images, 2 iterations, {STEPS}-step grids")
+    training, train_launches = openai_train_phase(torch, card, log, "imagenet", root, model_path,
+                                                  clip_ckpt, plain_run=True)
+    torch.cuda.empty_cache()
+    classifier = classifier_phase(torch, dev, card)
+    seconds = time.perf_counter() - t_phase
+    phase(f"  phase 12 took {seconds:.1f} s")
+    return {"init_s": init_s, "serving": serving, "launches": launches,
+            "train_launches": train_launches, "invert_edit_chain_ms_best_of_2": chain_ms,
+            "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
+            "profile": profile, "training": training, "classifier": classifier,
+            "seconds": seconds}
+
+
 def _ptxas_by_entry(log: str):
     """{mangled entry name: {"registers": n, "spills": ptxas's spill line}}
     from nvcc's -Xptxas -v output."""
@@ -2836,7 +3095,18 @@ def main() -> int:
           f"{len(seen_afhq['group_norm_bwd_afhq'])} shapes), {seen_afhq['train_attention_mh']} "
           f"multi-head attention calls ({sum(seen_afhq['attention_bwd_mh'].values())} with a "
           "gradient; plus the backward at T = 64 and T = 1024, x0)")
-    rows = kernel_rows(torch, dev, {**seen, **seen_afhq})
+    seen_imagenet = record_imagenet_shapes(torch, dev)
+    phase("  one edited IMAGENET UNet eval at batch 1: "
+          f"{sum(seen_imagenet['group_norm_imagenet'].values())} group_norm calls over "
+          f"{len(seen_imagenet['group_norm_imagenet'])} shapes, "
+          f"{sum(seen_imagenet['attention_mh_imagenet'].values())} multi-head attention calls "
+          "(plus the classifier's attention pool at batch 1 and 8, x0); one IMAGENET "
+          f"training-mode eval: {seen_imagenet['train_group_norm_imagenet']} group_norm calls "
+          f"({sum(seen_imagenet['group_norm_bwd_imagenet'].values())} with a gradient, over "
+          f"{len(seen_imagenet['group_norm_bwd_imagenet'])} shapes), "
+          f"{seen_imagenet['train_attention_mh_imagenet']} multi-head attention calls "
+          f"({sum(seen_imagenet['attention_bwd_mh_imagenet'].values())} with a gradient)")
+    rows = kernel_rows(torch, dev, {**seen, **seen_afhq, **seen_imagenet})
 
     os.makedirs(ws_root)
     log = _RunnerLog()
@@ -2866,11 +3136,13 @@ def main() -> int:
               "256^2, --model_path of a perturbed AFHQ .pt)")
         afhq_root = os.path.join(ws_root, "afhq")
         model_path = make_afhq_workspace(torch, afhq_root, os.environ["ASYRP_TPU_DATA"])
-        afhq_timings, afhq_launches = afhq_phase(torch, card, log, afhq_root, model_path)
+        afhq_timings, afhq_launches = openai_phase(torch, card, log, "afhq", afhq_root,
+                                                   model_path, AFHQ_RUNS)
         ws = os.path.join(afhq_root, "float32")
         phase("  the float32 AFHQ serving chain, kernels vs plain versions:")
         afhq_chain_err, afhq_chain_ms, afhq_per_request, afhq_served = chain_phase(
-            torch, dev, card, ws, afhq_argv(ws, model_path), AFHQ_CONFIG, "afhq_delta.pth",
+            torch, dev, card, ws, openai_argv("afhq", ws, model_path), AFHQ_CONFIG,
+            "afhq_delta.pth",
             f"AFHQ_test_t999_nim2_ninv{STEPS}_pairs.npz", eps_check=True)
         phase("  where the time goes in one AFHQ UNet eval at batch 1 (torch.profiler):")
         afhq_profile = profile_phase(torch, dev, card, afhq_served)
@@ -2879,8 +3151,9 @@ def main() -> int:
         phase("phase 9: OpenAI-family training through the port's CLI (--run_train "
               f"--train_delta_block, CLIP directional loss, {AFHQ_ATTR}, afhq.yml 256^2, the "
               "perturbed AFHQ .pt)")
-        afhq_training, afhq_train_launches = afhq_train_phase(
-            torch, card, log, afhq_root, os.environ["ASYRP_TPU_DATA"], model_path, clip_ckpt)
+        write_images(os.path.join(os.environ["ASYRP_TPU_DATA"], "afhq", "train"), sub="dog")
+        afhq_training, afhq_train_launches = openai_train_phase(
+            torch, card, log, "afhq", afhq_root, model_path, clip_ckpt)
         torch.cuda.empty_cache()
         phase("phase 10: the h-rows path (--train_delta_h) and the multi-edit serving modes "
               "through the port's CLI (custom.yml 256^2)")
@@ -2890,6 +3163,11 @@ def main() -> int:
               "and the fidelity runbook (--run_fidelity) through the port's CLI (custom.yml "
               "256^2)")
         m7 = m7_phase(torch, card, log, ws_root, clip_ckpt)
+        torch.cuda.empty_cache()
+        phase("phase 12: IMAGENET through the port's CLI (imagenet.yml, ADM 256^2, 553.8M "
+              "params, --target_class_num; a perturbed .pt without label_emb) and the ADM 256^2 "
+              "classifier")
+        imagenet = imagenet_phase(torch, dev, card, log, ws_root, clip_ckpt)
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
@@ -2898,7 +3176,9 @@ def main() -> int:
             **{f"afhq.yml serving {k}": v for k, v in afhq_launches.items()},
             "afhq.yml training float32": afhq_train_launches,
             **{f"custom.yml {k}": v for k, v in rows_multi["launches"].items()},
-            **{f"custom.yml {k}": v for k, v in m7["launches"].items()}}
+            **{f"custom.yml {k}": v for k, v in m7["launches"].items()},
+            **{f"imagenet.yml serving {k}": v for k, v in imagenet["launches"].items()},
+            "imagenet.yml training float32": imagenet["train_launches"]}
     afhq_f32, afhq_ddpm = afhq_launches["float32"], afhq_launches["ddpm float32"]
     gn_ref = ("asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
               "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)")
@@ -2948,6 +3228,27 @@ def main() -> int:
                              "from models/openai_unet.py:286; the former jax.custom_vjp "
                              "ops/attention.py:98-125 at 4b63bc3^ had one head)",
                              "attention_mh_bwd", afhq_train_launches),
+        "group_norm_imagenet": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
+                                gn_ref[:-1] + "; eps 1e-5 at imagenet.yml's shapes, and "
+                                "group_norm_1d at models/common.py:170 for the attention norms)",
+                                "group_norm", imagenet["launches"]["float32"]),
+        "attention_mh_imagenet": ("cuda", "asyrp_official_torch/csrc/attention.cu",
+                                  attn_ref[:-1] + " with 8 heads of 64 at 32^2 and 16 at 16^2 "
+                                  "and 8^2, legacy_scale=True, called from "
+                                  "models/openai_unet.py:286; the classifier's pool from "
+                                  "models/encoder_unet.py:136)", "attention_mh",
+                                  imagenet["launches"]["float32"]),
+        "group_norm_bwd_imagenet": ("cuda", "asyrp_official_torch/csrc/groupnorm.cu",
+                                    "asyrp_official_tpu/models/common.py:147 (group_norm's "
+                                    "gradient at eps 1e-5, imagenet.yml's decoder shapes; former "
+                                    "jax.custom_vjp ops/groupnorm.py:105-127 at 4b63bc3^)",
+                                    "group_norm_bwd", imagenet["train_launches"]),
+        "attention_bwd_mh_imagenet": ("cuda", "asyrp_official_torch/csrc/attention.cu",
+                                      "asyrp_official_tpu/models/common.py:238 (the gradient XLA "
+                                      "derives for spatial_attention with 8 and 16 heads of 64, "
+                                      "legacy_scale=True, called from "
+                                      "models/openai_unet.py:286)", "attention_mh_bwd",
+                                      imagenet["train_launches"]),
     }
     kernels = []
     for name, (route, source, replaces, counter, launches) in meta.items():
@@ -2980,7 +3281,7 @@ def main() -> int:
                         "chain_rel_err": afhq_chain_err,
                         "launches_per_invert_edit_chain": afhq_per_request,
                         "profile": afhq_profile, "training": afhq_training},
-               "rows_and_multi_edit": rows_multi, "lpips_id_fidelity": m7,
+               "rows_and_multi_edit": rows_multi, "lpips_id_fidelity": m7, "imagenet": imagenet,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

@@ -51,7 +51,28 @@ def test_every_config_is_enumerated():
     assert len(CONFIGS) >= 10
     assert attention_shapes("custom.yml") == {(256, 512, 1), (64, 512, 1)}
     assert attention_shapes("afhq.yml") == {(256, 512, 8), (64, 512, 8)}
-    assert (1024, 512, 8) in attention_shapes("imagenet.yml")
+    # IMAGENET (ADM 256^2): 8 heads of 64 at 32^2, 16 at 16^2 and 8^2
+    assert attention_shapes("imagenet.yml") == {(1024, 512, 8), (256, 1024, 16), (64, 1024, 16)}
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_check_takes_the_adm_classifier_shapes(batch):
+    """The ADM 256^2 classifier (EncoderUNet, width 128, attention at
+    32,16,8 with heads of 64, pool attention): its attention blocks, and
+    the pool's ragged T = 8^2 + 1 over the 512-channel bottleneck."""
+    from asyrp_official_torch.models.encoder_unet import EncoderUNetConfig, encoder_plan
+
+    cfg = EncoderUNetConfig(model_channels=128, num_res_blocks=2, attention_ds=(8, 16, 32),
+                            num_head_channels=64, pool="attention")
+    plan = encoder_plan(cfg)
+    layers = {(ly["ch"], ly["heads"]) for blk in plan["input"] + [plan["middle"]] for ly in blk
+              if ly["kind"] == "attn"}
+    assert layers == {(256, 4), (512, 8)}
+    shapes = {(1024, 256, 4), (256, 512, 8), (64, 512, 8), (65, 512, 8)}
+    for t, c, heads in sorted(shapes):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.empty(batch, t, c, dtype=dtype)
+            assert k2._check(q, torch.empty_like(q), torch.empty_like(q), heads) == (batch, t, c)
 
 
 @pytest.mark.parametrize("batch", [1, 8])

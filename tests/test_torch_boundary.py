@@ -12,8 +12,8 @@
   * the data files the port copied (configs, assets) are byte-identical to
     the JAX package's, and the copied host functions (schedules, step
     tables, hostrng draws, interval selection, checkpoint names, the CLI
-    parser's defaults, the face alignment, the LPIPS tsv writer) equal their
-    originals on a few inputs.
+    parser's defaults, the face alignment, the LPIPS tsv writer, the ADM
+    image crops) equal their originals on a few inputs.
 """
 import ast
 import inspect
@@ -130,7 +130,7 @@ def test_no_source_of_the_port_imports_jax_or_the_jax_package():
 COPIED_FILES = sorted(
     [f"configs/{p.name}" for p in (JAXPKG / "configs").glob("*.yml")]
     + ["assets/calibration_tables.npz", "assets/src_trg_prompts.json",
-       "assets/clip_templates.json"])
+       "assets/clip_templates.json", "assets/imagenet_classes.json"])
 
 
 @pytest.mark.parametrize("rel", COPIED_FILES)
@@ -153,6 +153,8 @@ def _pairs():
     from asyrp_official_tpu.utils import assets as j_assets, hostrng as j_rng
     from asyrp_official_torch.utils import align as p_align
     from asyrp_official_tpu.utils import align as j_align
+    from asyrp_official_torch.data import datasets as p_data
+    from asyrp_official_tpu.data import datasets as j_data
 
     def sched(m):
         s = m.make_schedule(num_timesteps=1000, beta_start=1e-4, beta_end=0.02,
@@ -212,6 +214,18 @@ def _pairs():
         return [inspect.getsource(m.align_face_from_landmarks),
                 np.asarray(m.align_face_from_landmarks(img, lm, output_size=128))]
 
+    def imagenet_crops(m):
+        # the ADM preprocessing, copied verbatim: the source, and the crops of
+        # one odd-sized image (the random one from a seeded `random`)
+        import random
+
+        from PIL import Image
+
+        img = Image.fromarray((np.random.RandomState(3).rand(150, 97, 3) * 255).astype(np.uint8))
+        random.seed(11)
+        return [inspect.getsource(m.center_crop_arr), inspect.getsource(m.random_crop_arr),
+                m.center_crop_arr(img, 32), m.random_crop_arr(img, 32), m.random_crop_arr(img, 40)]
+
     def lpips_tsv(m):
         curves = {"x0_t": {999: 0.25, 499: 1.0 / 3.0}, "x_std": {999: 1e-9, 499: 0.0}}
         with tempfile.TemporaryDirectory() as d:
@@ -238,13 +252,14 @@ def _pairs():
                                lambda: openai_block(j_ckpt, j_conv.convert_delta_block)),
         "align_face": (lambda: align(p_align), lambda: align(j_align)),
         "write_lpips_tsv": (lambda: lpips_tsv(p_assets), lambda: lpips_tsv(j_assets)),
+        "imagenet_crops": (lambda: imagenet_crops(p_data), lambda: imagenet_crops(j_data)),
     }
 
 
 @pytest.mark.parametrize("name", ["uniform_seq", "train_seq", "make_schedule", "step_tables",
                                   "hostrng", "select_interval", "checkpoint_name",
                                   "parser_defaults", "src_trg_prompts", "openai_delta_block",
-                                  "align_face", "write_lpips_tsv"])
+                                  "align_face", "write_lpips_tsv", "imagenet_crops"])
 def test_copied_function_equals_the_original(name):
     port, ref = _pairs()[name]
     got, want = port(), ref()

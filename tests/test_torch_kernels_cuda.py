@@ -92,7 +92,9 @@ def test_attention_kernel_matches_plain(cuda_device, shape, dtype, bound):
     ((1, 1024, 512), 8, True),  # IMAGENET's 32^2 level
     ((2, 100, 96), 3, True), ((1, 64, 128), 4, False),
     ((2, 100, 512), 8, True),  # ragged T
-    ((8, 256, 512), 8, True)])  # batch 8
+    ((8, 256, 512), 8, True),  # batch 8
+    ((1, 256, 1024), 16, True), ((1, 64, 1024), 16, True),  # IMAGENET's 16^2 and 8^2
+    ((2, 65, 512), 8, True)])  # the ADM classifier's attention pool: T = 8^2 + 1
 def test_multihead_attention_kernel_matches_plain(cuda_device, shape, heads, legacy, dtype, bound):
     g = torch.Generator(device=cuda_device).manual_seed(6)
     q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype) for _ in range(3))
@@ -245,8 +247,10 @@ def _streams(shape, dtype, backward=False):
 # shape, dtype, whether the group streams part of its slice: scalar
 # vectors (H*W not a multiple of the 16-byte vector), H*W/vec not a power
 # of two, the decoders' largest on-path group (2 MiB f32, a cluster of 16),
-# and groups too large for one cluster's shared memory
-_K1_SHAPES = [((3, 64, 5, 7), torch.float32, False), ((3, 64, 5, 7), torch.bfloat16, False),
+# and groups too large for one cluster's shared memory (IMAGENET's decoder
+# at 256^2 on the path: 512 channels, a 4 MiB f32 group)
+_K1_SHAPES = [((1, 512, 256, 256), torch.float32, True),
+              ((1, 512, 256, 256), torch.bfloat16, False), ((3, 64, 5, 7), torch.float32, False), ((3, 64, 5, 7), torch.bfloat16, False),
               ((1, 96, 10, 10), torch.float32, False), ((1, 256, 256, 256), torch.float32, False),
               ((1, 256, 256, 256), torch.bfloat16, False),
               ((1, 2048, 128, 128), torch.float32, True),
@@ -270,7 +274,8 @@ def test_group_norm_kernel_at_odd_cluster_and_streamed_shapes(cuda_device, shape
     ((3, 64, 5, 7), torch.float32, True), ((3, 64, 5, 7), torch.bfloat16, True),
     ((1, 96, 10, 10), torch.float32, False), ((1, 256, 256, 256), torch.float32, False),
     ((1, 256, 256, 256), torch.bfloat16, False), ((1, 256, 64, 64), torch.float32, True),
-    ((1, 2048, 128, 128), torch.float32, False)])
+    ((1, 2048, 128, 128), torch.float32, False), ((1, 512, 256, 256), torch.float32, False),
+    ((1, 512, 256, 256), torch.bfloat16, False)])
 def test_group_norm_backward_kernel_at_odd_cluster_and_streamed_shapes(cuda_device, shape, dtype,
                                                                        train_weight):
     """The f32 [1,256,256,256] group (2 MiB of x, 2 MiB of dy) streams part
@@ -398,6 +403,7 @@ def test_attention_backward_kernel_matches_autograd(cuda_device, shape, dtype, b
     ((2, 100, 96), 3, True), ((1, 64, 128), 4, False),
     ((2, 100, 512), 8, True), ((1, 200, 512), 8, True),  # ragged T
     ((8, 256, 512), 8, True),  # batch 8
+    ((1, 256, 1024), 16, True), ((1, 64, 1024), 16, True),  # IMAGENET's 16^2 and 8^2
     ((1, 4096, 512), 8, True)])  # T = 4096: shared memory does not grow with T
 def test_multihead_attention_backward_kernel_matches_autograd(cuda_device, shape, heads, legacy,
                                                               dtype, bound):

@@ -5,6 +5,8 @@ at 16^2), float32 on the CPU. Both sides start from the same seeded
 
 Tolerance: `close_to_scale` 1e-4 (max error relative to the array's scale).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,9 +174,20 @@ def test_unported_modes_raise():
         tdelta.apply_edit(tdelta.EditState(mode="global"), torch.zeros(1, 8, 2, 2), None)
     from asyrp_official_torch.models.registry import resolve
 
-    # the OpenAI family serves (its own tests: test_torch_openai.py); the
-    # class-conditional IMAGENET UNet has no bit-exact random init yet
+    # the OpenAI family serves (its own tests: test_torch_openai.py,
+    # test_torch_imagenet.py); the class-conditional IMAGENET UNet's random
+    # init is JAX's, here at IMAGENET's depth and attention levels, narrow
     assert resolve("FFHQ").family == "openai" and resolve("FFHQ").learn_sigma
-    with pytest.raises(NotImplementedError, match="label_emb"):
-        resolve("IMAGENET").init(hostrng.PRNGKey(0))
+    spec = resolve("IMAGENET")
+    assert spec.config.num_classes == 1000 and spec.learn_sigma
+    narrow = dataclasses.replace(spec.config, image_size=64, model_channels=32, num_classes=10)
+    from asyrp_official_tpu.models import openai_unet as joai
+
+    jnarrow = joai.OpenAIUNetConfig(**dataclasses.asdict(narrow))
+    got = dataclasses.replace(spec, config=narrow).init(hostrng.PRNGKey(0))
+    want = joai.init(hostrng.PRNGKey(0), jnarrow)
+    la, lb = jax.tree_util.tree_leaves_with_path(want), jax.tree_util.tree_leaves_with_path(got)
+    assert [p for p, _ in la] == [p for p, _ in lb] and "label_emb" in got
+    for (path, w), (_, g) in zip(la, lb):
+        np.testing.assert_array_equal(np.asarray(w), g, err_msg=str(path))
     assert resolve("CelebA_HQ").config == tddpmpp.CELEBA_CONFIG

@@ -105,14 +105,78 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--run_test", "--train_delta_block", "--use_mask"],
-    ["--run_train", "--train_delta_block", "--target_class_num", "1"], ["--diff_style"],
-    ["--run_test", "--train_delta_block", "--target_class_num", "1"],
+    ["--diff_style"],
     ["--run_test", "--train_delta_block", "--dp", "2"],
     ["--run_train", "--train_delta_block", "--dp", "2"],
 ])
 def test_cli_unported_modes_exit_1(tmp_path, extra):
     assert _cli(tmp_path, *extra, "--device", "cpu") == 1
+
+
+def _rows_checkpoint(ws):
+    """A Δh-rows checkpoint for the tiny DDPM++ UNet's [16, 16, 64]
+    bottleneck, one seeded row per timestep of the 4-step grids."""
+    from asyrp_official_torch.compat.delta_ckpt import save_delta_checkpoint
+    from asyrp_official_torch.core.schedule import uniform_seq
+
+    rng = np.random.RandomState(7)
+    save_delta_checkpoint(
+        os.path.join(ws, "checkpoint", "rows_LC_CUSTOM_t999_ninv4_ngen4_0.pth"),
+        delta_rows={t: rng.randn(16, 16, 64).astype(np.float32)
+                    for t in uniform_seq(4, 999)})
+
+
+@pytest.mark.parametrize("extra", [
+    # rows serving with the masked slerp (the DiffStyle region), as --masked_h
+    ["--run_test", "--train_delta_h", "--load_from_checkpoint", "rows", "--delta_injection",
+     "slerp", "--hs_coeff_origin_h", "0.5", "--use_mask"],
+    # --target_class_num is read and ignored outside IMAGENET
+    ["--run_train", "--train_delta_block", "--target_class_num", "1"],
+    ["--run_test", "--train_delta_block", "--load_from_checkpoint", "golden",
+     "--target_class_num", "1"],
+])
+def test_cli_formerly_unported_modes_match_the_jax_cli(tmp_path, extra):
+    """Modes the port used to refuse run through its CLI on the tiny
+    workspace and write what the JAX CLI writes: the same grids within one
+    uint8 level, and for training the same trained block within 1e-4 of
+    scale."""
+    from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint
+    from asyrp_official_tpu.cli.main import main as jax_main
+    from asyrp_official_tpu.utils.tinyws import tiny_base_argv, write_tiny_workspace
+
+    from asyrp_official_torch.cli.main import main as port_main
+    from parity_utils import close_to_scale
+
+    out = {}
+    for pkg, main, more in (("jax", jax_main, []), ("port", port_main, ["--device", "cpu"])):
+        ws = tmp_path / pkg
+        os.makedirs(ws / "checkpoint")
+        cfg, imgs = write_tiny_workspace(str(ws))
+        if "golden" in extra:
+            from asyrp_official_torch.models.delta import delta_block_init
+            from asyrp_official_torch.compat.delta_ckpt import save_delta_checkpoint
+            from asyrp_official_torch.utils import hostrng
+
+            save_delta_checkpoint(
+                str(ws / "checkpoint" / "golden_LC_CUSTOM_t999_ninv4_ngen4_0.pth"),
+                blocks=[delta_block_init(hostrng.PRNGKey(123), 64, 128)], flavor="ddpm")
+        elif "rows" in extra:
+            _rows_checkpoint(str(ws))
+        argv = tiny_base_argv(cfg, imgs, str(ws), str(ws / "runs" / "exp"), bs_train=1,
+                              edit_attr=None, extra=[*extra, "--save_x_origin", *more])
+        assert main(argv) == 0, pkg
+        out[pkg] = ws
+    want, got = _grids(out["jax"]), _grids(out["port"])
+    assert sorted(want) == sorted(got) and got, (sorted(want), sorted(got))
+    for k in got:
+        diff = np.abs(want[k].astype(np.int16) - got[k].astype(np.int16))
+        assert diff.max() <= 1, (k, int(diff.max()))
+    if "--run_train" in extra:
+        name = os.path.join("checkpoint", "exp_LC_CUSTOM_t999_ninv4_ngen4_0.pth")
+        (jb,), (tb,) = (load_delta_checkpoint(str(out[p] / name))["blocks"] for p in out)
+        for g in jb:
+            for k in jb[g]:
+                close_to_scale(jb[g][k], tb[g][k], f"{g}/{k}")
 
 
 def test_cli_missing_checkpoint_exits_1(tmp_path):
