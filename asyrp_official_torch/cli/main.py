@@ -32,11 +32,18 @@ plus `--device` (default `cuda`), driving the port's AsyrpRunner.
         --n_inv_step 40 --n_test_step 40 --user_defined_t_edit 513 \
         --user_defined_t_addnoise 167 --ni
 
-`--run_train` / `--just_precompute` (with the ID term: `--id_loss_w` and
-`--ir_se50_ckpt`), `--run_test`, `--lpips` and `--run_fidelity` are ported,
-with `--align_face` and `--trace_dir`; `--diff_style` raises
-NotImplementedError. Like the JAX CLI, every failure after argument parsing
-is logged and returns 1.
+    # DiffStyle: every content image stylized by every style image
+    python -m asyrp_official_torch.cli.main --diff_style --config custom.yml \
+        --exp ./runs/style --device cuda --model_path pretrained/celeba_hq.ckpt \
+        --content_dir ./contents --style_dir ./styles --save_dir ./styled \
+        --n_inv_step 40 --n_gen_step 40 --user_defined_t_edit 513 \
+        --user_defined_t_addnoise 167 --hs_coeff 0.9 --ni
+
+Every mode of the JAX CLI is ported: `--run_train` / `--just_precompute`
+(with the ID term: `--id_loss_w` and `--ir_se50_ckpt`), `--run_test`,
+`--lpips`, `--run_fidelity` and `--diff_style`, dispatched in that order of
+precedence, with `--align_face` and `--trace_dir`. Like the JAX CLI, every
+failure after argument parsing is logged and returns 1.
 """
 from __future__ import annotations
 
@@ -55,8 +62,6 @@ from asyrp_official_torch.cli.args import build_parser as _reference_parser
 from asyrp_official_torch.cli.args import load_config
 
 __all__ = ["build_parser", "build_contexts", "load_config", "main"]
-
-_UNPORTED_MODES = ("diff_style",)
 
 
 def build_parser():
@@ -163,12 +168,10 @@ def main(argv=None) -> int:
             mode = "test" if args.run_test else "train" if args.run_train else "run"
             base = os.path.basename(args.sh_file_name).split(".")[0]
             shutil.copy(args.sh_file_name, os.path.join(args.exp, f"{base}_{mode}.sh"))
-        for mode in _UNPORTED_MODES:
-            if getattr(args, mode, False):
-                raise NotImplementedError(f"--{mode} is not ported yet (ROADMAP.md Queue 1)")
         if not (args.run_train or args.just_precompute or args.run_test or args.lpips
-                or args.run_fidelity):
-            print("nothing to do: pass --run_train / --run_test / --lpips / --run_fidelity")
+                or args.run_fidelity or args.diff_style):
+            print("nothing to do: pass --run_train / --run_test / --lpips / --run_fidelity / "
+                  "--diff_style")
             return 1
         if getattr(args, "align_face", 0):
             align_dataset_dirs(args)
@@ -186,8 +189,10 @@ def main(argv=None) -> int:
                 runner.run_test()
             elif args.lpips:
                 runner.run_lpips()
-            else:
+            elif args.run_fidelity:
                 runner.run_fidelity()
+            else:
+                runner.run_style_transfer()
     except Exception:
         logging.exception("run failed")
         return 1

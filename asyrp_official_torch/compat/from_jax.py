@@ -26,7 +26,8 @@ from asyrp_official_torch.losses.id_loss import IRSE50_BLOCKS
 
 __all__ = ["ddpmpp_state_dict_from_jax", "openai_unet_state_dict_from_jax",
            "encoder_state_dict_from_jax", "delta_block_state_dict_from_jax",
-           "lpips_state_dict_from_jax", "irse50_state_dict_from_jax"]
+           "delta_block_global_state_dict_from_jax", "lpips_state_dict_from_jax",
+           "irse50_state_dict_from_jax"]
 
 
 def _conv(p, prefix, out):
@@ -188,6 +189,19 @@ def delta_block_state_dict_from_jax(block: Dict[str, Any], flavor: str = "ddpm"
     """A DeltaBlock tree (JAX layout) → the flavor's DeltaBlock state dict."""
     return _tensors({k: np.asarray(v, np.float32)
                      for k, v in blocks_to_torch_sd(block, flavor).items()})
+
+
+def delta_block_global_state_dict_from_jax(block: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A `delta_block_global_init` tree (JAX layout) → `DeltaBlockGlobal`
+    state dict, under the reference DeltaBlock_global's names."""
+    out: Dict[str, np.ndarray] = {}
+    _conv(block["conv1"], "conv1", out)
+    for name in ("temb_proj", "clip_proj", "clip_proj_2"):
+        _lin(block[name], name, out)
+    for i in (2, 3, 4):
+        _norm(block[f"norm{i}"], f"norm{i}", out)
+        _mat(block[f"conv{i}"], f"conv{i}", out)
+    return _tensors(out)
 
 
 def lpips_state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:

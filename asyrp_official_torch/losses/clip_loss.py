@@ -1,6 +1,7 @@
-"""The CLIP directional loss of Δ-training — the port of the JAX package's
-`losses/clip_loss.py` (`clip_preprocess`, `CLIPContext`,
-`directional_loss`, `train_clip_term`).
+"""The CLIP losses — the port of the JAX package's `losses/clip_loss.py`:
+`clip_preprocess`, `CLIPContext`, the directional loss of Δ-training
+(`directional_loss`, `train_clip_term`), and the global, angle, texture
+(RN50 features) and patch-directional terms.
 
 Text features never change during training: they are computed once, and
 the text direction is detached. The image side is differentiable, so the
@@ -11,15 +12,16 @@ from __future__ import annotations
 import dataclasses
 import functools
 import warnings
-from typing import Callable
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from asyrp_official_torch.losses import clip_model, tokenizer as tok
+from asyrp_official_torch.losses import clip_model, clip_resnet, tokenizer as tok
 from asyrp_official_torch.utils.assets import clip_templates
 
-__all__ = ["CLIPContext", "clip_preprocess", "directional_loss", "train_clip_term"]
+__all__ = ["CLIPContext", "clip_preprocess", "directional_loss", "global_loss", "angle_loss",
+           "texture_loss", "patch_directional_loss", "train_clip_term"]
 
 # CLIP normalization constants
 CLIP_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -70,15 +72,17 @@ def clip_preprocess(img, resolution: int = 224):
 @dataclasses.dataclass
 class CLIPContext:
     """A frozen CLIP module, its config and tokenizer: text features on the
-    module's device, and the differentiable image encoder."""
+    module's device, and the differentiable image encoder. A context may
+    hold the RN50 tower (`clip_resnet.ModifiedResNet` and its config)
+    instead, for the texture loss: it encodes images only."""
 
-    model: clip_model.CLIP
-    cfg: clip_model.CLIPConfig
+    model: Union[clip_model.CLIP, clip_resnet.ModifiedResNet]
+    cfg: Union[clip_model.CLIPConfig, clip_resnet.RN50Config]
     bpe: object = None  # SimpleTokenizer | HashTokenizer | None → auto
 
     @property
     def device(self) -> torch.device:
-        return self.model.positional_embedding.device
+        return next(self.model.parameters()).device
 
     def tokenize(self, texts) -> torch.Tensor:
         if self.bpe is None:
@@ -118,10 +122,11 @@ class CLIPContext:
         d = (tf - sf).mean(dim=0, keepdim=True)
         return d / d.norm(dim=-1, keepdim=True)
 
-    def encode_images(self, imgs):
-        """Normalized image features, differentiable with respect to `imgs`."""
+    def encode_images(self, imgs, norm: bool = True):
+        """Image features (normalized with `norm`), differentiable with
+        respect to `imgs`; the RN50 tower's when the context holds it."""
         feats = self.model.encode_image(clip_preprocess(imgs, self.cfg.image_resolution))
-        return feats / feats.norm(dim=-1, keepdim=True)
+        return feats / feats.norm(dim=-1, keepdim=True) if norm else feats
 
 
 def directional_loss(ctx: CLIPContext, src_img, trg_img, target_direction):
@@ -129,6 +134,60 @@ def directional_loss(ctx: CLIPContext, src_img, trg_img, target_direction):
     edit = ctx.encode_images(trg_img) - ctx.encode_images(src_img)
     edit = edit / (edit.norm(dim=-1, keepdim=True) + 1e-7)
     return (1.0 - (edit * target_direction).sum(dim=-1)).mean()
+
+
+def global_loss(ctx: CLIPContext, img, text_features):
+    """(1 − logits / 100), mean; `text_features` normalized."""
+    logits = ctx.model.logit_scale.exp() * ctx.encode_images(img) @ text_features.T
+    return (1.0 - logits / 100.0).mean()
+
+
+def angle_loss(ctx: CLIPContext, src_img, trg_img, src_text_features, trg_text_features):
+    """L1 between the image pairs' and the text pairs' cosines."""
+    cos_text = trg_text_features @ src_text_features.T
+    si = ctx.encode_images(src_img)[:, :, None]
+    ti = ctx.encode_images(trg_img)[:, None, :]
+    cos_img = (ti @ si).clamp(-1.0, 1.0)
+    return (cos_img - cos_text[None]).abs().mean()
+
+
+def texture_loss(ctx_cnn: CLIPContext, src_img, trg_img):
+    """MSE between the unnormalized features of a context holding the RN50
+    tower."""
+    sf = ctx_cnn.encode_images(src_img, norm=False)
+    tf = ctx_cnn.encode_images(trg_img, norm=False)
+    return ((sf - tf) ** 2).mean()
+
+
+def patch_directional_loss(ctx: CLIPContext, src_img, trg_img, patch_text_directions,
+                           generator: Optional[torch.Generator] = None, patch_size: int = 510,
+                           num_patches: int = 1, centers: Optional[Tuple] = None):
+    """The directional loss on square patches, weighted by the softmax of
+    the patch edits against `patch_text_directions` [K, D]. `centers=(cx,
+    cy)` gives the patch centers (one per sample and patch); without them
+    they are drawn from `generator` (not the JAX package's draw). A patch
+    that would leave the image is moved inside it, as `dynamic_slice`
+    clamps."""
+    b, h, w, _ = src_img.shape
+    half, n = patch_size // 2, b * num_patches
+    if centers is not None:
+        cx, cy = (np.asarray(c).reshape(-1).tolist() for c in centers)
+    else:
+        cx = torch.randint(half, w - half, (n,), generator=generator).tolist()
+        cy = torch.randint(half, h - half, (n,), generator=generator).tolist()
+
+    def grab(img):
+        out = []
+        for i in range(n):
+            y0 = min(max(int(cy[i]) - half, 0), h - patch_size)
+            x0 = min(max(int(cx[i]) - half, 0), w - patch_size)
+            out.append(img[i // num_patches, y0:y0 + patch_size, x0:x0 + patch_size])
+        return torch.stack(out)
+
+    edit = ctx.encode_images(grab(trg_img)) - ctx.encode_images(grab(src_img))
+    edit = edit / edit.norm(dim=-1, keepdim=True)
+    cos_d = 1.0 - (edit[:, None, :] * patch_text_directions[None]).sum(-1)
+    return (cos_d * torch.softmax(edit @ patch_text_directions.T, dim=-1)).mean()
 
 
 def train_clip_term(ctx: CLIPContext, source_class: str, target_class: str,

@@ -1,8 +1,10 @@
-"""DeltaBlocks (DDPM++ and OpenAI flavors), `EditState`, `slerp` and
-`apply_edit` — the port of the JAX `models/delta.py` for the `deltablock`
-edit mode and the `input` mode (the per-timestep Δh rows of
-`--train_delta_h`, injected by `add` or by the norm-matched `slerp`, the
-latter optionally inside the `--masked_h` region).
+"""DeltaBlocks (DDPM++ and OpenAI flavors, and the CLIP-conditioned
+`DeltaBlockGlobal`), `EditState`, `slerp` and `apply_edit` — the port of the
+JAX `models/delta.py`. Edit modes: `deltablock`; `input` (the per-timestep
+Δh rows of `--train_delta_h` and DiffStyle, injected by `add` or by the
+norm-matched `slerp`, the latter optionally inside the DiffStyle mask);
+`global` (h + DeltaBlockGlobal(h, temb, clip_direction)); `interp_batch`
+(every sample the interpolation of the batch's end points).
 
 Each DeltaBlock keeps the reference's key names (DDPM++: conv1 / temb_proj /
 norm2 / conv2; OpenAI: in_layers.{0,2} / emb_layers.1 / out_layers.{0,3}),
@@ -19,15 +21,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from asyrp_official_torch.compat.from_jax import delta_block_state_dict_from_jax
+from asyrp_official_torch.compat.from_jax import (delta_block_global_state_dict_from_jax,
+                                                  delta_block_state_dict_from_jax)
 from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
 from asyrp_official_torch.utils import hostrng
 
-__all__ = ["DeltaBlock", "OpenAIDeltaBlock", "EditState", "apply_edit", "delta_block_init",
-           "delta_block_from_tree", "init_delta_blocks", "rows_to_nchw", "rows_to_nhwc", "slerp"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md Queue 1, M2)"
+__all__ = ["DeltaBlock", "OpenAIDeltaBlock", "DeltaBlockGlobal", "EditState", "apply_edit",
+           "delta_block_init", "delta_block_global_init", "delta_block_from_tree",
+           "delta_block_global_from_tree", "init_delta_blocks", "rows_to_nchw", "rows_to_nhwc",
+           "slerp"]
 
 
 class DeltaBlock(nn.Module):
@@ -67,7 +70,63 @@ class OpenAIDeltaBlock(nn.Module):
         return cm.mat1x1(self.out_layers[3], self.out_layers[0](h, silu=True, pre_add=t))
 
 
+class DeltaBlockGlobal(nn.Module):
+    """The reference's DeltaBlock_global, conditioned on a CLIP direction
+    [1|B, clip_ch]: conv1 (3x3) → (+ temb + clip_proj) → GN → SiLU → conv2
+    → (+ clip_proj_2 as a [1, C, h, w] map) → GN → SiLU → conv3 → GN → SiLU
+    → conv4 (1x1 each). Its GroupNorm+SiLU calls are K1 (eps 1e-6)."""
+
+    def __init__(self, ch: int, temb_ch: int, clip_ch: int = 512, hw: int = 8):
+        super().__init__()
+        self.conv1 = nn.Conv2d(ch, ch, 3, padding=1)
+        self.temb_proj = nn.Linear(temb_ch, ch)
+        self.clip_proj = nn.Linear(clip_ch, ch)
+        self.clip_proj_2 = nn.Linear(clip_ch, ch * hw * hw)
+        self.norm2, self.norm3, self.norm4 = cm.GroupNorm(ch), cm.GroupNorm(ch), cm.GroupNorm(ch)
+        self.conv2, self.conv3, self.conv4 = (nn.Conv2d(ch, ch, 1) for _ in range(3))
+
+    def forward(self, x, temb, clip_direction):
+        b, c, hh, ww = x.shape
+        d = torch.as_tensor(clip_direction).to(device=x.device, dtype=x.dtype)
+        h = cm.conv2d(self.conv1, x)
+        add = cm.linear(self.temb_proj, F.silu(temb)) + cm.linear(self.clip_proj, d)
+        h = cm.mat1x1(self.conv2, self.norm2(h, silu=True, pre_add=add.expand(b, c).contiguous()))
+        # the reference reshapes to NCHW (1, C, h, w): the port's own layout
+        h = h + cm.linear(self.clip_proj_2, d).reshape(1, c, hh, ww)
+        h = cm.mat1x1(self.conv3, self.norm3(h, silu=True))
+        return cm.mat1x1(self.conv4, self.norm4(h, silu=True))
+
+
 _BLOCKS = {"ddpm": DeltaBlock, "openai": OpenAIDeltaBlock}
+
+
+def delta_block_global_init(key: np.ndarray, ch: int, temb_ch: int, clip_ch: int = 512,
+                            hw: int = 8) -> Dict[str, Any]:
+    """The JAX `delta_block_global_init` tree (JAX layout) for a numpy key."""
+    ks = hostrng.split(key, 8)
+    return {
+        "conv1": hostinit.conv_init(ks[0], 3, 3, ch, ch),
+        "temb_proj": hostinit.linear_init(ks[1], temb_ch, ch),
+        "clip_proj": hostinit.linear_init(ks[2], clip_ch, ch),
+        "clip_proj_2": hostinit.linear_init(ks[3], clip_ch, ch * hw * hw),
+        "norm2": hostinit.norm_init(ch),
+        "conv2": hostinit.linear_init(ks[4], ch, ch),
+        "norm3": hostinit.norm_init(ch),
+        "conv3": hostinit.linear_init(ks[5], ch, ch),
+        "norm4": hostinit.norm_init(ch),
+        "conv4": hostinit.linear_init(ks[6], ch, ch),
+    }
+
+
+def delta_block_global_from_tree(tree: Dict[str, Any]) -> DeltaBlockGlobal:
+    """A JAX-layout `delta_block_global_init` tree → DeltaBlockGlobal (the
+    sizes read off the tree)."""
+    ch, temb_ch = tree["temb_proj"]["w"].shape[::-1]
+    clip_ch = tree["clip_proj"]["w"].shape[0]
+    hw = int(round((tree["clip_proj_2"]["w"].shape[1] // ch) ** 0.5))
+    block = DeltaBlockGlobal(ch, temb_ch, clip_ch, hw)
+    block.load_state_dict(delta_block_global_state_dict_from_jax(tree))
+    return block
 
 
 def delta_block_init(key: np.ndarray, ch: int, temb_ch: int, *, flavor: str = "ddpm") -> Dict[str, Any]:
@@ -167,6 +226,11 @@ class EditState:
     DiffStyle mask region with `use_mask`; `times`, the timesteps of the
     rows (None when one row serves every step).
 
+    `global` mode: `blocks[0]` a DeltaBlockGlobal and `clip_direction`
+    [1|B, clip_ch]; h2 = h + block(h, temb, clip_direction) (`hs_coeff`
+    and `ignore_timestep` unused). `interp_batch` mode: `alpha` [B]; every
+    sample becomes (1 - alpha)·h[0] + alpha·h[-1], with no Δh.
+
     The sampler binds the step's gate `use_delta` (1.0 where the edit is
     injected) and row `delta_idx` through `at_step`."""
 
@@ -181,6 +245,8 @@ class EditState:
     input_style: str = "slerp"
     use_mask: bool = False
     times: Optional[Tuple[int, ...]] = None
+    clip_direction: Optional[torch.Tensor] = None
+    alpha: Optional[torch.Tensor] = None
 
     def at_step(self, aux) -> "EditState":
         return dataclasses.replace(self, use_delta=aux["use_delta"],
@@ -221,8 +287,6 @@ def _input_edit(edit: EditState, h, hs_coeff, c):
 def apply_edit(edit: EditState, h, temb):
     """The edited bottleneck h2 and the Δh used (the last block's, or the
     step's row), gated by `edit.use_delta`. h is NCHW."""
-    if edit.mode not in ("deltablock", "input"):
-        raise NotImplementedError(f"edit mode {edit.mode!r} {_NOT_PORTED}")
     hs_coeff = edit.hs_coeff
     if hs_coeff is None:
         hs_coeff = torch.ones(len(edit.blocks) + 1)
@@ -235,7 +299,13 @@ def apply_edit(edit: EditState, h, temb):
 
     if edit.mode == "input":
         h2, delta_h = _input_edit(edit, h, hs_coeff, c)
-    else:
+    elif edit.mode == "global":
+        delta_h = edit.blocks[0](h, temb, edit.clip_direction)
+        h2 = h + delta_h
+    elif edit.mode == "interp_batch":
+        a = torch.as_tensor(edit.alpha).to(device=h.device, dtype=h.dtype).reshape(-1, 1, 1, 1)
+        h2, delta_h = (1.0 - a) * h[:1] + a * h[-1:], None
+    elif edit.mode == "deltablock":
         if hs_coeff.shape[-1] < len(edit.blocks) + 1:
             raise ValueError(f"hs_coeff needs {len(edit.blocks) + 1} entries (original h + one "
                              f"per block), got {hs_coeff.shape[-1]}")
@@ -245,5 +315,7 @@ def apply_edit(edit: EditState, h, temb):
         for i, block in enumerate(edit.blocks):
             delta_h = block(h, temb_in)
             h2 = h2 + delta_h * c(i + 1)
+    else:
+        raise ValueError(f"unknown edit mode: {edit.mode}")
     use = float(edit.use_delta)
     return use * h2 + (1.0 - use) * h, delta_h

@@ -12,6 +12,14 @@ Calling conventions (the model takes the place of the JAX params):
   make_generate(...)      -> fn(model, x_lat, generator=None, noise_fn=None) -> (x, ys)
   make_edit_generate(...) -> fn(model, edit, x_lat, generator=None, noise_fn=None) -> (x, ys)
   make_invert_edit(...)   -> fn(model, edit, x0, generator=None, noise_fn=None) -> x_edit
+  make_invert_with_h(...) -> fn(model, x0)                       -> (x_lat, h_traj)
+  make_image_noise_generate(...) -> fn(model, noise_param, x_lat, generator=None,
+                                       noise_fn=None)            -> (x, ys)
+
+`h_traj` is the bottleneck h of every inversion step, [S-1, B, C, h, w] f32
+(NCHW, the layout `EditState.delta_rows` takes; the JAX package's is NHWC).
+`make_image_noise_generate` is the one maker not under `no_grad`: the
+gradient reaches `noise_param` ([H, W, C]) through the whole chain.
 """
 from __future__ import annotations
 
@@ -25,13 +33,19 @@ from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.core.schedule import Schedule
 from asyrp_official_torch.core.steptable import StepTable, generation_table, inversion_table
 
-__all__ = ["make_invert", "make_generate", "make_edit_generate", "make_invert_edit"]
+__all__ = ["make_invert", "make_generate", "make_edit_generate", "make_invert_edit",
+           "make_invert_with_h", "make_image_noise_generate"]
 
 
-def _plain_eps(spec: ModelSpec, model, compute_dtype):
+def _plain_eps(spec: ModelSpec, model, compute_dtype, want_h: bool = False):
+    """The plain decode; with `want_h` also the step's bottleneck h as the
+    extra "h" ([B, C, h, w] f32)."""
+
     def eps_fn(x, t, aux):
-        eps, *_ = spec.apply(model, x.to(compute_dtype), t)
-        return eps.float(), None
+        eps, _, _, h = spec.apply(model, x.to(compute_dtype), t)
+        if not want_h:
+            return eps.float(), None
+        return eps.float(), None, {"h": h.permute(0, 3, 1, 2).float()}
 
     return eps_fn
 
@@ -136,5 +150,46 @@ def make_invert_edit(spec: ModelSpec, schedule: Schedule, seq_inv, seq_gen, *, t
                                 learn_sigma=spec.learn_sigma)
         x_edit, _ = gen_chain(model, edit, x_lat, generator, noise_fn)
         return x_edit
+
+    return run
+
+
+def make_image_noise_generate(spec: ModelSpec, schedule: Schedule, seq, *, t_edit: int,
+                              t_addnoise: int = -1, coeff: float = 1.0,
+                              compute_dtype=torch.float32) -> Callable:
+    """Image-space noise optimization (`--image_space_noise_optim`): eps_mod =
+    eps + noise_param·coeff for t >= t_edit, eps elsewhere. Runs with
+    autograd on, so a `noise_param` that requires grad gets its gradient
+    through every step after the first gated one (K3-bwd, and the UNet's
+    backward through K1-bwd and K2-bwd)."""
+    table = generation_table(seq, t_edit=t_edit, t_addnoise=t_addnoise)
+
+    def run(model, noise_param, x_lat, generator=None, noise_fn=None):
+        def eps_fn(x, t, aux):
+            eps, *_ = spec.apply(model, x.to(compute_dtype), t)
+            if spec.learn_sigma:
+                eps = eps[..., :eps.shape[-1] // 2]
+            eps = eps.float()
+            if aux["use_delta"] <= 0:
+                return eps, None
+            return eps, eps + noise_param[None].float() * coeff
+
+        return sample_chain(eps_fn, schedule, table, x_lat, generator, noise_fn=noise_fn)
+
+    return run
+
+
+def make_invert_with_h(spec: ModelSpec, schedule: Schedule, seq, *,
+                       compute_dtype=torch.float32) -> Callable:
+    """DDIM inversion over the ascending `seq` that also returns the
+    bottleneck h of every step (the input of each step's eval), for
+    DiffStyle: fn(model, x0) -> (x_lat, h_traj [S-1, B, C, h, w] f32)."""
+    table = inversion_table(seq)
+
+    @torch.no_grad()
+    def run(model, x0):
+        x_lat, ys = sample_chain(_plain_eps(spec, model, compute_dtype, want_h=True), schedule,
+                                 table, x0, learn_sigma=spec.learn_sigma, collect=("h",))
+        return x_lat, ys["h"]
 
     return run

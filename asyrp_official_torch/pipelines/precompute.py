@@ -4,8 +4,10 @@ them, in batches, with the same cache naming
 (`{category}_{mode}_t{t0}_nim{N}_ninv{ninv}_pairs.npz`, the category
 `{category}_{class_name}` for one ImageNet class), `.npz` payload
 ({"x0", "x_rec", "x_lat"}, NHWC float32) and partial resume as the JAX
-package, so the two packages read each other's caches; and
-`random_noise_pairs`, the Gaussian latents of `--load_random_noise`."""
+package, so the two packages read each other's caches;
+`precompute_with_h`, one image's inversion with its h trajectory (DiffStyle),
+cached as the JAX package caches it; and `random_noise_pairs`, the Gaussian
+latents of `--load_random_noise`."""
 from __future__ import annotations
 
 import os
@@ -19,7 +21,8 @@ from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.pipelines import engine
 from asyrp_official_torch.core.schedule import Schedule, uniform_seq
 
-__all__ = ["pairs_cache_path", "load_pairs_cache", "precompute_pairs", "random_noise_pairs"]
+__all__ = ["pairs_cache_path", "load_pairs_cache", "precompute_pairs", "precompute_with_h",
+           "random_noise_pairs"]
 
 
 def pairs_cache_path(cache_dir: str, category: str, mode: str, t_0: int, nim: int,
@@ -119,6 +122,44 @@ def precompute_pairs(
                 save_image(pairs[key][i], os.path.join(save_imgs_dir, f"{mode}_{i}_{tag}.png"),
                            pm1=True)
     return pairs
+
+
+def precompute_with_h(
+    spec: ModelSpec,
+    model,
+    schedule: Schedule,
+    x0: np.ndarray,
+    *,
+    n_inv_step: int,
+    device: torch.device,
+    t_0: int = 999,
+    cache_key: Optional[str] = None,
+    category: str = "CUSTOM",
+    cache_dir: str = "precomputed",
+    compute_dtype=torch.float32,
+) -> Dict[str, np.ndarray]:
+    """Invert `x0` ([B, H, W, C] numpy) recording the bottleneck h of every
+    step, keyed by the step's source t. Returns {"x0", "x_lat", "h_traj"
+    [S-1, B, h, w, C] (NHWC, as the JAX package writes it), "h_times"};
+    with `cache_key`, cached as `{category}_inv{n}_{key}.npz`."""
+    base = None
+    if cache_key is not None:
+        base = os.path.join(cache_dir, f"{category}_inv{n_inv_step}_{cache_key}")
+        if os.path.exists(base + ".npz"):
+            with np.load(base + ".npz") as d:
+                return {k: d[k] for k in d.files}
+    seq = uniform_seq(n_inv_step, t_0)
+    run = engine.make_invert_with_h(spec, schedule, seq, compute_dtype=compute_dtype)
+    x_lat, h_traj = run(model, torch.from_numpy(np.asarray(x0, np.float32)).to(device))
+    out = {
+        "x0": np.asarray(x0),
+        "x_lat": x_lat.cpu().numpy(),
+        "h_traj": h_traj.permute(0, 1, 3, 4, 2).cpu().numpy(),
+        "h_times": np.asarray(seq[:-1], np.int32),
+    }
+    if base is not None:
+        _atomic_savez(base + ".npz", **out)
+    return out
 
 
 def random_noise_pairs(

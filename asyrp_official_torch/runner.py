@@ -18,10 +18,12 @@ OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device:
   * `run_fidelity`: the fidelity runbook (`--run_fidelity`), invert→edit of
     every test image and, against `--fidelity_ref_dir`, the LPIPS report;
   * IMAGENET (`imagenet.yml`): `--target_class_num` picks the class that
-    serving and training read, and names their latent caches.
+    serving and training read, and names their latent caches;
+  * `run_style_transfer`: DiffStyle (`--diff_style`), every `--content_dir`
+    image stylized by every `--style_dir` image.
 
-Not ported yet (each raises `NotImplementedError`): DiffStyle
-(`--diff_style`) and the multi-device flags (ROADMAP.md Queue 1).
+Not ported yet (they raise `NotImplementedError`): the multi-device flags
+(ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -57,8 +59,6 @@ __all__ = ["AsyrpRunner", "resolve_device"]
 
 _TODO = "is not ported yet (ROADMAP.md Queue 1)"
 
-# run_test options outside the ported path: flag -> value that means "off"
-_UNPORTED_TEST_FLAGS = {"diff_style": False}
 # the origin-trajectory cache stays on the device up to this many bytes
 _ORIGIN_CACHE_BYTES = 4 * 2**30
 
@@ -591,9 +591,6 @@ class AsyrpRunner:
     # ------------------------------------------------------------------
     def run_test(self):
         a = self.args
-        for flag, off in _UNPORTED_TEST_FLAGS.items():
-            if getattr(a, flag, off) not in (off, None, False, 0, ""):
-                raise NotImplementedError(f"--{flag} {_TODO}")
         self.set_interval()
         seq_train, _ = train_seq(a.n_train_step, a.t_0, self.t_edit)
         seq_test = uniform_seq(a.n_test_step, a.t_0) if a.n_test_step else list(range(0, a.t_0))
@@ -737,6 +734,41 @@ class AsyrpRunner:
                      len(grid_ms), grid_ms[0], p50, p50 / a.bs_train,
                      p50 / a.bs_train / len(seq_test), len(seq_test), a.bs_train)
         return edit
+
+    # ------------------------------------------------------------------
+    def run_style_transfer(self) -> None:
+        """DiffStyle: each `--content_dir` image inverted once, each
+        `--style_dir` image inverted once with its h trajectory, then every
+        pair generated; `content{ci}_style{si}.png` under `--save_dir`."""
+        from asyrp_official_torch.pipelines.style_transfer import make_style_transfer
+
+        a = self.args
+        self.set_interval()
+        model = self.load_pretrained()
+        size = self.config["data"]["image_size"]
+        contents = data.ImageFolderDataset(a.content_dir, size)
+        styles = data.ImageFolderDataset(a.style_dir, size)
+        out_dir = self._dir(getattr(a, "save_dir", None) or os.path.join(a.exp, "style"))
+        st = make_style_transfer(
+            self.spec, self.schedule, n_inv_step=a.n_inv_step,
+            n_gen_step=getattr(a, "n_gen_step", 0) or a.n_test_step, t_0=a.t_0,
+            t_edit=self.t_edit, hs_coeff=getattr(a, "hs_coeff", 0.9),
+            use_mask=getattr(a, "use_mask", False), dt_lambda=a.dt_lambda, dt_end=a.dt_end,
+            content_replace_step=getattr(a, "content_replace_step", 0),
+            compute_dtype=self.compute_dtype)
+
+        def batch(img):
+            return torch.from_numpy(img[None]).to(self.device)
+
+        content_lats = [st.invert_content(model, batch(contents[ci]))
+                        for ci in range(len(contents))]
+        for si in range(len(styles)):
+            h_traj = st.invert_style(model, batch(styles[si]))
+            for ci, x_lat in enumerate(content_lats):
+                stylized = st.generate(model, x_lat, h_traj, self._generator())
+                save_image(stylized[0].cpu().numpy(),
+                           os.path.join(out_dir, f"content{ci}_style{si}.png"), pm1=True)
+        log.info("style transfer results in %s", out_dir)
 
     # ------------------------------------------------------------------
     def run_lpips(self) -> Dict[str, Dict[int, float]]:

@@ -170,7 +170,24 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      Phase 3 also holds K1, K2-MH, K1-bwd and K2-bwd-MH at every shape of
      one IMAGENET eval and training-mode eval (f32 [1, 512, 256, 256]
      streams part of its group), and K2-MH at the pool's [1|8, 65, 512].
-Every run of a path (phases 4, 7-12) fails if a K3, K3-bwd or DDPM-step
+  13. DiffStyle and the library surfaces no other CLI path reaches, on
+     `custom.yml` with the random weights of --seed: (a) `--diff_style`
+     through the port's CLI, in-process, two random 256^2 content images
+     and one distinct style image, 40 + 40 steps, t_edit 513, hs_coeff 0.9,
+     content_replace_step 50, float32 and --bf16: K1, K2 and K3 launched,
+     K3 exactly as often as the step tables say (3 inversions, 2
+     generations), K2-MH never, both outputs written, 256^2, finite; (b)
+     the float32 sweep with the plain versions (1e-3 of scale), and the
+     stylized output apart from the un-edited reconstruction; (c)
+     `--use_mask`, kernels and plain (1e-3); (d) `make_image_noise_generate`
+     over 4 steps, the gradient w.r.t. `noise_param` kernels vs plain
+     (1e-3; K1-bwd, K2-bwd and K3-bwd launched); (e) a `global`-mode dual
+     eval (a seeded DeltaBlockGlobal, K1 at [3, 512, 8, 8]) and an
+     `interp_batch` eval at batch 3, kernels vs plain (1e-3); (f) the
+     random RN50 tower and the global, angle, texture and patch CLIP terms
+     with their input gradients, on the card against the CPU (1e-4 of
+     scale, TF32 off). Each run prints its wall with the card.
+Every run of a path (phases 4, 7-13) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
 off), as the port's runner sets it on CUDA.
@@ -2929,6 +2946,338 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: DiffStyle (--diff_style), the image-noise engine, the global and
+# interp_batch edit modes, the RN50 tower and the CLIP terms
+# ---------------------------------------------------------------------------
+
+STYLE_SAVE = "styled"
+CONTENT_REPLACE = 50  # --content_replace_step's default: with t_edit, it gates the injection
+# the four CLIP terms on the card against the same code on the CPU
+CLIP_TERM_TOL = 1e-4
+
+
+def style_argv(ws: str, weights, save: str = STYLE_SAVE, bf16: bool = False, extra=()):
+    """`--diff_style` on `custom.yml`: the two content images of `ws/contents`
+    each stylized by the style image of `ws/styles`, 40 + 40 steps, t_edit
+    513, the flags' default hs_coeff 0.9 and content_replace_step 50.
+    `weights`: a `.pt` path, or None for --allow_random_weights (the same
+    weights: the seeded init of --seed)."""
+    argv = ["--config", CONFIG, "--exp", os.path.join(ws, "runs", "style"), "--diff_style",
+            "--device", DEVICE, "--work_dir", ws, "--content_dir", os.path.join(ws, "contents"),
+            "--style_dir", os.path.join(ws, "styles"), "--save_dir", os.path.join(ws, save),
+            "--n_inv_step", str(STEPS), "--n_gen_step", str(STEPS),
+            "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
+            "--seed", str(SEED), "--ni", *extra]
+    argv += ["--model_path", weights] if weights else ["--allow_random_weights"]
+    return argv + (["--bf16"] if bf16 else [])
+
+
+def style_run(torch, card, argv, what: str, expect_k3: int, plain: bool = False):
+    """One `--diff_style` run through the port's CLI, in-process, counters
+    zeroed just before and read just after: K1, K2 and K3 launched (K3
+    exactly `expect_k3` times), the multi-head K2 never; with `plain`, the
+    plain versions and no launch. Every output written, 256^2 and finite.
+    Returns ({file name: float image}, result)."""
+    import numpy as np
+    from PIL import Image
+    from unittest import mock
+
+    from asyrp_official_torch import runner
+    from asyrp_official_torch.cli.main import main as cli_main
+
+    outs = {}
+    save_image = runner.save_image
+
+    def keep(img, path, **kw):
+        outs[os.path.basename(path)] = np.asarray(img, np.float32)
+        return save_image(img, path, **kw)
+
+    zero_counters()
+    t0 = time.perf_counter()
+    with mock.patch.object(runner, "save_image", keep), \
+            plain_versions() if plain else contextlib.nullcontext():
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    counts = counters()
+    if rc != 0:
+        fail(f"{what} exited {rc}")
+    if plain:
+        if any(counts.values()):
+            fail(f"{what} launched a kernel: {counts}")
+    else:
+        require_launches(counts, ("group_norm", "attention", "ddim_step"), what)
+        if counts["attention_mh"] or counts["ddim_step"] != expect_k3:
+            fail(f"{what}: K3 launched {counts['ddim_step']} times (derived {expect_k3}), "
+                 f"K2-MH {counts['attention_mh']} (must be 0)")
+    save = argv[argv.index("--save_dir") + 1]
+    names = sorted(os.listdir(save))
+    if names != ["content0_style0.png", "content1_style0.png"] or sorted(outs) != names:
+        fail(f"{what}: wrote {names}, kept {sorted(outs)}")
+    for n in names:
+        png = np.asarray(Image.open(os.path.join(save, n)))
+        if png.shape != (IMAGE, IMAGE, 3) or outs[n].shape != (IMAGE, IMAGE, 3) \
+                or not np.isfinite(outs[n]).all():
+            fail(f"{what}: {n} is {png.shape} / {outs[n].shape}, finite "
+                 f"{np.isfinite(outs[n]).all()}")
+    phase(f"  {what} on {card}: rc 0, {names}; launches {counts}; whole CLI run {wall:.1f} s")
+    return outs, {"run_s": wall, "launches": counts}
+
+
+def outputs_err(torch, outs, ref):
+    """max |a - b| / max |b| over every output file."""
+    return max(errs(torch.from_numpy(outs[n]), torch.from_numpy(ref[n]))[1] for n in ref)
+
+
+def noise_gradient_check(torch, dev, card, spec, model, schedule, x_lat):
+    """(d) `make_image_noise_generate` at full width, a 4-step chain (t_edit
+    513 gates the first two): the output and the gradient of a fixed
+    projection w.r.t. `noise_param`, kernels vs plain versions; K1-bwd,
+    K2-bwd and K3-bwd must launch."""
+    from asyrp_official_torch import uniform_seq
+    from asyrp_official_torch.pipelines import engine
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = 0.1 * torch.randn(IMAGE, IMAGE, 3, generator=gen, device=dev)
+    w = torch.randn(1, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    run = engine.make_image_noise_generate(spec, schedule, uniform_seq(4, 999), t_edit=T_EDIT,
+                                           coeff=1.0)
+
+    def grad():
+        n = noise.clone().requires_grad_(True)
+        out, _ = run(model, n, x_lat)
+        return out.detach(), torch.autograd.grad((out * w).sum(), n)[0]
+
+    zero_counters()
+    t0 = time.perf_counter()
+    out_k, g_k = grad()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = counters()
+    require_launches(counts, ("group_norm", "group_norm_bwd", "attention", "attention_bwd",
+                              "ddim_step", "ddim_step_bwd"), "the image-noise gradient")
+    with plain_versions():
+        out_p, g_p = grad()
+    err_x, err_g = errs(out_k, out_p)[1], errs(g_k, g_p)[1]
+    finite = bool(torch.isfinite(g_k).all()) and float(g_k.abs().max()) > 0
+    phase(f"  (d) make_image_noise_generate, 4 steps at 256^2, f32: output kernels vs plain "
+          f"{err_x:.3e}, d/d noise_param {err_g:.3e} (tol {CHAIN_TOL:g}; gradient max "
+          f"{float(g_p.abs().max()):.3e}); launches {counts}; forward + backward {wall:.2f} s "
+          f"on {card}")
+    if not finite or max(err_x, err_g) > CHAIN_TOL:
+        fail(f"image-noise gradient: output {err_x:.3e}, gradient {err_g:.3e}, finite and "
+             f"nonzero {finite}")
+    return {"output_rel_err": err_x, "grad_rel_err": err_g, "launches": counts, "s": wall}
+
+
+def edit_modes_check(torch, dev, card, spec, model):
+    """(e) one `global`-mode dual eval (a seeded DeltaBlockGlobal, a random
+    CLIP direction) and one `interp_batch` eval, batch 3, kernels vs plain
+    versions; the edit must move eps_mod."""
+    from asyrp_official_torch.models.delta import (EditState, delta_block_global_from_tree,
+                                                   delta_block_global_init)
+    from asyrp_official_torch.utils import hostrng
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    ch, hw = spec.bottleneck_ch, spec.bottleneck_hw
+    block = delta_block_global_from_tree(
+        delta_block_global_init(hostrng.PRNGKey(SEED), ch, spec.temb_ch, 512, hw)).to(dev)
+    d = torch.randn(1, 512, generator=gen, device=dev)
+    edits = {"global": EditState(mode="global", blocks=(block.eval(),),
+                                 clip_direction=d / d.norm()),
+             "interp_batch": EditState(mode="interp_batch",
+                                       alpha=torch.tensor([0.0, 0.5, 1.0], device=dev))}
+    x = torch.randn(3, IMAGE, IMAGE, 3, generator=gen, device=dev)
+    t = torch.tensor([999.0, 700.0, 513.0], device=dev)
+    out = {}
+    for mode, edit in edits.items():
+        zero_counters()
+        with torch.no_grad():
+            eps_k, mod_k, _, _ = spec.apply(model, x, t, edit=edit)
+            counts = counters()
+            with plain_versions():
+                eps_p, mod_p, _, _ = spec.apply(model, x, t, edit=edit)
+        require_launches(counts, ("group_norm", "attention"), f"the {mode} eval")
+        err = max(errs(eps_k, eps_p)[1], errs(mod_k, mod_p)[1])
+        moved = errs(mod_p, eps_p)[1]
+        phase(f"  (e) {mode} dual eval, batch 3, f32: eps and eps_mod kernels vs plain {err:.3e} "
+              f"(tol {CHAIN_TOL:g}); the edit moves eps_mod by {moved:.3e} of scale; launches "
+              f"{counts} on {card}")
+        if err > CHAIN_TOL or not moved > 1e-3:
+            fail(f"{mode} eval: kernels vs plain {err:.3e}, edit moved {moved:.3e}")
+        out[mode] = {"rel_err": err, "moved": moved, "launches": counts}
+    return out
+
+
+def clip_terms_check(torch, dev, card):
+    """(f) the random RN50 tower (OpenAI's RN50 config, 38.3M params) and the
+    four CLIP terms (global, angle and patch on the random ViT-B/16 of phase
+    7, texture on the RN50) with their gradients w.r.t. both images, float32
+    on the card against the same code on the CPU, TF32 off: 1e-4 of scale.
+    Where the CPU's own float32 gradient is farther than that from its
+    float64 one (a ReLU network's input gradient jumps where a
+    pre-activation crosses 0 under rounding), the card's float32 gradient
+    must be no farther from the float64 one than 2x the CPU's."""
+    from asyrp_official_torch.losses import clip_loss as cl
+    from asyrp_official_torch.losses.clip_model import CLIP, VIT_B16
+    from asyrp_official_torch.losses.clip_resnet import RN50, ModifiedResNet
+    from asyrp_official_torch.losses.tokenizer import HashTokenizer
+
+    vit, rn = CLIP(VIT_B16, seed=SEED).eval(), ModifiedResNet(RN50, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED)
+    noise = torch.rand(2, 2, IMAGE, IMAGE, 3, generator=gen) * 2 - 1
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, IMAGE), torch.linspace(-1, 1, IMAGE),
+                            indexing="ij")
+    smooth = torch.stack([torch.sin(3 * xx + 1), torch.cos(2 * yy), torch.sin(2 * (xx + yy))], -1)
+    imgs = torch.stack([noise[0], 0.5 * noise[1] + 0.5 * smooth])  # src: noise; trg: apart
+    q = IMAGE // 8  # patches of half the side, two per image, inside it
+    centers = ([2 * q, 6 * q, 4 * q, 3 * q], [4 * q, 2 * q, 5 * q, 4 * q + q // 2])
+    res, out = {}, {}
+    for where, on, dtype in (("host", "cpu", torch.float32), ("host64", "cpu", torch.float64),
+                             ("card", dev, torch.float32)):
+        vctx = cl.CLIPContext(vit.to(on, dtype).requires_grad_(False), VIT_B16, HashTokenizer())
+        rctx = cl.CLIPContext(rn.to(on, dtype).requires_grad_(False), RN50)
+        words = vctx.encode_text(["a smiling face", "a face", "an angry face"])
+        dirs = torch.nn.functional.normalize(words[:2] - words[2:], dim=-1)
+        terms = {"global": lambda s, t: cl.global_loss(vctx, t, words[:1]),
+                 "angle": lambda s, t: cl.angle_loss(vctx, s, t, words[1:2], words[:1]),
+                 "texture": lambda s, t: cl.texture_loss(rctx, s, t),
+                 "patch": lambda s, t: cl.patch_directional_loss(
+                     vctx, s, t, dirs, patch_size=IMAGE // 2, num_patches=2, centers=centers)}
+        for name, fn in terms.items():
+            s, t = (imgs[i].to(on, dtype).requires_grad_(True) for i in (0, 1))
+            t0 = time.perf_counter()
+            value = fn(s, t)
+            grads = torch.autograd.grad(value, (s, t), allow_unused=True)
+            if where == "card":
+                torch.cuda.synchronize()
+            out[(where, name)] = [value.detach().reshape(1)] + [
+                torch.zeros_like(s) if g is None else g for g in grads]
+            res.setdefault(name, {})[f"{where}_s"] = time.perf_counter() - t0
+
+    def err(a, b, parts=slice(None)):
+        return max((errs(x, y)[1] for x, y in zip(out[a][parts], out[b][parts])
+                    if float(y.abs().max()) > 0), default=0.0)
+
+    for name in res:
+        on_card, on_host = ("card", name), ("host", name)
+        value_err = err(on_card, on_host, slice(0, 1))
+        grad_err = err(on_card, on_host, slice(1, None))
+        card64 = err(on_card, ("host64", name), slice(1, None))
+        host64 = err(on_host, ("host64", name), slice(1, None))
+        ok = all(bool(torch.isfinite(a).all()) for a in out[on_card])
+        grad_ok = grad_err <= CLIP_TERM_TOL or (host64 > CLIP_TERM_TOL
+                                                  and card64 <= BF16_GRAD_FACTOR * host64)
+        res[name].update(value=float(out[on_host][0]), value_rel_err=value_err,
+                         grad_rel_err=grad_err, card_vs_f64=card64, host_vs_f64=host64)
+        phase(f"  (f) {name} term {res[name]['value']:.6e}: card vs CPU, value {value_err:.3e}, "
+              f"input gradients {grad_err:.3e} (tol {CLIP_TERM_TOL:g}); against the CPU's float64 "
+              f"gradients: card {card64:.3e}, CPU float32 {host64:.3e}; forward + backward "
+              f"{res[name]['card_s']:.3f} s on {card}, {res[name]['host_s']:.3f} s on the host")
+        if value_err > CLIP_TERM_TOL or not grad_ok or not ok:
+            fail(f"CLIP {name} term: card vs CPU value {value_err:.3e}, gradients {grad_err:.3e} "
+                 f"(vs float64: card {card64:.3e}, CPU {host64:.3e}), finite {ok}")
+    rn.to("cpu", torch.float32)
+    vit.to("cpu", torch.float32)
+    return res
+
+
+def style_phase(torch, dev, card, ws_root: str):
+    """Phase 13: (a) `--diff_style` f32 and bf16 with K3 counted exactly; (b)
+    the f32 sweep with the plain versions, and the edit against the
+    un-edited reconstruction; (c) `--use_mask`, kernels and plain; (d) the
+    image-noise gradient; (e) the global and interp_batch evals; (f) the
+    RN50 tower and the CLIP terms."""
+    import numpy as np
+    from PIL import Image
+
+    from asyrp_official_torch import uniform_seq
+    from asyrp_official_torch.cli.main import build_parser, load_config
+    from asyrp_official_torch.data.datasets import ImageFolderDataset
+    from asyrp_official_torch.core.steptable import generation_table, inversion_table
+    from asyrp_official_torch.pipelines import engine
+    from asyrp_official_torch.pipelines.style_transfer import StyleTransfer
+    from asyrp_official_torch.runner import AsyrpRunner
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ws_root, "style")
+    write_images(root, sub="contents")
+    rng = np.random.RandomState(SEED + 1)  # a style image distinct from the contents
+    os.makedirs(os.path.join(root, "styles"))
+    Image.fromarray((rng.rand(IMAGE, IMAGE, 3) * 255).astype(np.uint8)).save(
+        os.path.join(root, "styles", "0.png"))
+    model_path = os.path.join(ws_root, "rows", "unet_random.pt")  # phase 10's seeded init
+    seq = uniform_seq(STEPS, 999)
+    # the K3 launches of one sweep, from the tables: 2 + 1 inversions, 2 x 1
+    # generations, gated at max(t_edit, content_replace_step)
+    gate = max(T_EDIT, CONTENT_REPLACE)
+    gen_table = generation_table(seq, t_edit=gate, delta_times=[t for t in seq if t >= gate])
+    n_inv, n_gen = inversion_table(seq).num_steps, gen_table.num_steps
+    expect_k3 = 3 * n_inv + 2 * n_gen
+    n_dual = int(np.sum(gen_table.use_delta))
+    phase(f"  (a) --diff_style: 2 content images x 1 style, {STEPS} + {STEPS} steps, t_edit "
+          f"{T_EDIT}, content_replace_step {CONTENT_REPLACE}, hs_coeff 0.9: K3 derived "
+          f"{expect_k3} launches (3 x {n_inv} inversion steps + 2 x {n_gen} generation steps, "
+          f"{n_dual} of them dual-decoded)")
+    out = {"expect_k3": expect_k3, "dual_steps_per_generation": n_dual}
+    runs = {}
+    for dname in DTYPES:
+        ws = os.path.join(root, dname)
+        for sub in ("contents", "styles"):
+            shutil.copytree(os.path.join(root, sub), os.path.join(ws, sub))
+        runs[dname] = style_run(torch, card, style_argv(ws, None, bf16=dname == "bfloat16"),
+                                f"--diff_style {dname}", expect_k3)
+    out["runs"] = {k: v[1] for k, v in runs.items()}
+    ws = os.path.join(root, "float32")
+    outs_k = runs["float32"][0]
+    outs_p, _ = style_run(torch, card, style_argv(ws, model_path, save="styled_plain"),
+                          "(b) --diff_style float32, plain versions", expect_k3, plain=True)
+    err = outputs_err(torch, outs_k, outs_p)
+
+    # the un-edited reconstruction of content 0 (the sweep's own engines)
+    args = build_parser().parse_args(style_argv(ws, model_path))
+    runner = AsyrpRunner(args, load_config(CONFIG), work_dir=ws)
+    model = runner.load_pretrained()
+    st = StyleTransfer(runner.spec, runner.schedule, n_inv_step=STEPS, n_gen_step=STEPS,
+                       t_edit=T_EDIT, content_replace_step=CONTENT_REPLACE)
+    content0 = ImageFolderDataset(os.path.join(ws, "contents"), IMAGE)[0]
+    x_lat = st.invert_content(model, torch.from_numpy(content0[None]).to(dev))
+    recon, _ = engine.make_generate(runner.spec, runner.schedule, seq)(model, x_lat)
+    moved = errs(torch.from_numpy(outs_p["content0_style0.png"]), recon[0].cpu())[1]
+    phase(f"  (b) float32 sweep, kernels vs plain versions: max |a - b| / max |b| {err:.3e} (tol "
+          f"{CHAIN_TOL:g}); stylized vs the un-edited reconstruction {moved:.3e} of scale")
+    if err > CHAIN_TOL or not moved > 1e-3:
+        fail(f"--diff_style: kernels vs plain {err:.3e}, edit moved {moved:.3e}")
+    out.update(sweep_rel_err=err, edit_moved=moved)
+
+    outs_mk, res_mk = style_run(torch, card,
+                                style_argv(ws, model_path, save="masked", extra=["--use_mask"]),
+                                "(c) --diff_style --use_mask float32", expect_k3)
+    outs_mp, _ = style_run(torch, card, style_argv(ws, model_path, save="masked_plain",
+                                                   extra=["--use_mask"]),
+                           "(c) --diff_style --use_mask float32, plain versions", expect_k3,
+                           plain=True)
+    err_m = outputs_err(torch, outs_mk, outs_mp)
+    apart = outputs_err(torch, outs_mk, outs_k)
+    phase(f"  (c) masked sweep, kernels vs plain versions: {err_m:.3e} (tol {CHAIN_TOL:g}); "
+          f"masked vs unmasked outputs {apart:.3e} of scale")
+    if err_m > CHAIN_TOL or not apart > 1e-3:
+        fail(f"--use_mask: kernels vs plain {err_m:.3e}, masked vs unmasked {apart:.3e}")
+    out.update(masked_rel_err=err_m, masked_vs_unmasked=apart, masked_run=res_mk)
+
+    out["image_noise"] = noise_gradient_check(torch, dev, card, runner.spec, model,
+                                              runner.schedule, x_lat)
+    torch.cuda.empty_cache()
+    out["edit_modes"] = edit_modes_check(torch, dev, card, runner.spec, model)
+    del model, runner, st
+    torch.cuda.empty_cache()
+    out["clip_terms"] = clip_terms_check(torch, dev, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase(f"  phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
+
 def _ptxas_by_entry(log: str):
     """{mangled entry name: {"registers": n, "spills": ptxas's spill line}}
     from nvcc's -Xptxas -v output."""
@@ -3168,6 +3517,11 @@ def main() -> int:
               "params, --target_class_num; a perturbed .pt without label_emb) and the ADM 256^2 "
               "classifier")
         imagenet = imagenet_phase(torch, dev, card, log, ws_root, clip_ckpt)
+        torch.cuda.empty_cache()
+        phase("phase 13: DiffStyle through the port's CLI (--diff_style, custom.yml 256^2), the "
+              "image-noise engine's gradient, the global and interp_batch edit modes, the RN50 "
+              "tower and the CLIP terms")
+        style = style_phase(torch, dev, card, ws_root)
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
@@ -3178,7 +3532,9 @@ def main() -> int:
             **{f"custom.yml {k}": v for k, v in rows_multi["launches"].items()},
             **{f"custom.yml {k}": v for k, v in m7["launches"].items()},
             **{f"imagenet.yml serving {k}": v for k, v in imagenet["launches"].items()},
-            "imagenet.yml training float32": imagenet["train_launches"]}
+            "imagenet.yml training float32": imagenet["train_launches"],
+            "custom.yml --diff_style float32": style["runs"]["float32"]["launches"],
+            "custom.yml image-noise gradient float32": style["image_noise"]["launches"]}
     afhq_f32, afhq_ddpm = afhq_launches["float32"], afhq_launches["ddpm float32"]
     gn_ref = ("asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
               "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)")
@@ -3282,6 +3638,7 @@ def main() -> int:
                         "launches_per_invert_edit_chain": afhq_per_request,
                         "profile": afhq_profile, "training": afhq_training},
                "rows_and_multi_edit": rows_multi, "lpips_id_fidelity": m7, "imagenet": imagenet,
+               "style_and_library_modes": style,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

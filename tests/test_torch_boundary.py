@@ -3,10 +3,10 @@
   * a subprocess imports every module of `asyrp_official_torch`, runs the
     tiny `--run_train` recipe and then a tiny `--run_test` with the trained
     block on `--device cpu`, a tiny `--lpips` stage and a tiny
-    `--run_fidelity` with a reference dir, then the tiny OpenAI-family
+    `--run_fidelity` with a reference dir, the tiny OpenAI-family
     `--run_train` (a learn_sigma UNet with 4-head attention, from a
-    perturbed `.pt`), and finds neither `jax` nor any `asyrp_official_tpu`
-    module in `sys.modules`;
+    perturbed `.pt`) and a tiny `--diff_style`, and finds neither `jax` nor
+    any `asyrp_official_tpu` module in `sys.modules`;
   * an AST scan finds no import of either in the port's sources or in
     `chip_smoke.py`;
   * the data files the port copied (configs, assets) are byte-identical to
@@ -96,8 +96,13 @@ def test_port_trains_and_serves_without_the_jax_package(tmp_path):
         "--run_fidelity", "--train_delta_block", "--n_iter", "2", "--fidelity_ref_dir", str(ref),
         "--lpips_ckpt", lpips_npz, "--device", "cpu"])
     train_oai = _openai_workspace(tmp_path / "oai")
+    (tmp_path / "style").mkdir()
+    Image.open(os.path.join(imgs, "0.png")).save(tmp_path / "style" / "0.png")
+    style = tiny_base_argv(cfg, imgs, str(tmp_path), str(tmp_path / "runs" / "style"), extra=[
+        "--diff_style", "--content_dir", imgs, "--style_dir", str(tmp_path / "style"),
+        "--save_dir", str(tmp_path / "styled"), "--n_gen_step", "4", "--device", "cpu"])
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    recipes = [train, serve, lpips, fidelity, train_oai]
+    recipes = [train, serve, lpips, fidelity, train_oai, style]
     out = subprocess.run([sys.executable, "-c", RUN, json.dumps(recipes)],
                          cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
@@ -109,6 +114,8 @@ def test_port_trains_and_serves_without_the_jax_package(tmp_path):
     assert (tmp_path / "utils" / "celeba_LPIPS_distance_x0_t.tsv").exists()
     report = json.loads(next((tmp_path / "runs").rglob("lpips_report.json")).read_text())
     assert report["n"] == 2 and report["mean"] > 0
+    assert sorted(os.listdir(tmp_path / "styled")) == [f"content{i}_style0.png"
+                                                       for i in range(4)]
 
 
 def _imports(path: pathlib.Path):
@@ -164,7 +171,9 @@ def _pairs():
     def tables(m):
         seq = [0, 250, 500, 750, 999]
         out = []
-        for t in (m.inversion_table(seq), m.generation_table(seq, t_edit=500, t_addnoise=250)):
+        # the last: DiffStyle's table, rows at the gated timesteps only
+        for t in (m.inversion_table(seq), m.generation_table(seq, t_edit=500, t_addnoise=250),
+                  m.generation_table(seq, t_edit=600, delta_times=[750, 999])):
             out += [t.t, t.t_next, t.eta, t.use_delta, t.delta_idx, t.edit_prefix_len()]
         return out
 

@@ -170,8 +170,10 @@ def test_apply_edit_casts_coefficients_to_bf16():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdelta.apply_edit(tdelta.EditState(mode="global"), torch.zeros(1, 8, 2, 2), None)
+    # every edit mode of the JAX package is ported (the global and
+    # interp_batch modes: tests/test_torch_extra_modes.py); another raises
+    with pytest.raises(ValueError, match="unknown edit mode"):
+        tdelta.apply_edit(tdelta.EditState(mode="global_v2"), torch.zeros(1, 8, 2, 2), None)
     from asyrp_official_torch.models.registry import resolve
 
     # the OpenAI family serves (its own tests: test_torch_openai.py,

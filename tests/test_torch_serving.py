@@ -105,7 +105,8 @@ def test_cli_device_cuda_without_cuda_exits_1(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--diff_style"],
+    # --diff_style is served (tests/test_torch_style.py); --sp is not
+    ["--run_test", "--train_delta_block", "--sp", "2"],
     ["--run_test", "--train_delta_block", "--dp", "2"],
     ["--run_train", "--train_delta_block", "--dp", "2"],
 ])
