@@ -1,7 +1,8 @@
 """Diffusion noise schedules and skip-step grids — the port's copy of the
-JAX package's `core/schedule.py` (pure numpy; the functions the port calls,
-under the same names; `tests/test_torch_boundary.py` holds them equal to
-the originals).
+JAX package's `core/schedule.py` (numpy, but for `update_ema` over two
+torch modules; the functions the port calls, under the same names;
+`tests/test_torch_boundary.py` holds the numpy ones equal to the
+originals).
 
   * betas are built in float64 then truncated to float32;
   * `alphas_cumprod` is the float32 cumulative product of (1 - betas_f32);
@@ -14,6 +15,7 @@ import dataclasses
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "Schedule",
@@ -22,6 +24,8 @@ __all__ = [
     "uniform_seq",
     "prev_seq",
     "train_seq",
+    "space_timesteps",
+    "update_ema",
 ]
 
 
@@ -107,3 +111,41 @@ def train_seq(n_train_step: int, t_0: int, t_edit: int) -> Tuple[List[int], List
     else:
         seq = list(range(t_edit, t_0))
     return seq, prev_seq(seq)
+
+
+def space_timesteps(num_timesteps: int, section_counts) -> List[int]:
+    """DDIM-style timestep respacing: split [0, T) into
+    len(section_counts) sections and stride each to its count. Accepts
+    "ddimN" shorthand for an exact N-step uniform stride."""
+    if isinstance(section_counts, str):
+        if section_counts.startswith("ddim"):
+            n = int(section_counts[4:])
+            for stride in range(1, num_timesteps):
+                if len(range(0, num_timesteps, stride)) == n:
+                    return list(range(0, num_timesteps, stride))
+            raise ValueError(f"cannot create exactly {n} steps with an integer stride")
+        section_counts = [int(x) for x in section_counts.split(",")]
+    size_per = num_timesteps // len(section_counts)
+    extra = num_timesteps % len(section_counts)
+    start = 0
+    out: List[int] = []
+    for i, count in enumerate(section_counts):
+        size = size_per + (1 if i < extra else 0)
+        if size < count:
+            raise ValueError(f"cannot divide section of {size} steps into {count}")
+        stride = 1.0 if count <= 1 else (size - 1) / (count - 1)
+        cur = 0.0
+        for _ in range(count):
+            out.append(start + round(cur))
+            cur += stride
+        start += size
+    return out
+
+
+@torch.no_grad()
+def update_ema(ema: torch.nn.Module, model: torch.nn.Module, rate: float = 0.999) -> None:
+    """ema = rate·ema + (1 - rate)·model over the two modules' parameters,
+    in place, as the JAX expression `e * rate + p * (1 - rate)` rounds it
+    (not `lerp`, which rounds otherwise)."""
+    for e, p in zip(ema.parameters(), model.parameters()):
+        e.copy_(e * rate + p * (1.0 - rate))

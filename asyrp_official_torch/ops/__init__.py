@@ -16,4 +16,17 @@ A wrapper takes its plain version for a CPU tensor and launches its kernel
 for a CUDA tensor; its `launches` attribute (and `bwd_launches` for K1, K2
 and K3, `mh_launches` for K2 with several heads, `scalar_launches` for the
 step kernels' scalar instance) counts kernel launches.
+
+K1, K2 and K3 are also registered as `torch.library` custom ops
+(`torch.ops.asyrp.group_norm`, `.attention`, `.ddim_step`): on CUDA the
+kernel's launch, on the CPU the plain version, with a fake for shapes. A
+wrapper calls its op only while `torch.export` traces, so that an exported
+program names the op (`pipelines/export.py`); in eager mode it launches
+directly.
 """
+import torch
+
+
+def traced() -> bool:
+    """Whether a wrapper takes its registered op (see above)."""
+    return torch.compiler.is_compiling()

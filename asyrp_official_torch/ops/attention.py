@@ -30,7 +30,7 @@ import math
 
 import torch
 
-from asyrp_official_torch.ops import _build
+from asyrp_official_torch.ops import _build, traced
 
 __all__ = ["attention", "attention_plain", "attention_backward", "attention_backward_plain"]
 
@@ -297,7 +297,23 @@ class _Attention(torch.autograd.Function):
                                     legacy_scale=ctx.legacy_scale), None, None)
 
 
+@torch.library.custom_op("asyrp::attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                  legacy_scale: bool) -> torch.Tensor:
+    """The K2 forward as a registered op (no autograd)."""
+    if q.device.type == "cuda":
+        return _attention_cuda(q, k, v, False, num_heads, legacy_scale)[0]
+    return attention_plain(q, k, v, num_heads=num_heads, legacy_scale=legacy_scale)
+
+
+@_attention_op.register_fake
+def _(q, k, v, num_heads, legacy_scale):
+    return torch.empty_like(q)
+
+
 def attention(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
+    if traced():
+        return _attention_op(q, k, v, num_heads, legacy_scale)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):

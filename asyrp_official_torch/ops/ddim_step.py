@@ -48,7 +48,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from asyrp_official_torch.ops import _build
+from asyrp_official_torch.ops import _build, traced
 
 __all__ = ["ddim_step", "ddim_step_plain", "ddim_step_backward", "ddim_launch_args",
            "ddim_bwd_launch_args", "coef_operand", "row_stride", "SCALAR", "FLAT", "ROWS"]
@@ -491,10 +491,36 @@ class _DDIMStep(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
+@torch.library.custom_op("asyrp::ddim_step", mutates_args=())
+def _ddim_step_op(x: torch.Tensor, eps: torch.Tensor, eps_mod: torch.Tensor, at: torch.Tensor,
+                  at_next: torch.Tensor, eta: torch.Tensor, noise: Optional[torch.Tensor],
+                  dt_lambda: float, apply_dt: Optional[torch.Tensor]
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K3 forward as a registered op (no autograd); the per-sample
+    operands are tensors."""
+    if x.device.type == "cuda":
+        return _ddim_step_cuda(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_dt)
+    return ddim_step_plain(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda=dt_lambda,
+                           apply_dt=apply_dt)
+
+
+@_ddim_step_op.register_fake
+def _(x, eps, eps_mod, at, at_next, eta, noise, dt_lambda, apply_dt):
+    return torch.empty_like(x), torch.empty_like(x)
+
+
+def _as_operand(v, x):
+    return v if isinstance(v, torch.Tensor) else torch.tensor([float(v)], device=x.device)
+
+
 def ddim_step(x, eps, eps_mod, at, at_next, eta, noise: Optional[torch.Tensor] = None, *,
               dt_lambda: float = 1.0, apply_dt=None):
     """One DDIM update; `noise=None` means the eta term is known to vanish
     (or eta is 0). Returns (x_next, x0_t) in x's dtype."""
+    if traced():
+        return _ddim_step_op(x, eps, eps_mod, _as_operand(at, x), _as_operand(at_next, x),
+                             _as_operand(eta, x), noise, float(dt_lambda),
+                             None if apply_dt is None else _as_operand(apply_dt, x))
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ddim_step: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or eps.requires_grad

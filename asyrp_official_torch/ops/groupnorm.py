@@ -31,7 +31,9 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from asyrp_official_torch.ops import _build
+from typing import Optional
+
+from asyrp_official_torch.ops import _build, traced
 
 __all__ = ["group_norm", "group_norm_plain", "group_norm_unfused", "group_norm_backward",
            "group_norm_backward_plain", "group_norm_plan"]
@@ -307,8 +309,27 @@ def _unfused_needed(x, weight, bias, pre_add, scale_shift) -> bool:
                                         or bias.requires_grad)
 
 
+@torch.library.custom_op("asyrp::group_norm", mutates_args=())
+def _group_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
+                   eps: float, silu: bool, pre_add: Optional[torch.Tensor],
+                   scale_shift: Optional[torch.Tensor]) -> torch.Tensor:
+    """The fused K1 call as a registered op (no autograd)."""
+    if x.device.type == "cuda":
+        return _group_norm_cuda(x, weight, bias, groups, eps, silu, False, pre_add,
+                                scale_shift)[0]
+    return group_norm_plain(x, weight, bias, groups=groups, eps=eps, silu=silu, pre_add=pre_add,
+                            scale_shift=scale_shift)
+
+
+@_group_norm_op.register_fake
+def _(x, weight, bias, groups, eps, silu, pre_add, scale_shift):
+    return torch.empty_like(x)
+
+
 def group_norm(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bool = False,
                pre_add=None, scale_shift=None):
+    if traced():
+        return _group_norm_op(x, weight, bias, groups, eps, silu, pre_add, scale_shift)
     if _unfused_needed(x, weight, bias, pre_add, scale_shift):
         return group_norm_unfused(x, weight, bias, groups=groups, eps=eps, silu=silu,
                                   pre_add=pre_add, scale_shift=scale_shift)

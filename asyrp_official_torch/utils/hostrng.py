@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["PRNGKey", "split", "random_bits", "uniform", "normal"]
+__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "normal"]
 
 _U32 = np.uint32
 
@@ -53,6 +53,13 @@ def threefry2x32(k1, k2, x1, x2):
     b = np.array(x2, dtype=_U32, copy=True)
     _threefry_core(_U32(k1), _U32(k2), a, b, np.empty_like(b))
     return a, b
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """== jax.random.fold_in: the hash of the count pair (0, data) under
+    `key` (a port-only addition; the JAX package's copy has none)."""
+    b1, b2 = threefry2x32(key[0], key[1], [0], [int(data) & 0xFFFFFFFF])
+    return np.array([b1[0], b2[0]], dtype=_U32)
 
 
 # chunks whose four working arrays (~16 bytes per element) stay in L2

@@ -102,8 +102,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   9. the OpenAI-family training path through the port's CLI, in-process:
      `--run_train --train_delta_block --edit_attr dog_smiling` on
      `afhq.yml` from phase 8's perturbed `.pt`, with the CLIP directional
-     loss (the random ViT-B/16 of phase 7) and the L1 term, two random
-     images as `afhq/train/dog/*.png`, 40-step grids, t_edit 513, 2
+     loss (the random ViT-B/16 of phase 7) and the L1 term, the first of two
+     random images as `afhq/train/dog/*.png` (both until phase 14 came: cut
+     for the time limit; phase 12 (d) too), 40-step grids, t_edit 513, 2
      iterations at batch 1, then the `--do_test` grid; float32 and --bf16.
      The launch counters are zeroed just before each run and read just
      after: K1, K1-bwd, the multi-head K2 and K2-bwd-MH, K3 and K3-bwd must
@@ -123,8 +124,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      one iteration of `--delta_injection slerp` must save rows bit-identical
      to the init; (b) `--run_test --train_delta_h` on (a)'s rows at 20 test
      steps (the train→test remap), add and slerp; (c) `--multiple_attr
-     "smiling angry" --delta_interpolation --num_delta 3` on two seeded
-     blocks: 9 coefficient pairs, one generation each, float32 and bf16,
+     "smiling angry" --delta_interpolation --num_delta 2` on two seeded
+     blocks: 4 coefficient pairs (9 until phase 14 came), one generation
+     each, float32 and bf16,
      and the float32 sweep again with the plain versions (1e-3), with the
      wall of each;
      (d) `--num_mean_of_delta_hs 1` with two training images: finite
@@ -132,10 +134,11 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   11. M7 on `custom.yml` through the port's CLI, in-process, from phase
      7's images, phase 10's seeded `.pt` and phase 4's block: (a) the LPIPS
      calibration stage (`--lpips`, 2 images, a random AlexNet + lin written
-     in the `--lpips_ckpt` npz format) f32 at 200 steps (the recipe runs
-     1000; cut for the time limit), bf16 at 100, f32 at 100 with the kernels
-     and with the plain versions (the four curves within 1e-3 of scale), f32
-     at `--bs_train 2` over 10 steps
+     in the `--lpips_ckpt` npz format) at 100 steps (the recipe runs 1000;
+     cut for the time limit: to 200 when phase 12 came, to 100 when phase
+     14 came) f32, bf16, and f32 with the plain versions (the four curves
+     within 1e-3 of scale), f32 at `--bs_train 2` over 5 steps (10 until
+     phase 14)
      (cuDNN's f32 FFT path, recorded, not gated); K1, K2 and K3 launched, K3
      exactly once per inversion step and batch; the four tsvs with the
      seq[1:] keys, finite, >= 0; `set_interval` reads the fresh x0_t tsv;
@@ -155,8 +158,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      redrawn, saved as a `.pt` without `label_emb.weight` (ADM's released
      unconditional layout), two random 256^2 images per split as
      `imagenet/{val,train}/<wnid>/<wnid>/*.{JPEG,jpeg}` of one class, a Δ
-     checkpoint at 1024 channels; (b) `--run_test --target_class_num`, 40 +
-     40 steps at batch 1, float32 and --bf16: K1, the multi-head K2 and K3
+     checkpoint at 1024 channels; (b) `--run_test --target_class_num`, 20 +
+     20 steps (40 + 40 until phase 14 came: cut for the time limit) at batch
+     1, float32 and --bf16: K1, the multi-head K2 and K3
      launched, the one-head K2 never, the latent cache named by the class;
      (c) the float32 invert+edit chain against the plain versions (1e-3,
      eps std > 0.1) and where the time goes in one eval (as in 6); (d)
@@ -172,11 +176,12 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      streams part of its group), and K2-MH at the pool's [1|8, 65, 512].
   13. DiffStyle and the library surfaces no other CLI path reaches, on
      `custom.yml` with the random weights of --seed: (a) `--diff_style`
-     through the port's CLI, in-process, two random 256^2 content images
-     and one distinct style image, 40 + 40 steps, t_edit 513, hs_coeff 0.9,
+     through the port's CLI, in-process, one random 256^2 content image
+     (two until phase 14 came: cut for the time limit) and one distinct
+     style image, 40 + 40 steps, t_edit 513, hs_coeff 0.9,
      content_replace_step 50, float32 and --bf16: K1, K2 and K3 launched,
-     K3 exactly as often as the step tables say (3 inversions, 2
-     generations), K2-MH never, both outputs written, 256^2, finite; (b)
+     K3 exactly as often as the step tables say (2 inversions, 1
+     generation), K2-MH never, the output written, 256^2, finite; (b)
      the float32 sweep with the plain versions (1e-3 of scale), and the
      stylized output apart from the un-edited reconstruction; (c)
      `--use_mask`, kernels and plain (1e-3); (d) `make_image_noise_generate`
@@ -187,6 +192,35 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      random RN50 tower and the global, angle, texture and patch CLIP terms
      with their input gradients, on the card against the CPU (1e-4 of
      scale, TF32 off). Each run prints its wall with the card.
+  14. Base training of the UNets themselves (`pipelines/base_train.py`:
+     q_sample -> UNet -> loss -> backward -> Adam 1e-4 -> EMA 0.9999), at full
+     width: (a) `custom.yml` (the seeded init; eps, fixedsmall, mse, a
+     UniformSampler) 3 steps f32 at bs 1; `afhq.yml` (phase 8's perturbed
+     `.pt`; the P2 recipe learned_range, rescaled_mse, p2_gamma 1, a
+     LossSecondMomentResampler) 3 steps bf16 at bs 8, 3 f32 at bs 1 and one
+     f32 step at bs 2 (cuDNN's FFT path; recorded, not gated): K1, K1-bwd and
+     the family's K2 / K2-bwd launched, the other family's K2 and the step
+     kernels never; ms per step, images/s, peak memory and one profiled
+     step. Gates: one step's gradient w.r.t. every parameter, kernels vs
+     plain, per leaf 1e-3 in f32 (bs 1; a leaf counts at least at 1e-3 of
+     the largest leaf's scale), and in bf16 (bs 2, two timesteps) no farther
+     from the f32 plain gradient than 2x the plain bf16 one; the 3-step f32
+     run with the plain versions (deterministic cuDNN): the loss per step
+     within 1e-3, the update and the EMA's update within 5e-2 in the L2 norm
+     (Adam moves an element of zero exact gradient by +-lr of noise), each
+     EMA bit for bit its rate expression; (b) the train-state sidecar saved after step
+     2, restored into a fresh model, EMA and Adam: step 3 bit-identical; (c)
+     `ddim_sample_loop` and `p_sample_loop` over 25 respaced steps of the
+     AFHQ UNet, kernels vs plain (1e-3); (d) `export_invert_edit` of
+     custom.yml's 40 + 40-step f32 invert -> edit, saved, loaded and run:
+     every exported graph names the registered ops, K1, K2 and K3 launch,
+     the output within 1e-3 of the live engine's; (e) ResNet-18 card vs CPU
+     at bs 1 and 8 (1e-4) and the shape report of custom.yml, afhq.yml and
+     imagenet.yml. Phase 3 also holds, at every norm and attention of one
+     base-training step (batch 2, t = 750 and 250), K1-bwd with dweight and
+     dbias and the per-sample pre-add or FiLM operand's gradient, and
+     K2-bwd(-MH), against autograd through the plain forward, bit for bit
+     across two calls.
 Every run of a path (phases 4, 7-13) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
@@ -204,6 +238,7 @@ import glob
 import itertools
 import json
 import logging
+import math
 import os
 import re
 import shutil
@@ -265,6 +300,9 @@ GRAD_TOL, BF16_GRAD_FACTOR = 1e-3, 2.0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
+# phase 3's repetitions per row: CUDA-event runs (the median) and calls back to
+# back behind the sleep (25 and 20 until phase 14 came: cut for the time limit)
+ROW_RUNS, ROW_DEVICE_RUNS = 15, 12
 DTYPES = ("float32", "bfloat16")
 
 
@@ -621,6 +659,127 @@ def record_openai_shapes(torch, dev, cfg, names):
     return seen
 
 
+def record_base_train_shapes(torch):
+    """Shapes K1-bwd and K2-bwd see in one base-training step of the
+    full-width custom.yml and afhq.yml UNets (every parameter trained, batch
+    2, two timesteps): each norm as (shape, silu, eps, fused op) under
+    `group_norm_bwd_base[_afhq]` (K1-bwd computes dweight and dbias there,
+    and the step's per-sample temb pre-add or FiLM operand takes a gradient
+    too), each attention as (shape, heads, legacy scale) under
+    `attention_bwd_base[_mh]`. Recorded on fake tensors (shapes only)."""
+    from unittest import mock
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from asyrp_official_torch.cli.main import load_config
+    from asyrp_official_torch.models.registry import spec_from_config
+    from asyrp_official_torch.ops import attention as k2, groupnorm as k1
+    from asyrp_official_torch.pipelines.base_train import unet_eps_fn
+
+    seen = {}
+    for config, gn_name, attn_name in ((CONFIG, "group_norm_bwd_base", "attention_bwd_base"),
+                                       (AFHQ_CONFIG, "group_norm_bwd_base_afhq",
+                                        "attention_bwd_mh_base")):
+        gns, attns = seen.setdefault(gn_name, {}), seen.setdefault(attn_name, {})
+
+        def gn(x, w, b, **kw):
+            fused = ("pre_add" if kw.get("pre_add") is not None
+                     else "scale_shift" if kw.get("scale_shift") is not None else None)
+            key = (tuple(x.shape), kw.get("silu", False), kw.get("eps", 1e-6), fused)
+            gns[key] = gns.get(key, 0) + 1
+            return k1.group_norm_plain(x, w, b, **kw)
+
+        def attn(q, k, v, num_heads=1, legacy_scale=False):
+            key = (tuple(q.shape), num_heads, legacy_scale)
+            attns[key] = attns.get(key, 0) + 1
+            return k2.attention_plain(q, k, v, num_heads=num_heads, legacy_scale=legacy_scale)
+
+        spec = spec_from_config(load_config(config))
+        with FakeTensorMode(), mock.patch.object(k1, "group_norm", gn), \
+                mock.patch.object(k2, "attention", attn):
+            model = spec.build()
+            unet_eps_fn(model, torch.empty(2, 3, IMAGE, IMAGE), torch.tensor([750, 250]))
+    return seen
+
+
+def base_train_rows(torch, dev, seen):
+    """Phase 3's base-training rows (`record_base_train_shapes`): at every
+    norm, the gradient of the fused K1 entry (K1 and K1-bwd with dweight and
+    dbias, plus the torch ops of its pre-add or FiLM operand, which takes a
+    gradient too) w.r.t. x, weight, bias and that operand; at every
+    attention, K2-bwd(-MH)'s dq, dk, dv: each by `torch.autograd.grad`
+    against the same through the plain forward, f32 and bf16, at TOL's
+    group_norm_bwd / attention_bwd bounds; two calls agree bit for bit, and
+    each call launches its backward kernel once. Returns {row name:
+    {dtype: worst error}}."""
+    from asyrp_official_torch.ops import attention as k2, groupnorm as k1
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    out = {}
+    for name in ("group_norm_bwd_base", "group_norm_bwd_base_afhq", "attention_bwd_base",
+                 "attention_bwd_mh_base"):
+        out[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            worst_err = 0.0
+            for key, count in sorted(seen[name].items(), key=lambda kv: str(kv[0])):
+                if name.startswith("group_norm"):
+                    shape, silu, eps, fused = key
+                    b_, c_ = shape[:2]
+                    x = (randn(*shape) * 2.0 + 0.5).to(dtype).requires_grad_()
+                    w = (1.0 + 0.1 * randn(c_)).requires_grad_()
+                    b = (0.1 * randn(c_)).requires_grad_()
+                    kw = dict(eps=eps, silu=silu)
+                    ins = [x, w, b]
+                    if fused == "pre_add":
+                        kw["pre_add"] = randn(b_, c_, dtype=dtype).requires_grad_()
+                    elif fused == "scale_shift":
+                        kw["scale_shift"] = (0.1 * randn(b_, 2 * c_)).to(dtype).requires_grad_()
+                    if fused:
+                        ins.append(kw[fused])
+                    dy = randn(*shape, dtype=dtype)
+                    run = lambda f: torch.autograd.grad(f(x, w, b, **kw), ins, dy)
+                    tol, counter = TOL["group_norm_bwd"][dname], "group_norm_bwd"
+                    parts = ("dx", "dweight", "dbias", f"d{fused}") if fused else (
+                        "dx", "dweight", "dbias")
+                    label = f"{list(shape)} silu={int(silu)} eps={eps:g} fused={fused}"
+                    fns = (k1.group_norm, k1.group_norm_plain)
+                else:
+                    shape, heads, legacy = key
+                    ins = [randn(*shape, dtype=dtype).requires_grad_() for _ in range(3)]
+                    d_o = randn(*shape, dtype=dtype)
+                    kw = dict(num_heads=heads, legacy_scale=legacy)
+                    run = lambda f: torch.autograd.grad(f(*ins, **kw), ins, d_o)
+                    tol = TOL["attention_bwd"][dname]
+                    counter = "attention_bwd" if heads == 1 else "attention_mh_bwd"
+                    parts = ("dq", "dk", "dv")
+                    label = f"{list(shape)} heads={heads} legacy_scale={int(legacy)}"
+                    fns = (k2.attention, k2.attention_plain)
+                want = run(fns[1])
+                before = counters()[counter]
+                got, again = run(fns[0]), run(fns[0])
+                torch.cuda.synchronize()
+                launched = counters()[counter] - before
+                rel = [errs(g.float(), w_.float())[1] for g, w_ in zip(got, want)]
+                finite = all(torch.isfinite(g.float()).all() for g in got)
+                bitwise = same_bits(tuple(got), tuple(again))
+                ok = finite and max(rel) <= tol and bitwise and launched == 2
+                phase(f"  {name} {dname} {label} x{count}: rel err " + ", ".join(
+                    f"{p_} {e_:.3e}" for p_, e_ in zip(parts, rel)) + f" (tol {tol:g}); two "
+                      f"calls bit for bit: {bitwise}; {launched} {counter} launches in 2 calls"
+                      f"{'' if ok else '  <-- FAIL'}")
+                if not ok:
+                    fail(f"{name} {label} {dname}: the kernels' gradient disagrees with the plain "
+                         f"one ({max(rel):.3e}), or two calls differ, or the kernel did not run")
+                worst_err = max(worst_err, max(rel))
+            out[name][dname] = worst_err
+    return out
+
+
 def gn_stats(x, groups: int = 32, eps: float = 1e-6):
     """Per-(sample, group) mean and rstd, the statistics K1-bwd reads."""
     import torch
@@ -836,8 +995,8 @@ def kernel_rows(torch, dev, seen):
                     a_, r_ = errs(g_.float(), w_.float())
                     abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
                     part_errs.append(r_)
-                ms_k, ms_p, ms_l = time_ms(run_k), time_ms(run_p), time_ms(lib)
-                dev_t = (device_ms(run_k), device_ms(run_p), device_ms(lib))
+                ms_k, ms_p, ms_l = (time_ms(f, runs=ROW_RUNS) for f in (run_k, run_p, lib))
+                dev_t = tuple(device_ms(f, runs=ROW_DEVICE_RUNS) for f in (run_k, run_p, lib))
                 if name.startswith("attention_bwd"):
                     # the library's backward and the kernels, profiled alike (the sum of
                     # their device events, without the gaps between launches)
@@ -1301,14 +1460,16 @@ def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False
         timed = engine.make_invert_edit(runner.spec, runner.schedule, seq, seq, t_edit=T_EDIT,
                                         t_addnoise=T_ADDNOISE, compute_dtype=dtype)
         times = []
-        for _ in range(3):  # the first run warms up
+        # the first run warms up (one more timed run until phase 14 came: cut for
+        # the time limit)
+        for _ in range(2):
             t0 = time.perf_counter()
             out = timed(model, edit, x0, gen())
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         if not torch.isfinite(out).all():
             fail(f"non-finite {dname} chain output")
-        chain_ms[dname] = sorted(times[1:])[0]
+        chain_ms[dname] = times[1]
         phase(f"  {dname} invert+edit chain ({STEPS}+{STEPS} steps, bs 1) on {card}: "
               f"runs {', '.join(f'{t:.1f}' for t in times)} ms (first warms up)")
     return err, chain_ms, per_request, (runner.spec, model, edit)
@@ -1563,7 +1724,8 @@ def openai_train_argv(fam: str, ws: str, model_path: str, clip_ckpt: str, exp: s
             "--model_path", model_path, "--device", DEVICE, "--clip_ckpt", clip_ckpt,
             "--clip_loss_w", "1", "--l1_loss_w", "3", "--get_h_num", "1",
             "--n_inv_step", str(STEPS), "--n_train_step", str(STEPS), "--n_iter", "2",
-            "--n_train_img", "2", "--bs_train", "1", "--lr_training", "0.5",
+            # one training image (two until phase 14 came: cut for the time limit)
+            "--n_train_img", "1", "--bs_train", "1", "--lr_training", "0.5",
             "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
             "--do_test", "1", "--n_test_img", "1", "--work_dir", ws, "--seed", str(SEED), "--ni",
             *flags]
@@ -1924,7 +2086,11 @@ def openai_argv(fam: str, ws: str, model_path: str, bf16: bool = False, steps: i
 AFHQ_RUNS = (  # (label, --bf16, steps, --sample_type)
     ("float32", False, STEPS, "ddim"), ("bfloat16", True, STEPS, "ddim"),
     ("ddpm float32", False, DDPM_STEPS, "ddpm"))
-IMAGENET_RUNS = AFHQ_RUNS[:2]
+# phase 12 (b)'s serving grids (40 until phase 14 came: cut for the time limit;
+# the chain of (c) stays at STEPS)
+IMAGENET_SERVE_STEPS = 20
+IMAGENET_RUNS = (("float32", False, IMAGENET_SERVE_STEPS, "ddim"),
+                 ("bfloat16", True, IMAGENET_SERVE_STEPS, "ddim"))
 
 
 def openai_phase(torch, card, log, fam: str, root: str, model_path: str, runs):
@@ -1990,6 +2156,10 @@ def openai_phase(torch, card, log, fam: str, root: str, model_path: str, runs):
 
 ROWS_TEST_STEPS = 20  # phase 10's serving grid: not the training grid, so rows are remapped
 SWEEP_ATTRS = ("smiling", "angry")
+# --num_delta of the sweep: its coefficient pairs are SWEEP_NUM_DELTA ** 2 (3, 9
+# pairs, until phase 14 came: cut for the time limit)
+SWEEP_NUM_DELTA = 2
+SWEEP_PAIRS = SWEEP_NUM_DELTA ** 2
 
 
 def rows_argv(ws: str, imgs: str, clip_ckpt: str, exp: str, model_path: str, bf16: bool = False,
@@ -2181,7 +2351,7 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
     """Phase 10: (a) Δh-rows training, float32 and bf16, the float32 run
     again with the plain versions, one timestep's rows gradient, and the dead
     slerp injection; (b) rows serving on a 20-step grid (the train→test
-    remap), add and slerp; (c) the 9-pair multi-attribute sweep, float32
+    remap), add and slerp; (c) the 4-pair multi-attribute sweep, float32
     and bf16, and the float32 sweep with the plain versions; (d) the
     mean-of-Δh harvest. Every run reuses phase 7's images and latents."""
     import numpy as np
@@ -2283,7 +2453,8 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
         out["launches"][f"rows serving {inj} float32"] = res["launches"]
 
     phase(f"  (c) --run_test --train_delta_block --multiple_attr \"{' '.join(SWEEP_ATTRS)}\" "
-          f"--delta_interpolation --num_delta 3: 9 coefficient pairs, one generation each")
+          f"--delta_interpolation --num_delta {SWEEP_NUM_DELTA}: {SWEEP_PAIRS} coefficient pairs, "
+          "one generation each")
     ws = workspace("sweep")
     for i, attr in enumerate(SWEEP_ATTRS):
         save_delta_checkpoint(os.path.join(ws, "checkpoint", f"{attr}_sweep.pth"), blocks=[
@@ -2292,7 +2463,8 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
     def sweep(exp, dtype_flags=()):
         return rows_serve_argv(ws, imgs, model_path, exp, (
             "--train_delta_block", "--manual_checkpoint_name", "attribute_sweep.pth",
-            "--multiple_attr", " ".join(SWEEP_ATTRS), "--delta_interpolation", "--num_delta", "3",
+            "--multiple_attr", " ".join(SWEEP_ATTRS), "--delta_interpolation",
+            "--num_delta", str(SWEEP_NUM_DELTA),
             "--do_train", "0", *dtype_flags))
 
     rows = {}
@@ -2300,21 +2472,23 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
         rows[dname] = []
         res = serve_run(torch, card, log,
                         sweep(f"sweep_{dname}", ["--bf16"] * (dname != "float32")),
-                        f"9-pair sweep {dname}", grids=rows[dname])
+                        f"{SWEEP_PAIRS}-pair sweep {dname}", grids=rows[dname])
         (grid,) = grid_files(ws, f"sweep_{dname}").values()
-        if grid.shape != (9 * (IMAGE + 1) + 1, IMAGE + 2, 3) or len(rows[dname]) != 1:
-            fail(f"9-pair sweep {dname}: grid {grid.shape}, {len(rows[dname])} grids")
+        if grid.shape != (SWEEP_PAIRS * (IMAGE + 1) + 1, IMAGE + 2, 3) or len(rows[dname]) != 1:
+            fail(f"{SWEEP_PAIRS}-pair sweep {dname}: grid {grid.shape}, {len(rows[dname])} grids")
         out[f"sweep_{dname}"] = res
-        out["launches"][f"9-pair sweep {dname}"] = res["launches"]
+        out["launches"][f"{SWEEP_PAIRS}-pair sweep {dname}"] = res["launches"]
     # the float32 sweep with the plain versions, same inputs
     plain = []
-    res = serve_run(torch, card, log, sweep("sweep_plain"), "9-pair sweep float32, plain versions",
+    res = serve_run(torch, card, log, sweep("sweep_plain"),
+                    f"{SWEEP_PAIRS}-pair sweep float32, plain versions",
                     kernels=(), grids=plain, plain=True)
     (kern,), (ref,) = rows["float32"], plain
     err = float(np.abs(kern - ref).max() / np.abs(ref).max())
     walls = {k: out[f"sweep_{k}"]["grid_ms_p50"] for k in DTYPES}
     walls["float32 plain"] = res["grid_ms_p50"]
-    phase(f"  9-pair sweep float32, kernels vs plain versions: max |a - b| / max |b| {err:.3e} "
+    phase(f"  {SWEEP_PAIRS}-pair sweep float32, kernels vs plain versions: max |a - b| / max |b| "
+          f"{err:.3e} "
           f"(tol {CHAIN_TOL:g}); ms per grid of 9 edited {ROWS_TEST_STEPS}-step generations "
           f"(bs 1): {walls} on {card}")
     if err > CHAIN_TOL:
@@ -2352,9 +2526,12 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
 # phase 11: the LPIPS calibration stage, ID-loss training, the fidelity runbook
 # ---------------------------------------------------------------------------
 
-LPIPS_STEPS = 200  # the calibration recipe runs 1000; cut for the script's time limit
-LPIPS_SHORT = 100  # the bf16 run, and the plain-versions comparison
-LPIPS_BS2_STEPS = 10  # --bs_train 2: cuDNN's f32 FFT convolutions (ROADMAP Queue 3)
+# the calibration recipe runs 1000 steps; cut for the script's time limit (to 200
+# when phase 12 came, to 100 when phase 14 came: the f32, bf16 and plain runs
+# share it)
+LPIPS_STEPS = 100
+# --bs_train 2: cuDNN's f32 FFT convolutions (ROADMAP Queue 3); 10 until phase 14
+LPIPS_BS2_STEPS = 5
 LPIPS_TOL = 1e-3  # the f32 curves, kernels vs plain, of each curve's scale
 FIDELITY_GATE = 0.01  # mean LPIPS, the runbook's gate
 LPIPS_KINDS = ("x", "x_std", "x0_t", "x0_t_std")
@@ -2577,7 +2754,7 @@ def fidelity_argv(ws: str, imgs: str, model_path: str, extra=()):
 def m7_phase(torch, card, log, ws_root, clip_ckpt: str):
     """Phase 11 on full-width `custom.yml` at bs 1 through the port's CLI,
     in-process, from phase 4/7's images and phase 10's seeded random UNet:
-    (a) `--lpips` f32 at LPIPS_STEPS steps, bf16 at 100, f32 at 100 with the
+    (a) `--lpips` at LPIPS_STEPS steps f32, bf16, and f32 with the
     kernels and with the plain versions (curves within LPIPS_TOL), f32 at
     --bs_train 2 over 10 steps (recorded, not gated), then `set_interval`
     on the fresh tsvs; (b) phase 7's training with `--id_loss_w 1
@@ -2612,9 +2789,8 @@ def m7_phase(torch, card, log, ws_root, clip_ckpt: str):
     lp, curves = {}, {}
     for label, steps, bf16, bs, plain in (
             ("float32", LPIPS_STEPS, False, 1, False),
-            ("bfloat16", LPIPS_SHORT, True, 1, False),
-            ("float32 short", LPIPS_SHORT, False, 1, False),
-            ("float32 short plain", LPIPS_SHORT, False, 1, True),
+            ("bfloat16", LPIPS_STEPS, True, 1, False),
+            ("float32 plain", LPIPS_STEPS, False, 1, True),
             ("float32 bs 2", LPIPS_BS2_STEPS, False, 2, False)):
         ws = os.path.join(root, "lpips_" + label.replace(" ", "_"))
         lp[label], curves[label] = lpips_run(
@@ -2624,16 +2800,16 @@ def m7_phase(torch, card, log, ws_root, clip_ckpt: str):
             out["launches"][f"lpips {label}"] = lp[label]["launches"]
     errs_by_kind = {}
     for kind in LPIPS_KINDS:
-        k = np.asarray(list(curves["float32 short"][kind].values()))
-        p = np.asarray(list(curves["float32 short plain"][kind].values()))
+        k = np.asarray(list(curves["float32"][kind].values()))
+        p = np.asarray(list(curves["float32 plain"][kind].values()))
         errs_by_kind[kind] = float(np.abs(k - p).max() / max(np.abs(p).max(), 1e-30))
-    phase(f"  f32 {LPIPS_SHORT}-step curves, kernels vs plain versions, max |a - b| / max |b|: "
+    phase(f"  f32 {LPIPS_STEPS}-step curves, kernels vs plain versions, max |a - b| / max |b|: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs_by_kind.items()) + f" (tol {LPIPS_TOL:g})")
     if max(errs_by_kind.values()) > LPIPS_TOL:
         fail(f"the LPIPS curves with the kernels disagree with the plain versions: {errs_by_kind}")
-    bs1, bs2 = lp["float32 short"]["ms_per_step_per_image"], lp["float32 bs 2"]["ms_per_step_per_image"]
-    phase(f"  f32 ms per inversion step per image: bs 1 {bs1:.2f} ({LPIPS_SHORT} steps), "
-          f"{lp['float32']['ms_per_step']:.2f} ({LPIPS_STEPS} steps); bs 2 {bs2:.2f} "
+    bs1, bs2 = lp["float32"]["ms_per_step_per_image"], lp["float32 bs 2"]["ms_per_step_per_image"]
+    phase(f"  f32 ms per inversion step per image: bs 1 {bs1:.2f} ({LPIPS_STEPS} steps); bs 2 "
+          f"{bs2:.2f} "
           f"({lp['float32 bs 2']['ms_per_step']:.2f} per step of 2 images, {LPIPS_BS2_STEPS} "
           f"steps): {bs2 / bs1:.1f}x bs 1's (cuDNN's f32 FFT convolutions, ROADMAP Queue 3; "
           "recorded, not gated)")
@@ -2918,21 +3094,23 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
     root = os.path.join(ws_root, "imagenet")
     model_path, init_s = make_imagenet_workspace(torch, root, os.environ["ASYRP_TPU_DATA"])
     _, _, cache_category, _ = openai_family("imagenet")
-    phase(f"  (b) --run_test --target_class_num {IMAGENET_CLASS}, {STEPS} + {STEPS} steps, bs 1")
+    phase(f"  (b) --run_test --target_class_num {IMAGENET_CLASS}, {IMAGENET_SERVE_STEPS} + "
+          f"{IMAGENET_SERVE_STEPS} steps, bs 1")
     serving, launches = openai_phase(torch, card, log, "imagenet", root, model_path,
                                      IMAGENET_RUNS)
     phase("  (c) the float32 IMAGENET serving chain, kernels vs plain versions:")
     ws = os.path.join(root, "float32")
     chain_err, chain_ms, per_request, served = chain_phase(
         torch, dev, card, ws, openai_argv("imagenet", ws, model_path), IMAGENET_CONFIG,
-        "imagenet_delta.pth", f"{cache_category}_test_t999_nim2_ninv{STEPS}_pairs.npz",
+        "imagenet_delta.pth",
+        f"{cache_category}_test_t999_nim2_ninv{IMAGENET_SERVE_STEPS}_pairs.npz",
         eps_check=True)
     phase("  where the time goes in one IMAGENET UNet eval at batch 1 (torch.profiler):")
     profile = profile_phase(torch, dev, card, served)
     del served
     torch.cuda.empty_cache()
     phase(f"  (d) --run_train --train_delta_block --target_class_num {IMAGENET_CLASS} "
-          f"--edit_attr {AFHQ_ATTR}, 2 images, 2 iterations, {STEPS}-step grids")
+          f"--edit_attr {AFHQ_ATTR}, 1 image, 2 iterations, {STEPS}-step grids")
     training, train_launches = openai_train_phase(torch, card, log, "imagenet", root, model_path,
                                                   clip_ckpt, plain_run=True)
     torch.cuda.empty_cache()
@@ -2940,7 +3118,7 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
     seconds = time.perf_counter() - t_phase
     phase(f"  phase 12 took {seconds:.1f} s")
     return {"init_s": init_s, "serving": serving, "launches": launches,
-            "train_launches": train_launches, "invert_edit_chain_ms_best_of_2": chain_ms,
+            "train_launches": train_launches, "invert_edit_chain_ms": chain_ms,
             "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
             "profile": profile, "training": training, "classifier": classifier,
             "seconds": seconds}
@@ -2952,6 +3130,7 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
 # ---------------------------------------------------------------------------
 
 STYLE_SAVE = "styled"
+STYLE_CONTENTS = 1  # content images of a sweep (2 until phase 14 came: cut for the time limit)
 CONTENT_REPLACE = 50  # --content_replace_step's default: with t_edit, it gates the injection
 # the four CLIP terms on the card against the same code on the CPU
 CLIP_TERM_TOL = 1e-4
@@ -3012,7 +3191,7 @@ def style_run(torch, card, argv, what: str, expect_k3: int, plain: bool = False)
                  f"K2-MH {counts['attention_mh']} (must be 0)")
     save = argv[argv.index("--save_dir") + 1]
     names = sorted(os.listdir(save))
-    if names != ["content0_style0.png", "content1_style0.png"] or sorted(outs) != names:
+    if names != [f"content{i}_style0.png" for i in range(STYLE_CONTENTS)] or sorted(outs) != names:
         fail(f"{what}: wrote {names}, kept {sorted(outs)}")
     for n in names:
         png = np.asarray(Image.open(os.path.join(save, n)))
@@ -3201,23 +3380,26 @@ def style_phase(torch, dev, card, ws_root: str):
 
     t_phase = time.perf_counter()
     root = os.path.join(ws_root, "style")
-    write_images(root, sub="contents")
+    write_images(root, n=STYLE_CONTENTS, sub="contents")
     rng = np.random.RandomState(SEED + 1)  # a style image distinct from the contents
     os.makedirs(os.path.join(root, "styles"))
     Image.fromarray((rng.rand(IMAGE, IMAGE, 3) * 255).astype(np.uint8)).save(
         os.path.join(root, "styles", "0.png"))
     model_path = os.path.join(ws_root, "rows", "unet_random.pt")  # phase 10's seeded init
     seq = uniform_seq(STEPS, 999)
-    # the K3 launches of one sweep, from the tables: 2 + 1 inversions, 2 x 1
+    # the K3 launches of one sweep, from the tables: the contents' and the
+    # style's inversions, STYLE_CONTENTS x 1 generations,
     # generations, gated at max(t_edit, content_replace_step)
     gate = max(T_EDIT, CONTENT_REPLACE)
     gen_table = generation_table(seq, t_edit=gate, delta_times=[t for t in seq if t >= gate])
     n_inv, n_gen = inversion_table(seq).num_steps, gen_table.num_steps
-    expect_k3 = 3 * n_inv + 2 * n_gen
+    expect_k3 = (STYLE_CONTENTS + 1) * n_inv + STYLE_CONTENTS * n_gen
     n_dual = int(np.sum(gen_table.use_delta))
-    phase(f"  (a) --diff_style: 2 content images x 1 style, {STEPS} + {STEPS} steps, t_edit "
+    phase(f"  (a) --diff_style: {STYLE_CONTENTS} content image(s) x 1 style, {STEPS} + {STEPS} "
+          f"steps, t_edit "
           f"{T_EDIT}, content_replace_step {CONTENT_REPLACE}, hs_coeff 0.9: K3 derived "
-          f"{expect_k3} launches (3 x {n_inv} inversion steps + 2 x {n_gen} generation steps, "
+          f"{expect_k3} launches ({STYLE_CONTENTS + 1} x {n_inv} inversion steps + "
+          f"{STYLE_CONTENTS} x {n_gen} generation steps, "
           f"{n_dual} of them dual-decoded)")
     out = {"expect_k3": expect_k3, "dual_steps_per_generation": n_dual}
     runs = {}
@@ -3276,6 +3458,516 @@ def style_phase(torch, dev, card, ws_root: str):
     phase(f"  phase 13 took {out['seconds']:.1f} s")
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# phase 14: base training of the UNets, the train-state sidecar, respaced
+# sampling, the serving export, ResNet-18 and the shape report
+# ---------------------------------------------------------------------------
+
+BASE_LR, BASE_EMA, BASE_STEPS = 1e-4, 0.9999, 3
+BASE_RECIPES = {  # config: (training_losses keywords, timestep sampler)
+    CONFIG: (dict(mean_type="eps", var_type="fixedsmall", loss_type="mse"), "uniform"),
+    # the P2 recipe of the AFHQ / FFHQ / MetFACE checkpoints
+    AFHQ_CONFIG: (dict(mean_type="eps", var_type="learned_range", loss_type="rescaled_mse",
+                       p2_gamma=1.0, p2_k=1.0), "loss-second-moment"),
+}
+BASE_RUNS = (  # (config, dtype, batch, steps, gated): the f32 bs 2 step runs cuDNN's FFT path
+    (CONFIG, "float32", 1, BASE_STEPS, True),
+    (AFHQ_CONFIG, "bfloat16", 8, BASE_STEPS, True),
+    (AFHQ_CONFIG, "float32", 1, BASE_STEPS, True),
+    (AFHQ_CONFIG, "float32", 2, 1, False),
+)
+BASE_KERNELS = {CONFIG: ("group_norm", "group_norm_bwd", "attention", "attention_bwd"),
+                AFHQ_CONFIG: ("group_norm", "group_norm_bwd", "attention_mh", "attention_mh_bwd")}
+BASE_ABSENT = {CONFIG: ("attention_mh", "attention_mh_bwd", "ddim_step", "ddim_step_bwd",
+                        "ddpm_step"),
+               AFHQ_CONFIG: ("attention", "attention_bwd", "ddim_step", "ddim_step_bwd",
+                             "ddpm_step")}
+BASE_GRAD_T = {1: (500,), 2: (750, 250)}  # the gradient gate's timesteps by batch
+# a leaf's gradient error counts at the leaf's own scale, or at this share of
+# the largest leaf's where its own is smaller: a gradient that is zero in
+# exact arithmetic (the attention key bias: softmax ignores a shift shared by
+# a query's logits) is float noise in either run, and a bias whose gradient
+# is a sum over space that nearly cancels reads its rounding at its own scale
+GRAD_FLOOR = 1e-3
+RESPACED_STEPS = 25
+LIB_TOL = 1e-4  # ResNet-18 on the card against the CPU, TF32 off
+PARAM_COUNTS = {CONFIG: 113_673_219, AFHQ_CONFIG: 93_563_910, IMAGENET_CONFIG: IMAGENET_PARAMS}
+
+
+def base_setup(torch, dev, ws_root: str, config: str):
+    """(spec, Gaussian tables of the config's schedule, the state dict on the
+    card): custom.yml from phase 10's seeded init, afhq.yml from phase 8's
+    perturbed `.pt`."""
+    from asyrp_official_torch.cli.main import load_config
+    from asyrp_official_torch.core import gaussian as G
+    from asyrp_official_torch.core.schedule import linear_beta_schedule
+    from asyrp_official_torch.models.registry import spec_from_config
+
+    cfg = load_config(config)
+    d = cfg["diffusion"]
+    tab = G.make_tables(linear_beta_schedule(d["beta_start"], d["beta_end"],
+                                             d["num_diffusion_timesteps"]))
+    path = (os.path.join(ws_root, "rows", "unet_random.pt") if config == CONFIG
+            else os.path.join(ws_root, "afhq", "afhq_perturbed.pt"))
+    return spec_from_config(cfg), tab, torch.load(path, map_location=dev)
+
+
+def base_batch(torch, dev, i: int, bs: int, sampler):
+    """Step i's batch: images in [-1, 1] and noise from a generator of seed
+    SEED + i, timesteps and their weights from `sampler` with
+    RandomState(SEED + i)."""
+    import numpy as np
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + i)
+    x0 = torch.rand(bs, 3, IMAGE, IMAGE, generator=gen, device=dev) * 2.0 - 1.0
+    noise = torch.randn(bs, 3, IMAGE, IMAGE, generator=gen, device=dev)
+    t, w = sampler.sample(bs, np.random.RandomState(SEED + i))
+    return x0, torch.from_numpy(t).to(dev), noise, torch.from_numpy(w).to(dev)
+
+
+def base_trainer(torch, dev, setup, config: str, dname: str):
+    """A fresh model of the setup's weights, its EMA, Adam and the step:
+    returns (model, ema, optimizer, sampler, step(i, bs) -> metrics)."""
+    from asyrp_official_torch.core.resample import (
+        LossSecondMomentResampler, create_named_schedule_sampler)
+    from asyrp_official_torch.pipelines.base_train import (
+        init_train_state, make_base_train_step, unet_eps_fn)
+
+    spec, tab, sd = setup
+    model = spec.build().to(dev)
+    model.load_state_dict(sd)
+    model, ema, opt = init_train_state(model, torch.optim.Adam(model.parameters(), lr=BASE_LR))
+    recipe, sampler_name = BASE_RECIPES[config]
+    sampler = create_named_schedule_sampler(sampler_name, tab.num_timesteps)
+    step_fn = make_base_train_step(unet_eps_fn, tab, opt, ema_rate=BASE_EMA,
+                                   compute_dtype=getattr(torch, dname), **recipe)
+
+    def step(i: int, bs: int):
+        x0, t, noise, w = base_batch(torch, dev, i, bs, sampler)
+        m = step_fn(model, ema, x0, t, noise, w)
+        if isinstance(sampler, LossSecondMomentResampler):
+            sampler.update_with_local_losses(t.cpu().numpy(), m["loss_per_sample"].cpu().numpy())
+        return m
+
+    return model, ema, opt, sampler, step
+
+
+def params_of(module):
+    return {k: v.detach().clone() for k, v in module.named_parameters()}
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def base_timed_run(torch, dev, card, setup, config: str, dname: str, bs: int, steps: int):
+    """One base-training run with the kernels and the default cuDNN: its
+    launches (counters zeroed first), ms per step, images/s and peak
+    memory; then one more step under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, ema, _, _, step = base_trainer(torch, dev, setup, config, dname)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    walls, losses = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step(i, bs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    counts = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    what = f"{config} base training {dname} bs {bs}"
+    require_launches(counts, BASE_KERNELS[config], what)
+    if any(counts[n] for n in BASE_ABSENT[config]):
+        fail(f"{what} launched a kernel off its path {BASE_ABSENT[config]}: {counts}")
+    finite = all(torch.isfinite(p).all() for p in model.parameters()) and all(
+        math.isfinite(v) for v in losses)
+    if not finite:
+        fail(f"{what}: non-finite loss or parameters, losses {losses}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(steps, bs)
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    row = {"batch": bs, "dtype": dname, "steps": steps, "losses": losses, "walls_ms": walls,
+           "ms_per_step": statistics.median(walls[1:] if steps > 1 else walls),
+           "peak_gib": peak, "launches": counts,
+           "profile": device_time(prof, prof_wall, what)}
+    row["images_per_s"] = bs / row["ms_per_step"] * 1e3
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    phase(f"  (a) {what} on {card}: {steps} step(s), losses {[round(v, 5) for v in losses]}; "
+          f"ms per step {', '.join(f'{w:.1f}' for w in walls)} (steady {row['ms_per_step']:.1f}, "
+          f"{row['images_per_s']:.2f} images/s); peak {peak:.2f} GiB; launches per step "
+          f"{per_step}; one more step under torch.profiler: " + fmt_device_time(row["profile"]))
+    del model, ema, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def base_trajectory(torch, dev, setup, config: str, sidecar: str = None, plain: bool = False):
+    """BASE_STEPS float32 steps at bs 1 under deterministic cuDNN, with the
+    kernels or the plain versions: the losses, the parameters' and the EMA's
+    updates from the init. With `sidecar`, the train state is saved after
+    step 2 (`save_train_state`, the EMA in `extra`), restored into a fresh
+    model, EMA and optimizer, and step 3 taken again from it: it must be
+    bit-identical to the uninterrupted step 3. Each step's EMA must be
+    `ema * rate + params * (1 - rate)` of its new parameters, bit for bit."""
+    from asyrp_official_torch.pipelines.checkpoint import load_train_state, save_train_state
+
+    with deterministic_cudnn(torch), (plain_versions() if plain else contextlib.nullcontext()):
+        model, ema, opt, _, step = base_trainer(torch, dev, setup, config, "float32")
+        init, losses = params_of(model), []
+        for i in range(BASE_STEPS):
+            if sidecar and i == BASE_STEPS - 1:
+                save_train_state(sidecar, trainable=model.state_dict(), opt_state=opt.state_dict(),
+                                 it_out=i, extra={"ema": ema.state_dict()})
+            ema_before = params_of(ema)
+            losses.append(step(i, 1)["loss"])
+            new, ema_now = params_of(model), params_of(ema)
+            if any(not torch.equal(ema_now[k], ema_before[k] * BASE_EMA + new[k] * (1.0 - BASE_EMA))
+                   for k in new):
+                fail(f"{config} base training step {i + 1}: the EMA is not "
+                     "ema * rate + params * (1 - rate) of the step's parameters")
+        out = {"losses": [float(v) for v in losses], "init": init, "params": params_of(model),
+               "ema": params_of(ema)}
+        del model, ema, opt, step
+        if sidecar:
+            model, ema, opt, _, step = base_trainer(torch, dev, setup, config, "float32")
+            state = load_train_state(sidecar, like={"trainable": model.state_dict()},
+                                     map_location=dev)
+            model.load_state_dict(state["trainable"])
+            ema.load_state_dict(state["extra"]["ema"])
+            opt.load_state_dict(state["opt_state"])
+            loss = step(state["meta"]["it_out"], 1)["loss"]
+            same = (torch.equal(loss, losses[-1])
+                    and all(torch.equal(v, out["params"][k]) for k, v in params_of(model).items())
+                    and all(torch.equal(v, out["ema"][k]) for k, v in params_of(ema).items()))
+            out["resume_bit_identical"] = same
+            out["sidecar_mib"] = os.path.getsize(sidecar) / 2**20
+            del model, ema, opt, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def update_err(got, want, init):
+    """The update's error (got - init against want - init) over every
+    parameter: (in the L2 norm over the whole update's, in the max norm
+    over the largest element's). The gate reads the L2 one: Adam divides
+    by sqrt(v) + 1e-8 per element, so an element whose gradient is zero in
+    exact arithmetic (the attention key bias) moves by +-lr of float noise
+    in either run, which the max norm would read as a fault."""
+    import torch
+
+    d2 = n2 = dmax = nmax = 0.0
+    for k in want:
+        u, d = want[k] - init[k], got[k] - want[k]
+        d2 += float(torch.sum(d.double() ** 2))
+        n2 += float(torch.sum(u.double() ** 2))
+        dmax, nmax = max(dmax, float(d.abs().max())), max(nmax, float(u.abs().max()))
+    return math.sqrt(d2 / max(n2, 1e-300)), dmax / max(nmax, 1e-30)
+
+
+def base_grads(torch, dev, setup, config: str, dname: str, bs: int, plain: bool):
+    """One step's gradient w.r.t. every parameter (f32 copies), deterministic
+    cuDNN, with the kernels or the plain versions, on a fixed batch with
+    BASE_GRAD_T's timesteps."""
+    from asyrp_official_torch.core import gaussian as G
+    from asyrp_official_torch.pipelines.base_train import unet_eps_fn
+
+    spec, tab, sd = setup
+    dtype = getattr(torch, dname)
+    with deterministic_cudnn(torch), (plain_versions() if plain else contextlib.nullcontext()):
+        model = spec.build().to(dev)
+        model.load_state_dict(sd)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+        x0 = torch.rand(bs, 3, IMAGE, IMAGE, generator=gen, device=dev) * 2.0 - 1.0
+        noise = torch.randn(bs, 3, IMAGE, IMAGE, generator=gen, device=dev)
+        t = torch.tensor(BASE_GRAD_T[bs], device=dev)
+        terms = G.training_losses(tab, lambda x, tt: unet_eps_fn(model, x.to(dtype), tt).float(),
+                                  x0, t, noise, **BASE_RECIPES[config][0])
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(terms["loss"].mean(), params)
+        out = {n: g.float() for n, g in zip(names, grads)}
+    del model, terms, grads
+    return out
+
+
+def grad_errs(got, want, floor: float = GRAD_FLOOR):
+    """Per leaf max |a - b| over the leaf's scale, floored at `floor` of the
+    largest leaf's."""
+    top = max(float(v.abs().max()) for v in want.values())
+    return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), floor * top, 1e-30)
+            for k, w in want.items()}
+
+
+def worst(errs_by_leaf, n: int = 3) -> str:
+    top = sorted(errs_by_leaf.items(), key=lambda kv: -kv[1])[:n]
+    return ", ".join(f"{k} {v:.2e}" for k, v in top)
+
+
+def base_gates(torch, dev, card, setup, config: str, sidecar: str = None):
+    """The gradient gate (float32 at bs 1: every leaf of the kernels'
+    gradient within GRAD_TOL of the plain versions'; bfloat16 at bs 2, two
+    timesteps: the kernels no farther from the float32 plain gradient than
+    BF16_GRAD_FACTOR x the plain bfloat16 one) and the trajectory gate (the
+    3-step f32 run, kernels vs plain: the loss per step within CHAIN_TOL, the
+    update and the EMA's update within UPDATE_TOL in the L2 norm,
+    `update_err`), with the sidecar check where `sidecar` is given."""
+    t0 = time.perf_counter()
+    g_k = base_grads(torch, dev, setup, config, "float32", 1, plain=False)
+    g_p = base_grads(torch, dev, setup, config, "float32", 1, plain=True)
+    f32 = grad_errs(g_k, g_p)
+    own = grad_errs(g_k, g_p, floor=0.0)  # at each leaf's own scale, for the record
+    top = max(float(v.abs().max()) for v in g_p.values())
+    floored = sorted(k for k, v in g_p.items() if float(v.abs().max()) < GRAD_FLOOR * top)
+    del g_k, g_p
+    ref = base_grads(torch, dev, setup, config, "float32", 2, plain=True)
+    bf_k = grad_errs(base_grads(torch, dev, setup, config, "bfloat16", 2, plain=False), ref)
+    bf_p = grad_errs(base_grads(torch, dev, setup, config, "bfloat16", 2, plain=True), ref)
+    del ref
+    torch.cuda.empty_cache()
+    phase(f"  (a) {config} one step's gradient w.r.t. all {len(f32)} parameters, per leaf, f32 bs "
+          f"1 (t = {BASE_GRAD_T[1][0]}), kernels vs plain: worst {max(f32.values()):.3e} (tol "
+          f"{GRAD_TOL:g}) at {worst(f32)}; {len(floored)} leaves under the floor ({GRAD_FLOOR:g} "
+          f"of the largest leaf's scale {top:.3e}): {floored}; at each leaf's own scale the "
+          f"worst reads {worst(own)}; bf16 bs 2 (t = {BASE_GRAD_T[2]}) "
+          "against f32 plain: kernels worst "
+          f"{max(bf_k.values()):.3e} ({worst(bf_k, 2)}), plain {max(bf_p.values()):.3e} (tol "
+          f"{BF16_GRAD_FACTOR:g}x)")
+    if max(f32.values()) > GRAD_TOL:
+        fail(f"{config}: the float32 base-training gradient with the kernels disagrees with the "
+             f"plain one: {worst(f32)}")
+    if max(bf_k.values()) > BF16_GRAD_FACTOR * max(bf_p.values()):
+        fail(f"{config}: the bfloat16 base-training gradient with the kernels is farther from the "
+             f"float32 one than {BF16_GRAD_FACTOR:g}x the plain versions'")
+    k = base_trajectory(torch, dev, setup, config, sidecar=sidecar)
+    p = base_trajectory(torch, dev, setup, config, plain=True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(k["losses"], p["losses"]))
+    upd, upd_max = update_err(k["params"], p["params"], p["init"])
+    ema, ema_max = update_err(k["ema"], p["ema"], p["init"])
+    phase(f"  (a) {config} {BASE_STEPS} f32 steps at bs 1 (deterministic cuDNN), kernels vs "
+          f"plain: losses {[round(v, 6) for v in k['losses']]} vs "
+          f"{[round(v, 6) for v in p['losses']]}, worst {loss_err:.3e} (tol {CHAIN_TOL:g}); "
+          f"update {upd:.3e}, EMA update {ema:.3e} in the L2 norm (tol {UPDATE_TOL:g}; in the "
+          f"max norm {upd_max:.3e} / {ema_max:.3e}); each EMA bit for bit its step's rate "
+          "expression")
+    if loss_err > CHAIN_TOL or upd > UPDATE_TOL or ema > UPDATE_TOL:
+        fail(f"{config}: the 3-step base-training trajectory with the kernels departs from the "
+             f"plain one: loss {loss_err:.3e}, update {upd:.3e}, EMA {ema:.3e}")
+    out = {"grad_f32_worst": max(f32.values()), "grad_floored_leaves": floored,
+           "grad_f32_own_scale": sorted(own.items(), key=lambda kv: -kv[1])[:10],
+           "grad_bf16_kernels": max(bf_k.values()), "grad_bf16_plain": max(bf_p.values()),
+           "losses_kernels": k["losses"], "losses_plain": p["losses"], "loss_err": loss_err,
+           "update_err": upd, "ema_err": ema, "update_err_max": upd_max, "ema_err_max": ema_max,
+           "seconds": time.perf_counter() - t0}
+    if sidecar:
+        phase(f"  (b) sidecar after step 2 ({k['sidecar_mib']:.1f} MiB), restored into a fresh "
+              f"model, EMA and Adam: step 3 bit-identical to the uninterrupted run's (params, "
+              f"EMA, loss): {k['resume_bit_identical']}")
+        if not k["resume_bit_identical"]:
+            fail(f"{config}: base training resumed from the sidecar is not bit-identical")
+        out["sidecar_mib"] = k["sidecar_mib"]
+    return out
+
+
+def respaced_check(torch, dev, card, setup):
+    """(c) `ddim_sample_loop` and `p_sample_loop` over RESPACED_STEPS
+    respaced steps (space_timesteps -> respaced_tables ->
+    wrap_model_for_respacing) of the AFHQ UNet, learned_range, 256^2 bs 1,
+    kernels vs plain within CHAIN_TOL of scale."""
+    from asyrp_official_torch.core import gaussian as G
+    from asyrp_official_torch.core.schedule import linear_beta_schedule, space_timesteps
+    from asyrp_official_torch.pipelines.base_train import unet_eps_fn
+    from asyrp_official_torch.utils import hostrng
+
+    spec, _, sd = setup
+    model = spec.build().to(dev).eval().requires_grad_(False)
+    model.load_state_dict(sd)
+    tab, tmap = G.respaced_tables(linear_beta_schedule(1e-4, 0.02, 1000),
+                                  space_timesteps(1000, str(RESPACED_STEPS)))
+    fn = G.wrap_model_for_respacing(lambda x, t: unet_eps_fn(model, x, t), tmap)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 200)
+    x_t = torch.randn(1, 3, IMAGE, IMAGE, generator=gen, device=dev)
+    out = {}
+    for name, loop in (("ddim_sample_loop", G.ddim_sample_loop),
+                       ("p_sample_loop", G.p_sample_loop)):
+        res = {}
+        with torch.no_grad():
+            for label in ("kernels", "plain"):
+                zero_counters()
+                t0 = time.perf_counter()
+                with plain_versions() if label == "plain" else contextlib.nullcontext():
+                    res[label] = loop(fn, tab, x_t, hostrng.PRNGKey(SEED), var_type="learned_range")
+                torch.cuda.synchronize()
+                res[f"{label}_s"] = time.perf_counter() - t0
+                res[f"{label}_launches"] = counters()
+        err = errs(res["kernels"], res["plain"])[1]
+        moved = errs(res["kernels"], x_t)[1]
+        phase(f"  (c) {name}, {RESPACED_STEPS} respaced steps, learned_range, afhq.yml 256^2 bs 1 "
+              f"on {card}: kernels vs plain {err:.3e} of scale (tol {CHAIN_TOL:g}); "
+              f"{res['kernels_s']:.2f} s (plain {res['plain_s']:.2f} s); launches "
+              f"{ {k: v for k, v in res['kernels_launches'].items() if v} }; "
+              f"{moved:.3e} of scale from x_T")
+        if not torch.isfinite(res["kernels"]).all() or err > CHAIN_TOL:
+            fail(f"respaced {name}: kernels vs plain {err:.3e}")
+        require_launches(res["kernels_launches"], ("group_norm", "attention_mh"),
+                         f"respaced {name}")
+        out[name] = {"err": err, "seconds": res["kernels_s"], "plain_seconds": res["plain_s"]}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_check(torch, dev, card, ws_root: str):
+    """(d) `export_invert_edit` of custom.yml's 40 + 40-step f32 invert ->
+    edit (phase 10's seeded UNet, phase 4's seeded DeltaBlock), `save_serving`,
+    `load_serving`, the artifact run against the live `make_invert_edit` from
+    the same x0 and key (1e-3 of scale); every exported graph names the
+    registered ops and no aten group_norm, SDPA or softmax; K1, K2 and K3
+    launch during the loaded run."""
+    from asyrp_official_torch.core.schedule import make_schedule, uniform_seq
+    from asyrp_official_torch.models.delta import EditState, delta_block_from_tree, delta_block_init
+    from asyrp_official_torch.pipelines import engine, export
+    from asyrp_official_torch.utils import hostrng
+
+    spec, _, sd = base_setup(torch, dev, ws_root, CONFIG)
+    model = spec.build().to(dev).eval().requires_grad_(False)
+    model.load_state_dict(sd)
+    block = delta_block_from_tree(delta_block_init(hostrng.PRNGKey(7), spec.bottleneck_ch,
+                                                   spec.temb_ch), spec.bottleneck_ch,
+                                  spec.temb_ch).to(dev).eval()
+    edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=dev))
+    sched, seq = make_schedule(), uniform_seq(STEPS, 999)
+    path = os.path.join(ws_root, "serving.pt2")
+    t0 = time.perf_counter()
+    artifact, meta = export.export_invert_edit(spec, sched, seq, seq, model, edit, t_edit=T_EDIT,
+                                               t_addnoise=T_ADDNOISE, batch=1, image_size=IMAGE)
+    export_s = time.perf_counter() - t0
+    export.save_serving(path, artifact, meta)
+    t0 = time.perf_counter()
+    fn = export.load_serving(path)
+    load_s = time.perf_counter() - t0
+    for kind, prog in fn.programs.items():
+        targets = {str(n.target) for n in prog.graph.nodes if n.op == "call_function"}
+        missing = [op for op in ("asyrp.group_norm.default", "asyrp.attention.default",
+                                 "asyrp.ddim_step.default") if op not in targets]
+        hidden = [t for t in targets if any(s in t for s in (
+            "group_norm", "scaled_dot_product", "softmax")) and not t.startswith("asyrp.")]
+        if missing or hidden:
+            fail(f"exported {kind} program: registered ops missing {missing}, hidden in "
+                 f"{hidden}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 300)
+    x0 = torch.rand(1, IMAGE, IMAGE, 3, generator=gen, device=dev) * 2.0 - 1.0
+    key = hostrng.PRNGKey(SEED)
+    zero_counters()
+    t0 = time.perf_counter()
+    got = fn(model.state_dict(), edit, x0, key)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = counters()
+    require_launches(counts, ("group_norm", "attention", "ddim_step"), "the loaded artifact")
+    live = engine.make_invert_edit(spec, sched, seq, seq, t_edit=T_EDIT, t_addnoise=T_ADDNOISE)(
+        model, edit, x0, noise_fn=export.engine_noise_fn(key))
+    err = errs(got, live)[1]
+    size = (os.path.getsize(path) + os.path.getsize(path + ".meta.json")) / 2**20
+    phase(f"  (d) export of custom.yml's {STEPS} + {STEPS}-step f32 invert -> edit on {card}: "
+          f"export {export_s:.1f} s (three per-step programs), artifact {size:.2f} MiB, load "
+          f"{load_s:.1f} s; each graph names asyrp.group_norm / attention / ddim_step; the loaded "
+          f"run {run_s:.2f} s, launches {counts}; vs the live engine {err:.3e} of scale (tol "
+          f"{CHAIN_TOL:g})")
+    if not torch.isfinite(got).all() or err > CHAIN_TOL:
+        fail(f"the exported program departs from the live engine: {err:.3e}")
+    del model, fn
+    torch.cuda.empty_cache()
+    return {"export_s": export_s, "load_s": load_s, "run_s": run_s, "artifact_mib": size,
+            "err": err, "launches": counts}
+
+
+def library_check(torch, dev, card):
+    """(e) ResNet-18 (a seeded random init) on the card against the CPU at bs
+    1 and 8, 256^2, TF32 off, within LIB_TOL of scale; the shape report of
+    custom.yml, afhq.yml and imagenet.yml with their parameter counts."""
+    import io as _io
+
+    from asyrp_official_torch.cli.main import load_config
+    from asyrp_official_torch.losses import resnet18
+    from asyrp_official_torch.models.debug import forward_shape_report
+    from asyrp_official_torch.models.registry import spec_from_config
+
+    cpu = resnet18.init(SEED)
+    gpu = resnet18.init(SEED).to(dev)
+    out = {}
+    for bs in (1, 8):
+        x = torch.randn(bs, 3, IMAGE, IMAGE, generator=torch.Generator().manual_seed(SEED + bs))
+        with torch.no_grad():
+            want = resnet18.resnet18_features(cpu, x)
+            got = resnet18.resnet18_features(gpu, x.to(dev))
+            ms = time_ms(lambda: resnet18.resnet18_features(gpu, x.to(dev)), runs=10)
+        err = max(errs(g, w)[1] for g, w in zip(got, want))
+        phase(f"  (e) ResNet-18 bs {bs}, 256^2, card vs CPU: {err:.3e} of scale (tol {LIB_TOL:g}); "
+              f"{ms:.2f} ms per forward on {card}")
+        if err > LIB_TOL:
+            fail(f"ResNet-18 on the card departs from the CPU: {err:.3e}")
+        out[f"resnet18_bs{bs}"] = {"err": err, "ms": ms}
+    for config in (CONFIG, AFHQ_CONFIG, IMAGENET_CONFIG):
+        with contextlib.redirect_stdout(_io.StringIO()):
+            rows = forward_shape_report(spec_from_config(load_config(config)))
+        shapes = dict(rows)
+        phase(f"  (e) forward_shape_report({config}): {shapes}")
+        if shapes["params (count)"] != (PARAM_COUNTS[config],):
+            fail(f"{config}: the shape report counts {shapes['params (count)']} parameters")
+        out[config] = {k: list(v) for k, v in shapes.items()}
+    del gpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def base_phase(torch, dev, card, ws_root: str):
+    """Phase 14: (a) base training of the full-width custom.yml and afhq.yml
+    UNets (BASE_RUNS), with the gradient and trajectory gates; (b) the
+    train-state sidecar; (c) respaced sampling; (d) the serving export; (e)
+    ResNet-18 and the shape report."""
+    t_phase = time.perf_counter()
+    out = {"runs": {}, "gates": {}, "seconds_by_part": {}}
+
+    def timed(part, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        out["seconds_by_part"][part] = time.perf_counter() - t0
+        return res
+
+    for config in (CONFIG, AFHQ_CONFIG):
+        setup = base_setup(torch, dev, ws_root, config)
+        for cfg, dname, bs, steps, gated in BASE_RUNS:
+            if cfg == config:
+                row = timed(f"{config} {dname} bs {bs}", base_timed_run, torch, dev, card, setup,
+                            config, dname, bs, steps)
+                row["gated"] = gated
+                out["runs"][f"{config} {dname} bs {bs}"] = row
+        out["gates"][config] = timed(
+            f"{config} gates", base_gates, torch, dev, card, setup, config,
+            sidecar=os.path.join(ws_root, "base_train_state.pt") if config == CONFIG else None)
+        if config == AFHQ_CONFIG:
+            out["respaced"] = timed("respaced", respaced_check, torch, dev, card, setup)
+        del setup
+        torch.cuda.empty_cache()
+    out["export"] = timed("export", export_check, torch, dev, card, ws_root)
+    out["library"] = timed("library", library_check, torch, dev, card)
+    out["seconds"] = time.perf_counter() - t_phase
+    phase(f"  phase 14 took {out['seconds']:.1f} s on {card}: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in out["seconds_by_part"].items()))
+    return out
 
 
 def _ptxas_by_entry(log: str):
@@ -3425,7 +4117,8 @@ def main() -> int:
     phase(f"phase 1: card {card}; torch {torch.__version__} cuda {torch.version.cuda}")
     sass = build_kernels()
 
-    phase("phase 3: kernels against their plain versions (ms = median of 25 CUDA-event runs)")
+    phase(f"phase 3: kernels against their plain versions (ms = median of {ROW_RUNS} CUDA-event "
+          "runs)")
     seen = record_path_shapes(torch, dev)
     phase(f"  one edited UNet eval at batch 1: {sum(seen['group_norm'].values())} group_norm "
           f"calls over {len(seen['group_norm'])} shapes, {sum(seen['attention'].values())} "
@@ -3456,6 +4149,11 @@ def main() -> int:
           f"{seen_imagenet['train_attention_mh_imagenet']} multi-head attention calls "
           f"({sum(seen_imagenet['attention_bwd_mh_imagenet'].values())} with a gradient)")
     rows = kernel_rows(torch, dev, {**seen, **seen_afhq, **seen_imagenet})
+    seen_base = record_base_train_shapes(torch)
+    phase("  one base-training step (every parameter trained, batch 2, t = 750 and 250): "
+          + "; ".join(f"{name} {sum(v.values())} calls over {len(v)} shapes"
+                      for name, v in seen_base.items()))
+    base_rows = base_train_rows(torch, dev, seen_base)
 
     os.makedirs(ws_root)
     log = _RunnerLog()
@@ -3522,6 +4220,11 @@ def main() -> int:
               "image-noise engine's gradient, the global and interp_batch edit modes, the RN50 "
               "tower and the CLIP terms")
         style = style_phase(torch, dev, card, ws_root)
+        torch.cuda.empty_cache()
+        phase("phase 14: base training of the full-width UNets (custom.yml, afhq.yml), the "
+              "train-state sidecar, respaced sampling, the serving export, ResNet-18 and the "
+              "shape report")
+        base = base_phase(torch, dev, card, ws_root)
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
@@ -3534,7 +4237,9 @@ def main() -> int:
             **{f"imagenet.yml serving {k}": v for k, v in imagenet["launches"].items()},
             "imagenet.yml training float32": imagenet["train_launches"],
             "custom.yml --diff_style float32": style["runs"]["float32"]["launches"],
-            "custom.yml image-noise gradient float32": style["image_noise"]["launches"]}
+            "custom.yml image-noise gradient float32": style["image_noise"]["launches"],
+            **{f"{k} base training": v["launches"] for k, v in base["runs"].items()},
+            "custom.yml exported invert -> edit float32": base["export"]["launches"]}
     afhq_f32, afhq_ddpm = afhq_launches["float32"], afhq_launches["ddpm float32"]
     gn_ref = ("asyrp_official_tpu/models/common.py:147 (group_norm; _gn_silu at "
               "models/ddpmpp.py:182; former Pallas ops/groupnorm.py:80 at 4b63bc3^)")
@@ -3629,16 +4334,17 @@ def main() -> int:
         })
     summary = {"card": card, "attention_sass": sass, "step_rows": rows["step_rows"],
                "serving": timings,
-               "invert_edit_chain_ms_best_of_2": chain_ms,
+               "invert_edit_chain_ms": chain_ms,
                "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,
                "profile": profile, "training": training,
                "afhq": {"serving": afhq_timings, "launches": afhq_launches,
-                        "invert_edit_chain_ms_best_of_2": afhq_chain_ms,
+                        "invert_edit_chain_ms": afhq_chain_ms,
                         "chain_rel_err": afhq_chain_err,
                         "launches_per_invert_edit_chain": afhq_per_request,
                         "profile": afhq_profile, "training": afhq_training},
                "rows_and_multi_edit": rows_multi, "lpips_id_fidelity": m7, "imagenet": imagenet,
-               "style_and_library_modes": style,
+               "style_and_library_modes": style, "base_training_rows": base_rows,
+               "base_training_and_library": base,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

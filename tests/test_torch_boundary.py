@@ -13,7 +13,10 @@
     the JAX package's, and the copied host functions (schedules, step
     tables, hostrng draws, interval selection, checkpoint names, the CLI
     parser's defaults, the face alignment, the LPIPS tsv writer, the ADM
-    image crops) equal their originals on a few inputs.
+    image crops, timestep respacing, the schedule samplers, the presets,
+    the tiny workspace) equal their originals on a few inputs; the
+    subprocess's import of every module shows that the LMDB writer and the
+    serving export import without `lmdb`.
 """
 import ast
 import inspect
@@ -162,6 +165,12 @@ def _pairs():
     from asyrp_official_tpu.utils import align as j_align
     from asyrp_official_torch.data import datasets as p_data
     from asyrp_official_tpu.data import datasets as j_data
+    from asyrp_official_torch.core import resample as p_res
+    from asyrp_official_tpu.core import resample as j_res
+    from asyrp_official_torch.configs import presets as p_pre
+    from asyrp_official_tpu.configs import presets as j_pre
+    from asyrp_official_torch.utils import tinyws as p_ws
+    from asyrp_official_tpu.utils import tinyws as j_ws
 
     def sched(m):
         s = m.make_schedule(num_timesteps=1000, beta_start=1e-4, beta_end=0.02,
@@ -241,7 +250,36 @@ def _pairs():
             m.write_lpips_tsv(d, "tiny", curves)
             return [(f, open(os.path.join(d, f), "rb").read()) for f in sorted(os.listdir(d))]
 
+    def resample(m):
+        s = m.create_named_schedule_sampler("loss-second-moment", 12)
+        s.history_per_term = 2
+        s._loss_history = np.zeros((12, 2))
+        out = [*s.sample(5, np.random.RandomState(0))]
+        for col in range(3):
+            s.update_with_local_losses(np.arange(12), np.linspace(0.5, 2.0, 12) ** (col + 1))
+        out += [s.weights(), *s.sample(5, np.random.RandomState(1))]
+        u = m.create_named_schedule_sampler("uniform", 12)
+        return out + [*u.sample(4, np.random.RandomState(2))]
+
+    def tinyws(m):
+        with tempfile.TemporaryDirectory() as d:
+            cfg, imgs = m.write_tiny_workspace(d, n_images=2)
+            files = [(f, open(os.path.join(imgs, f), "rb").read())
+                     for f in sorted(os.listdir(imgs))]
+            return [m.TINY_DDPMPP_CONFIG, open(cfg).read(), files,
+                    m.tiny_base_argv("c.yml", "imgs", "w", "e", extra=["--run_test"]),
+                    m.tiny_base_argv("c.yml", "imgs", "w", "e", n_img=1, edit_attr=None,
+                                     allow_random_weights=False)]
+
     return {
+        "space_timesteps": (lambda: [p_sched.space_timesteps(1000, c)
+                                     for c in ("ddim25", "10,15,20", [5, 5], "250")],
+                            lambda: [j_sched.space_timesteps(1000, c)
+                                     for c in ("ddim25", "10,15,20", [5, 5], "250")]),
+        "resample": (lambda: resample(p_res), lambda: resample(j_res)),
+        "presets": (lambda: sorted(p_pre.get_celeba_configs().items()),
+                    lambda: sorted(j_pre.get_celeba_configs().items())),
+        "tinyws": (lambda: tinyws(p_ws), lambda: tinyws(j_ws)),
         "uniform_seq": (lambda: [p_sched.uniform_seq(n, 999) for n in (4, 40, 1000)],
                         lambda: [j_sched.uniform_seq(n, 999) for n in (4, 40, 1000)]),
         "train_seq": (lambda: [p_sched.train_seq(n, 999, te) for n, te in ((40, 513), (0, 900))],
@@ -268,7 +306,8 @@ def _pairs():
 @pytest.mark.parametrize("name", ["uniform_seq", "train_seq", "make_schedule", "step_tables",
                                   "hostrng", "select_interval", "checkpoint_name",
                                   "parser_defaults", "src_trg_prompts", "openai_delta_block",
-                                  "align_face", "write_lpips_tsv", "imagenet_crops"])
+                                  "align_face", "write_lpips_tsv", "imagenet_crops",
+                                  "space_timesteps", "resample", "presets", "tinyws"])
 def test_copied_function_equals_the_original(name):
     port, ref = _pairs()[name]
     got, want = port(), ref()

@@ -229,6 +229,73 @@ def test_group_norm_backward_kernel_at_openai_decoder_shapes(cuda_device, shape,
     assert k1.group_norm.bwd_launches == n + 2
 
 
+# base training's norms (every parameter trained, batch 2, one timestep per
+# sample): (shape, eps, silu, the fused operand) at the DDPM++ (1e-6, temb
+# pre-add) and AFHQ (1e-5, FiLM) encoder, middle and decoder
+_BASE_NORMS = [((2, 128, 256, 256), 1e-6, True, "pre_add"), ((2, 512, 8, 8), 1e-6, True, "pre_add"),
+               ((2, 256, 256, 256), 1e-6, True, None),
+               ((2, 128, 256, 256), 1e-5, True, "scale_shift"),
+               ((2, 512, 8, 8), 1e-5, True, "scale_shift"), ((2, 256, 256, 256), 1e-5, True, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,eps,silu,fused", _BASE_NORMS)
+def test_group_norm_backward_kernel_at_base_training_shapes(cuda_device, shape, eps, silu, fused,
+                                                            dtype, bound):
+    """K1-bwd with dweight and dbias, and the gradient of the per-sample
+    pre-add (temb) or FiLM operand through the torch ops around K1, against
+    autograd through the plain forward; two calls bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    b_, c_ = shape[:2]
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype).requires_grad_()
+    w = (1 + 0.1 * torch.randn(c_, generator=g, device=cuda_device)).requires_grad_()
+    b = (0.1 * torch.randn(c_, generator=g, device=cuda_device)).requires_grad_()
+    kw = dict(eps=eps, silu=silu)
+    ins = [x, w, b]
+    if fused == "pre_add":
+        kw[fused] = torch.randn(b_, c_, generator=g, device=cuda_device).to(dtype)
+    elif fused == "scale_shift":
+        kw[fused] = (0.1 * torch.randn(b_, 2 * c_, generator=g, device=cuda_device)).to(dtype)
+    if fused:
+        ins.append(kw[fused].requires_grad_())
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    want = torch.autograd.grad(k1.group_norm_plain(x, w, b, **kw), ins, dy)
+    n = k1.group_norm.bwd_launches
+    got = torch.autograd.grad(k1.group_norm(x, w, b, **kw), ins, dy)
+    again = torch.autograd.grad(k1.group_norm(x, w, b, **kw), ins, dy)
+    assert k1.group_norm.bwd_launches == n + 2
+    for name, ww, gg, g2 in zip(("dx", "dweight", "dbias", f"d{fused}"), want, got, again):
+        close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                       f"group_norm backward {name}", bound=bound)
+        assert torch.equal(gg, g2), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,heads,legacy", [((2, 256, 512), 1, False),
+                                                ((2, 256, 512), 8, True)])
+def test_attention_backward_kernel_at_base_training_encoder(cuda_device, shape, heads, legacy,
+                                                            dtype, bound):
+    """K2-bwd (DDPM++) and K2-bwd-MH (AFHQ) at the encoder's 16^2 attention
+    of a batch-2 base-training step; two calls bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype).requires_grad_()
+               for _ in range(3))
+    d_o = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    kw = dict(num_heads=heads, legacy_scale=legacy)
+    want = torch.autograd.grad(k2.attention_plain(q, k, v, **kw), (q, k, v), d_o)
+    counter = "bwd_launches" if heads == 1 else "mh_bwd_launches"
+    n = getattr(k2.attention, counter)
+    got = torch.autograd.grad(k2.attention(q, k, v, **kw), (q, k, v), d_o)
+    again = torch.autograd.grad(k2.attention(q, k, v, **kw), (q, k, v), d_o)
+    assert getattr(k2.attention, counter) == n + 2
+    for ww, gg, g2 in zip(want, got, again):
+        close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                       "attention backward at the base-training encoder", bound=bound)
+        assert torch.equal(gg, g2)
+
+
 def _gn_inputs(shape, dtype, device, seed):
     g = torch.Generator(device=device).manual_seed(seed)
     x = (torch.randn(shape, generator=g, device=device) * 2 + 0.5).to(dtype)
