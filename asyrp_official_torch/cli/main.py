@@ -39,11 +39,20 @@ plus `--device` (default `cuda`), driving the port's AsyrpRunner.
         --n_inv_step 40 --n_gen_step 40 --user_defined_t_edit 513 \
         --user_defined_t_addnoise 167 --hs_coeff 0.9 --ni
 
+    # several cards: one process per GPU, data parallel over all of them
+    torchrun --nproc_per_node 8 -m asyrp_official_torch --run_test \
+        --train_delta_block --config custom.yml ... --dp -1
+
 Every mode of the JAX CLI is ported: `--run_train` / `--just_precompute`
 (with the ID term: `--id_loss_w` and `--ir_se50_ckpt`), `--run_test`,
 `--lpips`, `--run_fidelity` and `--diff_style`, dispatched in that order of
 precedence, with `--align_face` and `--trace_dir`. Like the JAX CLI, every
 failure after argument parsing is logged and returns 1.
+
+Under `torchrun` (WORLD_SIZE > 1) `main` starts the default process group
+(NCCL for CUDA, gloo for the CPU) unless the caller already started one,
+which it then keeps; `--device cuda` means this rank's card,
+`cuda:$LOCAL_RANK`, and an explicit `--device cuda:N` pins it.
 """
 from __future__ import annotations
 
@@ -57,6 +66,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from asyrp_official_torch.cli.args import build_parser as _reference_parser
 from asyrp_official_torch.cli.args import load_config
@@ -115,6 +125,45 @@ def build_contexts(args, device: torch.device):
     return clip_ctx, id_net, lpips_net
 
 
+def rank_device(name: str) -> str:
+    """`--device` under a process group: `cuda` without an index is this
+    rank's card (`LOCAL_RANK`, else the rank); a rank whose card does not
+    exist raises (no rank drops to another device)."""
+    dev = torch.device(name)
+    if dev.type != "cuda" or dev.index is not None:
+        return name
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    n = torch.cuda.device_count()
+    if local >= n:
+        raise RuntimeError(f"--device {name}: rank {dist.get_rank()} wants cuda:{local}, but "
+                           f"this host has {n} CUDA device(s)")
+    return f"cuda:{local}"
+
+
+def init_distributed(args) -> bool:
+    """Start the default process group when torchrun started several
+    processes (WORLD_SIZE > 1) and none is running: NCCL for a CUDA
+    `--device`, gloo for the CPU. Under a group, `args.device` becomes this
+    rank's device. Returns whether this call started the group."""
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        cuda = torch.device(args.device).type == "cuda"
+        if cuda:
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= torch.cuda.device_count():
+                raise RuntimeError(f"--device {args.device}: LOCAL_RANK {local}, but this host "
+                                   f"has {torch.cuda.device_count()} CUDA device(s)")
+            torch.cuda.set_device(local)
+        dist.init_process_group("nccl" if cuda else "gloo")
+        started = True
+    if dist.is_initialized():
+        args.device = rank_device(args.device)
+        dev = torch.device(args.device)
+        if dev.type == "cuda" and dev.index is not None:
+            torch.cuda.set_device(dev)  # NCCL's collectives run on the current device
+    return started
+
+
 def align_dataset_dirs(args) -> None:
     """--align_face: FFHQ-align every image of the custom dataset dirs into
     `{work_dir}/aligned/...` and point the args there, so every later stage
@@ -156,7 +205,9 @@ def main(argv=None) -> int:
         level=getattr(logging, args.verbose.upper(), logging.INFO),
         format="%(levelname)s - %(filename)s - %(asctime)s - %(message)s",
     )
+    started_group = False
     try:
+        started_group = init_distributed(args)
         config = load_config(args.config)
         args.exp = (args.exp + f"_LC_{config['data']['category']}_t{args.t_0}"
                     + f"_ninv{args.n_inv_step}_ngen{args.n_train_step}")
@@ -196,6 +247,9 @@ def main(argv=None) -> int:
     except Exception:
         logging.exception("run failed")
         return 1
+    finally:
+        if started_group:
+            dist.destroy_process_group()
     return 0
 
 

@@ -23,7 +23,7 @@
 //
 // Forward kernel `fwd::attn_fwd` (one design for one head of 512 and for 8
 // heads of 64):
-//   - Grid (ceil(T/64), nc, B*H), nc = ceil(d/64). One warpgroup (128
+//   - Grid (ceil(Tq/64), nc, B*H), nc = ceil(d/64). One warpgroup (128
 //     threads) owns 64 query rows (wgmma's M) of one (sample, head) and 64
 //     of its channels: its chunk of q' (resident in shared memory in the I/O
 //     type), of k and of the output. The nc blocks of a row tile form a
@@ -41,7 +41,13 @@
 //     TMA copy cannot multiply), then a proxy fence hands them to wgmma.
 //   - Pass 1: S = q'k'^T per 64-key tile; a running row max and sum (f32,
 //     base 2, per thread, combined across the 4 threads of a row with
-//     shuffles) give lse. Keys past T are -inf.
+//     shuffles) give lse. Keys past Tk are -inf.
+//   - Tq may differ from Tk (`asyrp_attention_kv`): under spatial sharding a
+//     rank's queries are its rows of the image (Tq = T / S), its keys and
+//     values those of the whole image (Tk = T, gathered along the token
+//     axis). q and o have their own length and tensor map, k and v theirs;
+//     the row tiles cover Tq, the key tiles (the cluster exchange and the
+//     softmax) Tk.
 //   - Pass 2: S again; P = exp(S*scale - lse) is the reference's normalized
 //     weights, rounded to the I/O type; O += P v over the block's 64
 //     columns. The epilogue rounds O once. Two passes and not
@@ -457,18 +463,20 @@ __global__ void __launch_bounds__(kThreads, 1)
     attn_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v, const T* __restrict__ q,
              const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-             float* __restrict__ lse, int t_len, int d, int heads, float scale, float pre) {
+             float* __restrict__ lse, int tq, int tk, int d, int heads, float scale, float pre) {
   using L = Layout<T>;
   constexpr int S = L::kStages, CB = L::kChunkBytes;
   constexpr bool kTma = sizeof(T) == 2;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int nc = gridDim.y, c = blockIdx.y;
-  const int nj = (t_len + kKeys - 1) / kKeys;
+  const int nj = (tk + kKeys - 1) / kKeys;
   const int ld = heads * d;
   const int64_t bh = blockIdx.z;
   const int b = bh / heads, h = bh % heads;
-  const int64_t base = (int64_t)b * t_len * ld + (int64_t)h * d;
+  // the head's columns of this sample: of q and o (tq rows), of k and v (tk)
+  const int64_t base = (int64_t)b * tq * ld + (int64_t)h * d;
+  const int64_t kv_base = (int64_t)b * tk * ld + (int64_t)h * d;
   const int r0 = blockIdx.x * kRows, col0 = c * kChunk;
   uint8_t* qs = smem;                                             // q' chunk c
   uint8_t* ring = smem + CB;                                      // S stages
@@ -498,7 +506,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           tma_load(dst, is_key(it) ? &map_k : &map_v, full + it % S, col0, h, j * kKeys, b);
         }
       } else {
-        load_chunk<T>(smem_u32(dst), (is_key(it) ? k : v) + base, j * kKeys, col0, t_len, d, ld);
+        load_chunk<T>(smem_u32(dst), (is_key(it) ? k : v) + kv_base, j * kKeys, col0, tk, d, ld);
       }
     }
     if constexpr (!kTma) cp_async_commit();
@@ -511,7 +519,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_load(qs, &map_q, full + S, col0, h, r0, b);
     }
   } else {
-    load_chunk<T>(smem_u32(qs), q + base, r0, col0, t_len, d, ld);
+    load_chunk<T>(smem_u32(qs), q + base, r0, col0, tq, d, ld);
   }
   for (int it = 0; it < S - 1; ++it) issue(it);
   int it = 0;
@@ -595,7 +603,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = s[4 * i + 2 * r + e];
-          if (j * kKeys + 8 * i + 2 * tig + e >= t_len) x = kNegInf;
+          if (j * kKeys + 8 * i + 2 * tig + e >= tk) x = kNegInf;
           mt = fmaxf(mt, x);
         }
       const float mn = fmaxf(m[r], mt);
@@ -624,8 +632,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int row_a = r0 + 16 * (threadIdx.x / 32) + lane / 4;
   if (lse != nullptr && c == 0 && tig == 0) {  // natural log
-    if (row_a < t_len) lse[bh * t_len + row_a] = lse2[0] * 0.6931471805599453f;
-    if (row_a + 8 < t_len) lse[bh * t_len + row_a + 8] = lse2[1] * 0.6931471805599453f;
+    if (row_a < tq) lse[bh * tq + row_a] = lse2[0] * 0.6931471805599453f;
+    if (row_a + 8 < tq) lse[bh * tq + row_a + 8] = lse2[1] * 0.6931471805599453f;
   }
 
   // pass 2: the weights, rounded to the I/O type, times the v chunk
@@ -638,7 +646,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        s[4 * i + e] = j * kKeys + 8 * i + 2 * tig + (e & 1) < t_len
+        s[4 * i + e] = j * kKeys + 8 * i + 2 * tig + (e & 1) < tk
                            ? exp2f(s[4 * i + e] - lse2[e >> 1]) : 0.f;
     if constexpr (sizeof(T) == 2) {
       uint32_t p[4][4];  // the A fragments of 4 steps of 16 keys
@@ -662,8 +670,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < 8; ++i) {
     const int col = col0 + 8 * i + 2 * tig;
     if (col >= d) continue;
-    if (row_a < t_len) store2(oh + (int64_t)row_a * ld + col, acc_o[4 * i], acc_o[4 * i + 1]);
-    if (row_a + 8 < t_len)
+    if (row_a < tq) store2(oh + (int64_t)row_a * ld + col, acc_o[4 * i], acc_o[4 * i + 1]);
+    if (row_a + 8 < tq)
       store2(oh + (int64_t)(row_a + 8) * ld + col, acc_o[4 * i + 2], acc_o[4 * i + 3]);
   }
   if (nc > 1) cluster.sync();  // no block leaves while another reads its sums
@@ -705,9 +713,10 @@ bool bf16_map(CUtensorMap* map, const void* ptr, int batch, int t_len, int heads
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int t_len,
-           int ch, int heads, float scale, float pre, cudaStream_t stream) {
-  if (heads < 1 || ch % heads != 0 || t_len < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int tq,
+           int tk, int ch, int heads, float scale, float pre, cudaStream_t stream) {
+  if (heads < 1 || ch % heads != 0 || tq < 1 || tk < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
   const int d = ch / heads;
   if (d % 16 != 0 || d > 512 || batch * heads > 65535) return (int)cudaErrorInvalidValue;
   const int nc = (d + kChunk - 1) / kChunk;  // the cluster: at most 8 blocks
@@ -716,13 +725,13 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   CUtensorMap maps[3] = {};  // unused by the f32 route
   if (sizeof(T) == 2)
     for (int i = 0; i < 3; ++i)
-      if (!bf16_map(maps + i, i == 0 ? q : i == 1 ? k : v, batch, t_len, heads, d))
+      if (!bf16_map(maps + i, i == 0 ? q : i == 1 ? k : v, batch, i == 0 ? tq : tk, heads, d))
         return (int)cudaErrorInvalidValue;
   cudaError_t err =
       cudaFuncSetAttribute(attn_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((t_len + kRows - 1) / kRows, nc, batch * heads);
+  cfg.gridDim = dim3((tq + kRows - 1) / kRows, nc, batch * heads);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -735,7 +744,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, attn_fwd<T>, maps[0], maps[1], maps[2], static_cast<const T*>(q),
                            static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o),
-                           static_cast<float*>(lse), t_len, d, heads, scale, pre);
+                           static_cast<float*>(lse), tq, tk, d, heads, scale, pre);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1203,9 +1212,25 @@ extern "C" int asyrp_attention(const void* q, const void* k, const void* v, void
                                int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return fwd::launch<float>(q, k, v, o, lse, batch, t_len, ch, heads, scale, pre, s);
+    return fwd::launch<float>(q, k, v, o, lse, batch, t_len, t_len, ch, heads, scale, pre, s);
   if (dtype == 1)
-    return fwd::launch<__nv_bfloat16>(q, k, v, o, lse, batch, t_len, ch, heads, scale, pre, s);
+    return fwd::launch<__nv_bfloat16>(q, k, v, o, lse, batch, t_len, t_len, ch, heads, scale,
+                                      pre, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The forward with queries of another length than the keys (a rank's rows
+// of a spatially sharded image against the whole image's keys and values):
+// q and o are [batch, tq, ch], k and v [batch, tk, ch], lse [batch, heads,
+// tq]; otherwise as `asyrp_attention`.
+extern "C" int asyrp_attention_kv(const void* q, const void* k, const void* v, void* o,
+                                  void* lse, int batch, int tq, int tk, int ch, int heads,
+                                  float scale, float pre, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return fwd::launch<float>(q, k, v, o, lse, batch, tq, tk, ch, heads, scale, pre, s);
+  if (dtype == 1)
+    return fwd::launch<__nv_bfloat16>(q, k, v, o, lse, batch, tq, tk, ch, heads, scale, pre, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -794,7 +794,158 @@ int dispatch(const P& prm, const Plan& pl, int dtype, int nbg, cudaStream_t s) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// across ranks: each rank of a spatial group holds a block of rows of every
+// (sample, group). The statistics of the whole group come in three steps:
+// gn_part gives each part of the local run its count, mean and centred sum
+// of squares (two passes in f32, as the one-rank kernel); the caller
+// gathers the parts of every rank and combines them by Chan's formula
+// (mean = sum n_i m_i / N, M2 = sum M2_i + sum n_i (m_i - mean)^2: the
+// centred squares throughout, never E[x^2] - E[x]^2); gn_apply then
+// normalizes the local rows from the combined mean and rstd with the
+// affine, the FiLM epilogue and SiLU, as pass 3 of gn_fwd. The pre-add is
+// applied (and rounded to T) in both kernels.
+//
+// Bound: device-memory bytes. gn_part reads x twice (the second pass
+// mostly from the L2), gn_apply reads x once and writes y once; the
+// statistics are a few floats per group. The design is the simple one:
+// parts of 8192 elements per block so that a batch-1 call still fills the
+// card, and a grid-stride elementwise pass.
+// ---------------------------------------------------------------------------
+
+constexpr int kPartThreads = 256;
+constexpr int kApplyThreads = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(kPartThreads) gn_part(const T* __restrict__ x,
+                                                        const T* __restrict__ pre_add,
+                                                        float* __restrict__ parts, int channels,
+                                                        int groups, int64_t hw,
+                                                        int64_t part_len) {
+  constexpr int NW = kPartThreads / 32;
+  __shared__ float2 red[NW];
+  const int p = blockIdx.x, nparts = gridDim.x, bg = blockIdx.y;
+  const int cpg = channels / groups;
+  const int bi = bg / groups, c0 = (bg % groups) * cpg;
+  const int64_t glen = (int64_t)cpg * hw;
+  const int64_t lo = (int64_t)p * part_len;
+  const int64_t hi = lo + part_len < glen ? lo + part_len : glen;
+  const T* xg = x + (int64_t)bg * glen;
+  const T* pa = pre_add != nullptr ? pre_add + (int64_t)bi * channels + c0 : nullptr;
+  auto val = [&](int64_t e) {
+    float f = to_f(xg[e]);
+    if (pa != nullptr) f = round_to<T>(f + to_f(pa[e / hw]));
+    return f;
+  };
+  float s = 0.f;
+  for (int64_t e = lo + threadIdx.x; e < hi; e += kPartThreads) s += val(e);
+  const float n = hi > lo ? (float)(hi - lo) : 0.f;
+  const float2 tot = block_sum2<NW>(s, 0.f, red);
+  const float mean = n > 0.f ? tot.x / n : 0.f;
+  float m2 = 0.f;
+  for (int64_t e = lo + threadIdx.x; e < hi; e += kPartThreads) {
+    const float d = val(e) - mean;
+    m2 += d * d;
+  }
+  const float2 t2 = block_sum2<NW>(m2, 0.f, red);
+  if (threadIdx.x == 0) {
+    float* o = parts + ((int64_t)bg * nparts + p) * 3;
+    o[0] = n;
+    o[1] = mean;
+    o[2] = t2.x;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads) gn_apply(
+    const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
+    const T* __restrict__ pre_add, const T* __restrict__ scale_shift,
+    const float* __restrict__ mean, const float* __restrict__ rstd, T* __restrict__ y,
+    int channels, int groups, int64_t hw, int64_t total, int silu) {
+  const int cpg = channels / groups;
+  for (int64_t i = blockIdx.x * (int64_t)kApplyThreads + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * kApplyThreads) {
+    const int64_t bc = i / hw;
+    const int c = (int)(bc % channels);
+    const int64_t bi = bc / channels;
+    const int64_t bg = bi * groups + c / cpg;
+    float f = to_f(x[i]);
+    if (pre_add != nullptr) f = round_to<T>(f + to_f(pre_add[bi * channels + c]));
+    float z = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f, mean[bg]), rstd[bg]), w[c]), b[c]);
+    if (scale_shift != nullptr) {
+      const T* ss = scale_shift + bi * 2 * channels;
+      z = round_to<T>(__fmul_rn(round_to<T>(z), round_to<T>(1.0f + to_f(ss[c]))));
+      z = round_to<T>(__fadd_rn(z, to_f(ss[channels + c])));
+    }
+    if (silu) z = z / (1.0f + expf(-z));
+    y[i] = from_f<T>(z);
+  }
+}
+
+template <typename T>
+int launch_part(const void* x, const void* pre_add, float* parts, int batch, int channels,
+                int64_t hw, int groups, int nparts, cudaStream_t stream) {
+  const int64_t glen = (int64_t)(channels / groups) * hw;
+  const int64_t part_len = (glen + nparts - 1) / nparts;
+  gn_part<T><<<dim3(nparts, batch * groups), kPartThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(pre_add), parts, channels, groups, hw,
+      part_len);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_apply(const void* x, const float* w, const float* b, const void* pre_add,
+                 const void* scale_shift, const float* mean, const float* rstd, void* y,
+                 int batch, int channels, int64_t hw, int groups, int silu,
+                 cudaStream_t stream) {
+  const int64_t total = (int64_t)batch * channels * hw;
+  int64_t blocks = (total + kApplyThreads - 1) / kApplyThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then the grid strides
+  gn_apply<T><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
+      static_cast<const T*>(x), w, b, static_cast<const T*>(pre_add),
+      static_cast<const T*>(scale_shift), mean, rstd, static_cast<T*>(y), channels, groups, hw,
+      total, silu);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Across ranks, step 1: parts float32 [B * G, nparts, 3] output, per part of
+// each (sample, group)'s local run its (count, mean, M2) of x (+ pre_add
+// [B, C], optional). x and pre_add in the I/O dtype (0 = float32, 1 =
+// bfloat16). One kernel launch.
+extern "C" int asyrp_group_norm_part_stats(const void* x, const void* pre_add, void* parts,
+                                           int batch, int channels, int64_t hw, int groups,
+                                           int nparts, int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 ||
+      hw < 1 || nparts < 1 || (int64_t)batch * groups > 65535 || nparts > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* out = static_cast<float*>(parts);
+  return dtype == 0
+             ? launch_part<float>(x, pre_add, out, batch, channels, hw, groups, nparts, s)
+             : launch_part<__nv_bfloat16>(x, pre_add, out, batch, channels, hw, groups, nparts,
+                                          s);
+}
+
+// Across ranks, step 3: y from x (+ pre_add) with the combined mean and rstd
+// (float32 [B * G]), the affine (w, b float32 [C]), the FiLM epilogue
+// (scale_shift [B, 2C], optional) and SiLU. One kernel launch.
+extern "C" int asyrp_group_norm_apply(const void* x, const void* w, const void* b,
+                                      const void* pre_add, const void* scale_shift,
+                                      const void* mean, const void* rstd, void* y, int batch,
+                                      int channels, int64_t hw, int groups, int silu, int dtype,
+                                      void* stream) {
+  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 || hw < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
+  const float *mf = static_cast<const float*>(mean), *rf = static_cast<const float*>(rstd);
+  return dtype == 0 ? launch_apply<float>(x, wf, bf, pre_add, scale_shift, mf, rf, y, batch,
+                                          channels, hw, groups, silu, s)
+                    : launch_apply<__nv_bfloat16>(x, wf, bf, pre_add, scale_shift, mf, rf, y,
+                                                  batch, channels, hw, groups, silu, s);
+}
 
 // The plan a call takes (for reports): out = {cluster size, vector width,
 // vectors per slice, resident vectors of x, of dy, dynamic shared bytes,

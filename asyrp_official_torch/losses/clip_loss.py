@@ -129,11 +129,14 @@ class CLIPContext:
         return feats / feats.norm(dim=-1, keepdim=True) if norm else feats
 
 
-def directional_loss(ctx: CLIPContext, src_img, trg_img, target_direction):
-    """1 − cos(edit direction, text direction), mean over the batch."""
+def directional_loss(ctx: CLIPContext, src_img, trg_img, target_direction,
+                     batch_mean: Callable = torch.mean):
+    """1 − cos(edit direction, text direction), mean over the batch
+    (`batch_mean`: over the global batch under data parallelism,
+    `parallel.mesh.Mesh.batch_mean`)."""
     edit = ctx.encode_images(trg_img) - ctx.encode_images(src_img)
     edit = edit / (edit.norm(dim=-1, keepdim=True) + 1e-7)
-    return (1.0 - (edit * target_direction).sum(dim=-1)).mean()
+    return batch_mean(1.0 - (edit * target_direction).sum(dim=-1))
 
 
 def global_loss(ctx: CLIPContext, img, text_features):
@@ -191,13 +194,15 @@ def patch_directional_loss(ctx: CLIPContext, src_img, trg_img, patch_text_direct
 
 
 def train_clip_term(ctx: CLIPContext, source_class: str, target_class: str,
-                    clip_loss_w: float = 1.0) -> Callable:
+                    clip_loss_w: float = 1.0, batch_mean: Callable = torch.mean) -> Callable:
     """The training loop's CLIP term clip_w · (−log((2 − L_dir) / 2)), as
-    `extra(x0, x0_t, x0_t_origin)` for `pipelines.train.default_loss`."""
+    `extra(x0, x0_t, x0_t_origin)` for `pipelines.train.default_loss`. The
+    term is not a mean of per-image terms (the log of a batch mean), so
+    under data parallelism `batch_mean` takes the global batch's mean."""
     target_direction = ctx.compute_text_direction(source_class, target_class).detach()
 
     def extra(x0, x0_t, x0_t_origin=None):
-        ld = directional_loss(ctx, x0, x0_t, target_direction)
+        ld = directional_loss(ctx, x0, x0_t, target_direction, batch_mean)
         return clip_loss_w * (-torch.log((2.0 - ld) / 2.0))
 
     return extra

@@ -7,6 +7,12 @@ Weights are held in the reference's torch layouts (OIHW convs, [out, in]
 linears) and cast to the activation dtype at use, as the JAX layers cast
 their params. Convolutions and plain GEMMs go to `F.conv2d` / `F.linear`;
 GroupNorm and attention go to the kernels in `asyrp_official_torch.ops`.
+
+Inside a `parallel.spatial.sharded` block the activations are row blocks
+of the image: a 3x3 convolution takes its neighbours' halo rows, the
+downsample convolutions the one row they reach across the block's edge,
+and GroupNorm combines the ranks' statistics (K1 across ranks); 1x1
+convolutions, the pooling and the upsample stay local.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from asyrp_official_torch.ops import groupnorm as _k1
+from asyrp_official_torch.parallel import spatial
 
 __all__ = [
     "GroupNorm",
@@ -44,6 +51,13 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, silu: bool = False, pre_add=None, scale_shift=None):
+        sg = spatial.active()
+        if sg is not None:
+            return _k1.group_norm_across(
+                x, self.weight, self.bias,
+                lambda parts: spatial.all_gather_slots(parts, sg.group, sg.size),
+                groups=self.groups, eps=self.eps, silu=silu, pre_add=pre_add,
+                scale_shift=scale_shift)
         return _k1.group_norm(x, self.weight, self.bias, groups=self.groups, eps=self.eps, silu=silu,
                               pre_add=pre_add, scale_shift=scale_shift)
 
@@ -53,9 +67,19 @@ def _cast(p, dtype):
 
 
 def conv2d(conv: nn.Conv2d, x, *, stride: int = 1, padding=1):
-    """Conv with the weight and bias cast to x's dtype (JAX `common.conv2d`)."""
-    return F.conv2d(x, _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype),
-                    stride=stride, padding=padding)
+    """Conv with the weight and bias cast to x's dtype (JAX `common.conv2d`).
+    On a row block (spatial sharding) a 3x3 conv with padding 1 takes the
+    neighbours' halo rows (stride 2, the OpenAI Downsample: only the row
+    above reaches across the block)."""
+    w, b = _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype)
+    sg = spatial.active()
+    if sg is None or w.shape[-2] == 1:
+        return F.conv2d(x, w, b, stride=stride, padding=padding)
+    if padding != 1 or stride not in (1, 2):
+        raise NotImplementedError(f"a {tuple(w.shape[-2:])} conv with stride {stride} and "
+                                  f"padding {padding} on a row block")
+    return F.conv2d(spatial.pad_rows(x, sg, bottom=stride == 1), w, b, stride=stride,
+                    padding=(0, 1))
 
 
 def mat1x1(conv: nn.Conv2d, x):
@@ -97,8 +121,13 @@ def upsample_nearest_2x(x):
 
 def downsample_pad_conv(conv: nn.Conv2d, x):
     """DDPM++ Downsample: zero-pad right and bottom by 1, then a 3x3
-    stride-2 valid conv."""
-    return conv2d(conv, F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+    stride-2 valid conv. On a row block the bottom row is the next rank's
+    first (zero at the image's bottom edge)."""
+    sg = spatial.active()
+    if sg is None:
+        return conv2d(conv, F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+    x = F.pad(spatial.pad_rows(x, sg, top=False), (0, 1, 0, 0))
+    return F.conv2d(x, _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype), stride=2)
 
 
 def avg_pool_2x(x):

@@ -32,6 +32,7 @@ from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
 from asyrp_official_torch.models.delta import EditState, apply_edit
 from asyrp_official_torch.ops import attention as _k2
+from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import hostrng
 
 __all__ = ["DDPMppConfig", "CELEBA_CONFIG", "DDPMpp", "init_params"]
@@ -113,7 +114,11 @@ class AttnBlock(nn.Module):
     def forward(self, x):
         b, c, hh, ww = x.shape
         flat = self.norm(x).flatten(2).transpose(1, 2)  # [B, T, C]
-        out = _k2.attention(_lin1x1(self.q, flat), _lin1x1(self.k, flat), _lin1x1(self.v, flat))
+        q, k, v = (_lin1x1(conv, flat) for conv in (self.q, self.k, self.v))
+        sg = spatial.active()
+        if sg is not None:  # this rank's query rows against the whole image's keys
+            k, v = spatial.gather(k, 1, sg), spatial.gather(v, 1, sg)
+        out = _k2.attention(q, k, v)
         out = _lin1x1(self.proj_out, out)
         return x + out.transpose(1, 2).reshape(b, c, hh, ww)
 
@@ -235,7 +240,8 @@ class DDPMpp(nn.Module):
     def apply(self, x_nhwc, t, edit: Optional[EditState] = None, decode_mode: str = "auto"):
         if decode_mode not in ("auto", "split"):
             raise ValueError(f"decode_mode must be 'auto'|'split', got {decode_mode!r}")
-        if x_nhwc.shape[1] != self.cfg.resolution or x_nhwc.shape[2] != self.cfg.resolution:
+        if (x_nhwc.shape[1] != spatial.local_height(self.cfg.resolution)
+                or x_nhwc.shape[2] != self.cfg.resolution):
             raise ValueError(f"expected {self.cfg.resolution}^2 input, got {tuple(x_nhwc.shape)}")
         x = x_nhwc.permute(0, 3, 1, 2).contiguous()
         split = edit is not None and (x.shape[0] == 1 or decode_mode == "split")

@@ -10,6 +10,11 @@ Each DeltaBlock keeps the reference's key names (DDPM++: conv1 / temb_proj /
 norm2 / conv2; OpenAI: in_layers.{0,2} / emb_layers.1 / out_layers.{0,3}),
 so a released Δ `.pth` block loads with `load_state_dict`. Its
 GroupNorm+SiLU is kernel K1.
+
+On a row block of h (`parallel.spatial.sharded`) the edits reduce over the
+whole of h: the slerp's norms and dot product and the norm match sum over
+the ranks; the Δh rows, the DiffStyle mask and the global block's CLIP map
+are sliced to the rank's rows.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from asyrp_official_torch.compat.from_jax import (delta_block_global_state_dict_
                                                   delta_block_state_dict_from_jax)
 from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
+from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import hostrng
 
 __all__ = ["DeltaBlock", "OpenAIDeltaBlock", "DeltaBlockGlobal", "EditState", "apply_edit",
@@ -92,7 +98,9 @@ class DeltaBlockGlobal(nn.Module):
         add = cm.linear(self.temb_proj, F.silu(temb)) + cm.linear(self.clip_proj, d)
         h = cm.mat1x1(self.conv2, self.norm2(h, silu=True, pre_add=add.expand(b, c).contiguous()))
         # the reference reshapes to NCHW (1, C, h, w): the port's own layout
-        h = h + cm.linear(self.clip_proj_2, d).reshape(1, c, hh, ww)
+        sg = spatial.active()
+        clip_map = cm.linear(self.clip_proj_2, d).reshape(1, c, -1, ww)
+        h = h + (clip_map if sg is None else spatial.local_rows(clip_map, 2, sg))
         h = cm.mat1x1(self.conv3, self.norm3(h, silu=True))
         return cm.mat1x1(self.conv4, self.norm4(h, silu=True))
 
@@ -194,9 +202,16 @@ def slerp(t, v0: torch.Tensor, v1: torch.Tensor, *, eps: float = 1e-7) -> torch.
     b = v0.shape[0]
     v0f = v0.reshape(b, -1).float()
     v1f = v1.reshape(b, -1).float()
-    n0 = torch.linalg.vector_norm(v0f, dim=1, keepdim=True).clamp_min(eps)
-    n1 = torch.linalg.vector_norm(v1f, dim=1, keepdim=True).clamp_min(eps)
-    dot = ((v0f / n0) * (v1f / n1)).sum(dim=1).clamp(-1.0, 1.0)
+    sg = spatial.active()
+    if sg is None:
+        n0 = torch.linalg.vector_norm(v0f, dim=1, keepdim=True).clamp_min(eps)
+        n1 = torch.linalg.vector_norm(v1f, dim=1, keepdim=True).clamp_min(eps)
+        dot = ((v0f / n0) * (v1f / n1)).sum(dim=1).clamp(-1.0, 1.0)
+    else:  # row blocks: the squares and the products summed over the ranks
+        s00, s11, s01 = spatial.all_reduce_sum(
+            torch.stack([v0f.square().sum(1), v1f.square().sum(1), (v0f * v1f).sum(1)]), sg)
+        n0, n1 = s00.sqrt().clamp_min(eps), s11.sqrt().clamp_min(eps)
+        dot = (s01 / (n0 * n1)).clamp(-1.0, 1.0)
     pole = dot.abs() >= 1.0
     theta = torch.where(pole, (1.0 - dot.detach()) * (np.pi / 2),
                         torch.arccos(torch.where(pole, torch.zeros_like(dot), dot)))
@@ -256,9 +271,11 @@ class EditState:
 def _input_edit(edit: EditState, h, hs_coeff, c):
     """The `input` mode's h2 and Δh (JAX `apply_edit`, mode "input")."""
     rows = edit.delta_rows
+    sg = spatial.active()
     # clamped as jnp.take(mode="clip"): a wrong index gives a wrong row, never NaN
     idx = min(max(int(edit.delta_idx), 0), rows.shape[0] - 1)
-    delta_h = rows[idx].to(device=h.device, dtype=h.dtype).unsqueeze(0).expand_as(h)
+    row = rows[idx] if sg is None else spatial.local_rows(rows[idx], 1, sg)
+    delta_h = row.to(device=h.device, dtype=h.dtype).unsqueeze(0).expand_as(h)
     if edit.input_style == "add":
         if hs_coeff.shape[-1] < 2:
             raise ValueError(f"'add' injection needs hs_coeff = (c_h, c_delta), got "
@@ -271,15 +288,23 @@ def _input_edit(edit: EditState, h, hs_coeff, c):
                          "injections (deltablock, input/add)")
     t = 1.0 - hs_coeff[0].float()
     if edit.use_mask:
-        # the DiffStyle region, NCHW [:, :, 4:-1, 3:5]
-        mask = torch.zeros_like(h)
+        # the DiffStyle region, NCHW [:, :, 4:-1, 3:5] of the whole h
+        shape = h.shape if sg is None else h.shape[:2] + rows.shape[2:]
+        mask = torch.zeros(shape, dtype=h.dtype, device=h.device)
         mask[:, :, 4:-1, 3:5] = 1.0
+        if sg is not None:
+            mask = spatial.local_rows(mask, 2, sg)
         return slerp(t, h * mask, delta_h * mask) + (1.0 - mask) * h, delta_h
     # norm-matched; the floor makes a zero row (the delta_idx 0 placeholder
     # of a gated-off step) give 0, not NaN, which the gate would keep (0·NaN)
     b = h.shape[0]
-    h_norm = torch.linalg.vector_norm(h.reshape(b, -1).float(), dim=1)
-    d_norm = torch.linalg.vector_norm(delta_h.reshape(b, -1).float(), dim=1).clamp_min(1e-12)
+    if sg is None:
+        h_norm = torch.linalg.vector_norm(h.reshape(b, -1).float(), dim=1)
+        d_norm = torch.linalg.vector_norm(delta_h.reshape(b, -1).float(), dim=1).clamp_min(1e-12)
+    else:  # row blocks: the squares summed over the ranks
+        hs, ds = spatial.all_reduce_sum(torch.stack(
+            [a.reshape(b, -1).float().square().sum(1) for a in (h, delta_h)]), sg)
+        h_norm, d_norm = hs.sqrt(), ds.sqrt().clamp_min(1e-12)
     normalized = (h_norm / d_norm).reshape(b, 1, 1, 1).to(h.dtype) * delta_h
     return slerp(t, h, normalized), delta_h
 

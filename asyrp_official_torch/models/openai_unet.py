@@ -38,6 +38,7 @@ from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
 from asyrp_official_torch.models.delta import EditState, apply_edit
 from asyrp_official_torch.ops import attention as _k2
+from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import hostrng
 
 __all__ = ["OpenAIUNetConfig", "AFHQ_CONFIG", "METFACE_CONFIG", "IMAGENET_CONFIG", "build_plan",
@@ -210,6 +211,9 @@ class AttentionBlock(nn.Module):
         else:
             q, k, v = qkv.reshape(b, t, self.heads, 3, d).unbind(3)
         q, k, v = (a.reshape(b, t, c).contiguous() for a in (q, k, v))  # K2 reads [B, T, C]
+        sg = spatial.active()
+        if sg is not None:  # this rank's query rows against the whole image's keys
+            k, v = spatial.gather(k, 1, sg), spatial.gather(v, 1, sg)
         out = _k2.attention(q, k, v, num_heads=self.heads, legacy_scale=True)
         out = F.linear(out, self.proj_out.weight[:, :, 0].to(out.dtype),
                        self.proj_out.bias.to(out.dtype))
@@ -321,7 +325,7 @@ class OpenAIUNet(nn.Module):
         if decode_mode not in ("auto", "split"):
             raise ValueError(f"decode_mode must be 'auto'|'split', got {decode_mode!r}")
         size = self.cfg.image_size
-        if x_nhwc.shape[1] != size or x_nhwc.shape[2] != size:
+        if x_nhwc.shape[1] != spatial.local_height(size) or x_nhwc.shape[2] != size:
             raise ValueError(f"expected {size}^2 input, got {tuple(x_nhwc.shape)}")
         x = x_nhwc.permute(0, 3, 1, 2).contiguous()
         split = edit is not None and (x.shape[0] == 1 or decode_mode == "split")

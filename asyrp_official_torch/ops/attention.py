@@ -21,6 +21,12 @@ kernel K2-bwd on CUDA. `attention.launches` counts single-head forward
 launches, `attention.mh_launches` multi-head ones, `attention.bwd_launches`
 single-head backward launches and `attention.mh_bwd_launches` multi-head
 ones.
+
+Under spatial sharding (`parallel/spatial.py`) a rank's queries are its own
+rows of the image ([B, Tq, C], Tq = T / S) and its keys and values the
+whole image's ([B, Tk, C], gathered): the forward kernel's entry
+`asyrp_attention_kv` takes the two lengths (one head or several), counted
+in `attention.kv_launches`. Its gradient is not ported yet (ROADMAP M10c).
 """
 from __future__ import annotations
 
@@ -64,13 +70,14 @@ def _acc(dtype):
 
 
 def _plain_with_lse(q, k, v, num_heads: int = 1, legacy_scale: bool = False):
+    """q [B, Tq, C] against k, v [B, Tk, C]: (o [B, Tq, C], lse [B, H*Tq])."""
     b, t, c = q.shape
     acc = _acc(q.dtype)
     d = c // num_heads
     scale, pre = _scales(d, legacy_scale, q.dtype)
 
     def heads(a):  # [B, T, C] -> [B, H, T, d]
-        return a.reshape(b, t, num_heads, d).transpose(1, 2)
+        return a.reshape(b, a.shape[1], num_heads, d).transpose(1, 2)
 
     qh, kh, vh = heads(q), heads(k), heads(v)
     if legacy_scale:
@@ -84,7 +91,8 @@ def _plain_with_lse(q, k, v, num_heads: int = 1, legacy_scale: bool = False):
 
 
 def attention_plain(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
-    """The reference math on any device, in plain PyTorch."""
+    """The reference math on any device, in plain PyTorch; the queries [B,
+    Tq, C] may be fewer than the keys and values [B, Tk, C]."""
     return _plain_with_lse(q, k, v, num_heads, legacy_scale)[0]
 
 
@@ -140,19 +148,21 @@ def _fn(name: str, argtypes):
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 5 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
+_KV_ARGS = [_P] * 5 + [_I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 _BWD_ARGS = [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 
 
 def _check_inputs(q, k, v, num_heads: int):
-    """What both kernels take: q, k, v of one float32 or bfloat16 dtype, one
-    contiguous [B, T, C] shape and one device, C split into `num_heads`
-    heads. Returns (B, T, C)."""
+    """What the kernels take: q, k, v of one float32 or bfloat16 dtype, q
+    a contiguous [B, Tq, C], k and v one [B, Tk, C] shape, on one device, C
+    split into `num_heads` heads. Returns (B, Tq, C)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"attention kernel takes float32 or bfloat16 q/k/v of one dtype, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"attention kernel takes q, k, v of one [B, T, C] shape, got "
-                         f"{tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
+    if (q.dim() != 3 or k.shape != v.shape or k.dim() != 3 or k.shape[0] != q.shape[0]
+            or k.shape[2] != q.shape[2]):
+        raise ValueError(f"attention kernel takes q [B, Tq, C] and k, v of one [B, Tk, C] shape, "
+                         f"got {tuple(q.shape)}/{tuple(k.shape)}/{tuple(v.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("attention kernel needs contiguous q, k, v")
     if not (k.device == q.device and v.device == q.device):
@@ -169,8 +179,8 @@ def _check(q, k, v, num_heads: int = 1):
     at most 8 blocks), and at most 65535 (sample, head) pairs. Returns (B,
     T, C)."""
     b, t, c = _check_inputs(q, k, v, num_heads)
-    if b < 1 or t < 1:
-        raise ValueError(f"attention kernel: empty input {tuple(q.shape)}")
+    if b < 1 or t < 1 or k.shape[1] < 1:
+        raise ValueError(f"attention kernel: empty input {tuple(q.shape)}/{tuple(k.shape)}")
     d = c // num_heads
     if d % 16 or d > _MAX_D:
         raise ValueError(f"attention kernel: head width {d} is not a multiple of 16 up to "
@@ -204,8 +214,12 @@ def _bwd_smem_bytes(dtype, d: int) -> int:
 
 
 def _check_bwd(q, k, v, num_heads: int):
-    """The backward kernel's contract: the forward's (`_check`), and its
-    shared memory, which does not grow with T. Returns (B, T, C)."""
+    """The backward kernel's contract: the forward's (`_check`) with one
+    length T for q, k and v, and its shared memory, which does not grow
+    with T. Returns (B, T, C)."""
+    if k.shape != q.shape:
+        raise ValueError(f"attention backward kernel takes q, k, v of one [B, T, C] shape, got "
+                         f"{tuple(q.shape)}/{tuple(k.shape)}")
     b, t, c = _check(q, k, v, num_heads)
     smem = _bwd_smem_bytes(q.dtype, c // num_heads)
     if smem > _SMEM_LIMIT:
@@ -220,14 +234,23 @@ def _attention_cuda(q, k, v, with_lse: bool, num_heads: int = 1, legacy_scale: b
     scale, pre = _scales(c // num_heads, legacy_scale, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty(b, num_heads * t, device=q.device, dtype=torch.float32) if with_lse else None
+    tk = k.shape[1]
     with torch.cuda.device(q.device):  # the launch goes to the current device
-        code = _fn("asyrp_attention", _FWD_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if with_lse else None, b, t, c, num_heads, scale, pre,
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if tk != t:
+            code = _fn("asyrp_attention_kv", _KV_ARGS)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if with_lse else None, b, t, tk, c, num_heads, scale, pre,
+                _DTYPES[q.dtype], stream)
+        else:
+            code = _fn("asyrp_attention", _FWD_ARGS)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr() if with_lse else None, b, t, c, num_heads, scale, pre,
+                _DTYPES[q.dtype], stream)
     _build.check(code, "attention kernel")
-    if num_heads == 1:
+    if tk != t:
+        attention.kv_launches += 1
+    elif num_heads == 1:
         attention.launches += 1
     else:
         attention.mh_launches += 1
@@ -317,6 +340,9 @@ def attention(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if k.shape[1] != q.shape[1]:
+            raise NotImplementedError("attention with Tq != Tk under autograd: spatial training "
+                                      "needs K2-bwd across ranks (ROADMAP M10c)")
         return _Attention.apply(q, k, v, num_heads, legacy_scale)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads=num_heads, legacy_scale=legacy_scale)
@@ -327,3 +353,4 @@ attention.launches = 0
 attention.mh_launches = 0
 attention.bwd_launches = 0
 attention.mh_bwd_launches = 0
+attention.kv_launches = 0

@@ -23,6 +23,15 @@ mean and rstd (f32) and whose backward computes dx, and dweight/dbias when
 the weight is trained, from them — `group_norm_backward_plain` on the CPU,
 kernel K1-bwd on CUDA. `group_norm.launches` and `group_norm.bwd_launches`
 count the kernel launches.
+
+Across ranks (spatial sharding, `parallel/spatial.py`), `group_norm_across`
+normalizes a tensor whose rows are split over a group of ranks: each rank's
+per-group (count, mean, M2) parts (`group_norm_part_stats`, kernel
+`gn_part`), gathered and combined by Chan's formula
+(`combine_group_stats`), then the normalize of the local rows
+(`group_norm_apply`, kernel `gn_apply`), pre-add and FiLM fused as in the
+one-rank entry. `group_norm.part_launches` and `group_norm.apply_launches`
+count those launches.
 """
 from __future__ import annotations
 
@@ -36,7 +45,9 @@ from typing import Optional
 from asyrp_official_torch.ops import _build, traced
 
 __all__ = ["group_norm", "group_norm_plain", "group_norm_unfused", "group_norm_backward",
-           "group_norm_backward_plain", "group_norm_plan"]
+           "group_norm_backward_plain", "group_norm_plan", "group_norm_across",
+           "group_norm_part_stats", "group_norm_part_stats_plain", "combine_group_stats",
+           "group_norm_apply", "group_norm_apply_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -120,6 +131,8 @@ _ARGS = {
     "asyrp_group_norm": [_P] * 8 + [_I, _I, _L, _I, ctypes.c_float, _I, _I, _P],
     "asyrp_group_norm_bwd": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
     "asyrp_group_norm_plan": [_I, _I, _L, _I, _I, _I, ctypes.POINTER(_L)],
+    "asyrp_group_norm_part_stats": [_P] * 3 + [_I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_apply": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
 }
 _lib = None
 
@@ -344,3 +357,137 @@ def group_norm(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bo
 
 group_norm.launches = 0
 group_norm.bwd_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1 across ranks: a group's rows split over the ranks of a spatial group
+# ---------------------------------------------------------------------------
+
+_PART_ELEMS = 8192  # elements per part of a group's local run (one block each on the card)
+
+
+def _parts_per_group(group_len: int) -> int:
+    return max(1, min(-(-group_len // _PART_ELEMS), 65535))
+
+
+def group_norm_part_stats_plain(x, *, groups: int = 32, pre_add=None):
+    """Per (sample, group) of the local x (+ `pre_add`, added in x's dtype):
+    (count, mean, M2) in f32, two-pass (the mean, then the centred squares),
+    as [B, G, 1, 3]."""
+    if pre_add is not None:
+        x = x + _per_channel(pre_add, x)
+    b = x.shape[0]
+    xf = x.float().reshape(b, groups, -1)
+    mean = xf.mean(dim=2)
+    m2 = (xf - mean[..., None]).square().sum(dim=2)
+    n = torch.full_like(mean, float(xf.shape[2]))
+    return torch.stack([n, mean, m2], dim=-1)[:, :, None]
+
+
+def combine_group_stats(parts, eps: float):
+    """Chan's combination of partial statistics [..., B, G, P, 3] (the
+    leading axes: the ranks) into each group's (mean, rstd) [B, G] f32:
+    mean = sum n_i m_i / N, M2 = sum M2_i + sum n_i (m_i - mean)^2."""
+    parts = parts.float()
+    if parts.dim() > 4:  # the ranks' axes join the parts'
+        parts = parts.movedim(tuple(range(parts.dim() - 4)),
+                              tuple(range(3, parts.dim() - 1))).flatten(2, -2)
+    n, m, m2 = parts.unbind(-1)
+    total = n.sum(dim=-1)
+    mean = (n * m).sum(dim=-1) / total
+    var = (m2.sum(dim=-1) + (n * (m - mean[..., None]).square()).sum(dim=-1)) / total
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_apply_plain(x, weight, bias, mean, rstd, *, silu: bool = False, pre_add=None,
+                           scale_shift=None):
+    """`group_norm_plain` with each group's `mean` and `rstd` ([B, G] f32)
+    given: the normalize, the affine, the FiLM epilogue and SiLU, rounded
+    as there."""
+    if pre_add is not None:
+        x = x + _per_channel(pre_add, x)
+    b, groups = mean.shape
+    xf = x.float().reshape(b, groups, -1)
+    y = ((xf - mean[..., None]) * rstd[..., None]).reshape(x.shape)
+    y = y * weight.float().reshape(_bshape(x)) + bias.float().reshape(_bshape(x))
+    if scale_shift is None:
+        if silu:
+            y = y * torch.sigmoid(y)
+        return y.to(x.dtype)
+    return _film(y.to(x.dtype), scale_shift, silu)
+
+
+def _part_stats_cuda(x, groups, pre_add):
+    b, c = x.shape[:2]
+    if x.dtype not in _DTYPES or not x.is_contiguous() or c % groups:
+        raise ValueError(f"group_norm part stats: a contiguous float32/bfloat16 NCHW tensor with "
+                         f"channels in {groups} groups, got {x.dtype}{tuple(x.shape)}")
+    hw = x.numel() // (b * c)
+    pre_add = _check_per_channel(pre_add, x, 1, "pre_add")
+    nparts = _parts_per_group(c // groups * hw)
+    parts = torch.empty(b, groups, nparts, 3, device=x.device, dtype=torch.float32)
+    code = _launch(_kernels().asyrp_group_norm_part_stats, x, x.data_ptr(),
+                   None if pre_add is None else pre_add.data_ptr(), parts.data_ptr(), b, c, hw,
+                   groups, nparts, _DTYPES[x.dtype])
+    _build.check(code, "group_norm part-stats kernel")
+    group_norm.part_launches += 1
+    return parts
+
+
+def _apply_cuda(x, weight, bias, mean, rstd, silu, pre_add, scale_shift):
+    b, c, hw = _check_input(x, weight, bias, mean.shape[1])
+    pre_add = _check_per_channel(pre_add, x, 1, "pre_add")
+    scale_shift = _check_per_channel(scale_shift, x, 2, "scale_shift")
+    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
+    y = torch.empty_like(x)
+    code = _launch(_kernels().asyrp_group_norm_apply, x, x.data_ptr(), weight.data_ptr(),
+                   bias.data_ptr(), None if pre_add is None else pre_add.data_ptr(),
+                   None if scale_shift is None else scale_shift.data_ptr(), mean.data_ptr(),
+                   rstd.data_ptr(), y.data_ptr(), b, c, hw, mean.shape[1], silu,
+                   _DTYPES[x.dtype])
+    _build.check(code, "group_norm apply kernel")
+    group_norm.apply_launches += 1
+    return y
+
+
+def group_norm_part_stats(x, *, groups: int = 32, pre_add=None):
+    """The local (count, mean, M2) parts [B, G, P, 3] f32 of each (sample,
+    group): the plain version (P = 1) for a CPU tensor, the kernel for a
+    CUDA tensor."""
+    if x.device.type == "cpu":
+        return group_norm_part_stats_plain(x, groups=groups, pre_add=pre_add)
+    if x.device.type == "cuda":
+        return _part_stats_cuda(x, groups, pre_add)
+    raise ValueError(f"group_norm_part_stats: no kernel for device {x.device}")
+
+
+def group_norm_apply(x, weight, bias, mean, rstd, *, silu: bool = False, pre_add=None,
+                     scale_shift=None):
+    """y from the combined (mean, rstd): the plain version for a CPU
+    tensor, the kernel for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return group_norm_apply_plain(x, weight, bias, mean, rstd, silu=silu, pre_add=pre_add,
+                                      scale_shift=scale_shift)
+    if x.device.type == "cuda":
+        return _apply_cuda(x, weight, bias, mean, rstd, silu, pre_add, scale_shift)
+    raise ValueError(f"group_norm_apply: no kernel for device {x.device}")
+
+
+def group_norm_across(x, weight, bias, gather, *, groups: int = 32, eps: float = 1e-6,
+                      silu: bool = False, pre_add=None, scale_shift=None):
+    """`group_norm` of a tensor whose rows are split over ranks: the local
+    parts' statistics, `gather(parts)` -> [S, B, G, P, 3] (every rank's, in
+    rank order), Chan's combination, then the normalize of the local rows.
+    Serving only: a gradient across ranks is not ported yet (ROADMAP M10c)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, weight, bias, pre_add, scale_shift)):
+        raise NotImplementedError("group_norm across ranks under autograd: spatial training "
+                                  "needs K1-bwd across ranks (ROADMAP M10c)")
+    parts = gather(group_norm_part_stats(x, groups=groups, pre_add=pre_add))
+    mean, rstd = combine_group_stats(parts, eps)
+    return group_norm_apply(x, weight, bias, mean, rstd, silu=silu, pre_add=pre_add,
+                            scale_shift=scale_shift)
+
+
+group_norm.part_launches = 0
+group_norm.apply_launches = 0

@@ -11,11 +11,19 @@ K2-bwd (K2-MH / K2-bwd-MH for an OpenAI UNet). Mixed precision is
 and the output returns to float32 before the loss (no autocast).
 Timestep importance sampling stays on the host (`core/resample.py`): the
 step returns each sample's loss for the sampler's history.
+
+Data parallelism (one process per GPU, `parallel/mesh.py`): each rank steps
+on its rows of the global batch, and `sync_grads` (`Mesh.sync_grads`)
+averages the gradients over the ranks before the optimizer step. The loss
+is a mean of per-sample terms over equal shards, so the average is the
+global batch's gradient. The caller draws the timesteps and the noise for
+the global batch and hands each rank its rows, so the ranks together draw
+what one process draws.
 """
 from __future__ import annotations
 
 import copy
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -50,6 +58,7 @@ def make_base_train_step(
     p2_k: float = 1.0,
     ema_rate: float = 0.9999,
     compute_dtype=torch.float32,
+    sync_grads: Optional[Callable] = None,
 ):
     """Returns step(model, ema, x0, t, noise, loss_weights) -> metrics,
     which updates the model, the EMA and `optimizer` (built over the model's
@@ -70,6 +79,8 @@ def make_base_train_step(
                                   p2_k=p2_k)
         loss = (terms["loss"] * loss_weights).mean()
         loss.backward()
+        if sync_grads is not None:
+            sync_grads(list(model.parameters()))
         optimizer.step()
         update_ema(ema, model, rate=ema_rate)
         metrics = {"loss": loss.detach(), "loss_per_sample": terms["loss"].detach(),

@@ -5,8 +5,11 @@ run continues bit for bit. Base training keeps its EMA in `extra`.
 
 The file is `torch.save` of {"trainable", "opt_state", "meta": {"it_out"},
 "extra"}, written to a temp file beside it and then moved into place
-(`os.replace`), so a reader never sees half a file. The JAX package's orbax
-directories are not read.
+(`os.replace`), so a reader never sees half a file. Under data parallelism
+every rank may save to the same path (the JAX package's multi-process
+`_flat_save`): each writes its own temp file, named by its process id, and
+the ranks hold the same state, so whichever rename lands last leaves a
+whole file of it. The JAX package's orbax directories are not read.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ from asyrp_official_torch.core.steptable import inversion_table
 from asyrp_official_torch.losses.lpips import LPIPS
 from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.ops import ddim_step as k3
+from asyrp_official_torch.parallel.mesh import Mesh
 from asyrp_official_torch.utils.assets import write_lpips_tsv
 
 log = logging.getLogger(__name__)
@@ -78,12 +79,16 @@ def compute_lpips_distance(
     out_dir: Optional[str] = None,
     dataset_name: str = "custom",
     compute_dtype=torch.float32,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, Dict[int, float]]:
     """Returns curves {"x": {t: mean}, "x_std": ..., "x0_t": ...,
     "x0_t_std": ...}, keyed by `seq[1:]` (the reference records each step
     under its destination timestep); writes the reference-format tsvs when
     `out_dir` is given. The images go to the LPIPS net's device, where the
-    model must be. The last batch may be partial."""
+    model must be. The last batch may be partial. On a `mesh` (data
+    parallelism) each rank runs its rows of the batch, padded to the data
+    axis, the distances are gathered, and the writer rank writes the tsvs."""
+    place = mesh if mesh is not None else Mesh()
     seq = uniform_seq(n_inv_step, t_0)
     chain = make_lpips_chain(spec, schedule, seq, lpips_net, compute_dtype=compute_dtype)
     device = next(lpips_net.parameters()).device
@@ -92,9 +97,11 @@ def compute_lpips_distance(
     for ofs in range(0, n, batch_size):
         items = [dataset[i] for i in range(ofs, min(ofs + batch_size, n))]
         chunk = np.stack([it[0] if isinstance(it, tuple) else it for it in items])
-        x0 = torch.from_numpy(chunk.astype(np.float32)).to(device)
+        x0, n_real = place.put_padded(chunk, device)
         t0 = time.perf_counter()
-        d_x, d_x0t = torch.stack(chain(model, x0)).cpu().numpy()  # the batch's one host fetch
+        # the batch's one host fetch
+        d_x, d_x0t = place.fetch(torch.stack(chain(model, x0)), batch_dim=2,
+                                 height_dim=None)[:, :, :n_real]
         all_x.append(d_x)
         all_x0t.append(d_x0t)
         dt = time.perf_counter() - t0
@@ -111,6 +118,6 @@ def compute_lpips_distance(
         "x0_t": {t: float(m) for t, m in zip(ts, d_x0t.mean(axis=1))},
         "x0_t_std": {t: float(s) for t, s in zip(ts, d_x0t.std(axis=1))},
     }
-    if out_dir:
+    if out_dir and place.is_writer:
         write_lpips_tsv(out_dir, dataset_name, curves)
     return curves

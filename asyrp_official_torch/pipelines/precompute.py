@@ -7,7 +7,13 @@ them, in batches, with the same cache naming
 package, so the two packages read each other's caches;
 `precompute_with_h`, one image's inversion with its h trajectory (DiffStyle),
 cached as the JAX package caches it; and `random_noise_pairs`, the Gaussian
-latents of `--load_random_noise`."""
+latents of `--load_random_noise`.
+
+On a mesh (`mesh`, `parallel/mesh.py`) every rank holds the same host
+batch, runs its block of it (padded to the data axis, and its rows of each
+image under spatial sharding inside the caller's `spatial.sharded` block),
+and fetches the whole batch back; only the writer rank writes the cache and
+the images."""
 from __future__ import annotations
 
 import os
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from asyrp_official_torch.models.registry import ModelSpec
+from asyrp_official_torch.parallel.mesh import Mesh
 from asyrp_official_torch.pipelines import engine
 from asyrp_official_torch.core.schedule import Schedule, uniform_seq
 
@@ -73,8 +80,10 @@ def precompute_pairs(
     class_name: Optional[str] = None,
     save_imgs_dir: Optional[str] = None,
     shuffle_seed: Optional[int] = None,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Returns {"x0", "x_rec", "x_lat"}, each [n_img, H, W, C] numpy."""
+    place = mesh if mesh is not None else Mesh(device=device)
     n_img = min(n_img, len(dataset))
     base = pairs_cache_path(cache_dir, category, mode, t_0, n_img, n_inv_step,
                             class_name=class_name)
@@ -104,14 +113,16 @@ def precompute_pairs(
     out = {k: [done[k]] if done is not None else [] for k in ("x0", "x_rec", "x_lat")}
     for ofs in range(0, len(xs), batch_size):
         chunk = np.stack(xs[ofs:ofs + batch_size]).astype(np.float32)
-        x0 = torch.from_numpy(chunk).to(device)
+        x0, n_real = place.put_padded(chunk, device)
         x_lat, _ = invert(model, x0)
         x_rec, _ = generate(model, x_lat)
         out["x0"].append(chunk)
-        out["x_rec"].append(x_rec.cpu().numpy())
-        out["x_lat"].append(x_lat.cpu().numpy())
+        out["x_rec"].append(place.fetch(x_rec)[:n_real])
+        out["x_lat"].append(place.fetch(x_lat)[:n_real])
 
     pairs = {k: np.concatenate(v)[:n_img] if v else np.zeros((0,)) for k, v in out.items()}
+    if not place.is_writer:
+        return pairs
     _atomic_savez(base + ".npz", **pairs)
     if save_imgs_dir:
         from asyrp_official_torch.data.imageio import save_image
@@ -180,6 +191,7 @@ def random_noise_pairs(
     seed: int = 0,
     compute_dtype=torch.float32,
     t_0: int = 999,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """`--load_random_noise`: x_lat ~ N(0, I) from
     `np.random.RandomState(seed + (0 if train else 1))`, x0 and x_rec zero;
@@ -196,11 +208,14 @@ def random_noise_pairs(
         return {k: v[:n_img] for k, v in cached.items()}
     generate = engine.make_generate(spec, schedule, uniform_seq(n_inv_step, t_0),
                                     compute_dtype=compute_dtype)
+    place = mesh if mesh is not None else Mesh(device=device)
     recs = []
     for ofs in range(0, n_img, batch_size):
-        x, _ = generate(model, torch.from_numpy(x_lat[ofs:ofs + batch_size]).to(device))
-        recs.append(x.cpu().numpy())
+        x_dev, n_real = place.put_padded(x_lat[ofs:ofs + batch_size], device)
+        x, _ = generate(model, x_dev)
+        recs.append(place.fetch(x)[:n_real])
     x_rec = np.concatenate(recs)
     pairs = {"x0": x_rec, "x_rec": x_rec, "x_lat": x_lat}
-    _atomic_savez(base + ".npz", **pairs)
+    if place.is_writer:
+        _atomic_savez(base + ".npz", **pairs)
     return pairs

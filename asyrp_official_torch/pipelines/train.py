@@ -56,6 +56,10 @@ def make_optimizer(params, lr: float) -> torch.optim.SGD:
     return torch.optim.SGD(params, lr=lr, weight_decay=0.0)
 
 
+def _params(optimizer: torch.optim.Optimizer):
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
 def steplr_lr(base_lr: float, it_out: int, step_size: int, gamma: float) -> float:
     return base_lr * (gamma ** (it_out // step_size))
 
@@ -63,7 +67,7 @@ def steplr_lr(base_lr: float, it_out: int, step_size: int, gamma: float) -> floa
 def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: int,
                     loss_fn: Callable = default_loss, compute_dtype=torch.float32,
                     ignore_timesteps: bool = False, train_target: str = "blocks",
-                    cached_origin: bool = False):
+                    cached_origin: bool = False, sync_grads: Optional[Callable] = None):
     """Returns fn(model, edit, optimizer, x_lat, x0, lr[, origins]) ->
     {"loss_per_step": [n], "loss": scalar, "x_next": the carry after the
     last step}, training `edit.blocks` or (`train_target="rows"`)
@@ -72,7 +76,11 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
     With `cached_origin=True` the fn takes the x0_t_origin stack
     ([n_steps, B, H, W, C], from `fn.compute_origins(model, x_lat)`)
     instead of running the plain reference step: it depends only on the
-    frozen UNet and x_lat, so it holds for every outer iteration."""
+    frozen UNet and x_lat, so it holds for every outer iteration.
+
+    `sync_grads(params)` runs on the optimizer's parameters between the
+    backward and the optimizer step: under data parallelism it averages
+    their gradients over the ranks (`parallel.mesh.Mesh.sync_grads`)."""
     if train_target not in ("blocks", "rows"):
         raise ValueError(f"train_target must be 'blocks' or 'rows', got {train_target!r}")
     table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps,
@@ -133,6 +141,8 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
             loss = loss_fn(x0_t, x0_t_origin, x0)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            if sync_grads is not None:
+                sync_grads(_params(optimizer))
             optimizer.step()
             x_edit = x_next.detach()
             losses.append(loss.detach())

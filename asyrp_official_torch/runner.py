@@ -1,5 +1,5 @@
 """AsyrpRunner — the port of the JAX `runner.py` for the DDPM++ and the
-OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device:
+OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2):
 
   * `run_training`: Δ-training of a DeltaBlock (`--train_delta_block`) or
     of per-timestep Δh rows (`--train_delta_h`, injected by
@@ -22,8 +22,18 @@ OpenAI families (iDDPM AFHQ/FFHQ, ADM MetFACE/CelebA_HQ_P2), on one device:
   * `run_style_transfer`: DiffStyle (`--diff_style`), every `--content_dir`
     image stylized by every `--style_dir` image.
 
-Not ported yet (they raise `NotImplementedError`): the multi-device flags
-(ROADMAP.md Queue 1).
+Multi-device (`--dp`, `--sp`, `--tp_spatial`; one process per GPU under
+`torchrun`, `parallel/mesh.py`): every rank holds the same host batches,
+runs its block of each (`Mesh.put` / `Mesh.put_padded`, the JAX runner's
+`_put` / `_put_padded`) and fetches the whole result back; the writer
+rank writes the files. Data parallelism runs every mode: the Δ gradients
+are averaged over the data axis after each backward, the eta noise is drawn
+for the global batch and sliced, the mean-of-Δh harvest combines the
+ranks' sums. Spatial sharding (`--tp_spatial`, `--sp`) serves: the UNets'
+layers exchange halos and statistics inside `spatial.sharded`
+(`parallel/spatial.py`). Not ported yet (they raise `NotImplementedError`,
+ROADMAP.md Queue 1, M10c): spatial training, and `--lpips`,
+`--run_fidelity` and `--diff_style` under spatial sharding.
 """
 from __future__ import annotations
 
@@ -47,6 +57,8 @@ from asyrp_official_torch.data.imageio import save_image
 from asyrp_official_torch.models.delta import (EditState, delta_block_from_tree, init_delta_blocks,
                                                rows_to_nchw, rows_to_nhwc)
 from asyrp_official_torch.models.registry import spec_from_config
+from asyrp_official_torch.parallel import mesh as pmesh, spatial
+from asyrp_official_torch.parallel.multislice import combine_delta_means
 from asyrp_official_torch.pipelines import engine, precompute as pc, train as tr
 from asyrp_official_torch.pipelines.fidelity import compare_output_dirs
 from asyrp_official_torch.pipelines.interval import select_interval
@@ -84,9 +96,6 @@ class AsyrpRunner:
         """`id_net`: a frozen `losses.id_loss.IRSE50` (the `--id_loss_w`
         term); `lpips_net`: a `losses.lpips.LPIPS` (`--lpips`, and
         `--run_fidelity` with a reference dir); both on the run's device."""
-        for flag in ("dp", "sp", "tp_spatial"):
-            if getattr(args, flag, 0):
-                raise NotImplementedError(f"--{flag}: multi-device runs {_TODO} (M10)")
         self.args = args
         self.config = config
         self.spec = spec_from_config(config)
@@ -108,6 +117,14 @@ class AsyrpRunner:
         self.lpips_net = lpips_net
         self.work_dir = work_dir
         self.compute_dtype = torch.bfloat16 if getattr(args, "bf16", False) else torch.float32
+        # the mesh of --dp / --sp / --tp_spatial over the processes torchrun
+        # started (the JAX runner's guards, parallel/mesh.plan_mesh)
+        plan = pmesh.plan_mesh(int(getattr(args, "dp", 0) or 0), int(getattr(args, "sp", 0) or 0),
+                               bool(getattr(args, "tp_spatial", False)), pmesh.world_size(),
+                               config["data"]["image_size"], getattr(args, "bs_train", 1),
+                               self.spec.bottleneck_hw)
+        self.mesh = (pmesh.make_mesh(*plan, device=self.device) if plan is not None
+                     else pmesh.Mesh(device=self.device))
         # the prompts of --edit_attr, or --src_txts / --trg_txts
         if getattr(args, "edit_attr", None) not in (None, "attribute"):
             self.src_txts, self.trg_txts = assets.src_trg_prompts()[args.edit_attr]
@@ -214,12 +231,13 @@ class AsyrpRunner:
         n_consume = a.n_train_img if mode == "train" else a.n_test_img
         n_img = max(n_consume, getattr(a, "n_precomp_img", 0) or 0)
         if getattr(a, "load_random_noise", False):
-            return pc.random_noise_pairs(
-                self.spec, model, self.schedule, n_img=n_img, n_inv_step=a.n_inv_step,
-                device=self.device, image_size=d["image_size"], mode=mode,
-                category=d["category"], cache_dir=self._dir("precomputed"),
-                saved_noise=getattr(a, "saved_random_noise", False), batch_size=a.bs_train,
-                seed=a.seed, compute_dtype=self.compute_dtype, t_0=a.t_0)
+            with self._sharded():
+                return pc.random_noise_pairs(
+                    self.spec, model, self.schedule, n_img=n_img, n_inv_step=a.n_inv_step,
+                    device=self.device, image_size=d["image_size"], mode=mode,
+                    category=d["category"], cache_dir=self._dir("precomputed"),
+                    saved_noise=getattr(a, "saved_random_noise", False), batch_size=a.bs_train,
+                    seed=a.seed, compute_dtype=self.compute_dtype, t_0=a.t_0, mesh=self.mesh)
         class_num = getattr(a, "target_class_num", None)
         train_ds, test_ds = self._datasets(class_num)
         save_dir = None
@@ -228,20 +246,45 @@ class AsyrpRunner:
         class_name = None
         if d["dataset"] == "IMAGENET" and class_num is not None:
             class_name = data.imagenet_classes()[str(class_num)][1]
-        return pc.precompute_pairs(
-            self.spec, model, self.schedule, train_ds if mode == "train" else test_ds,
-            n_img=n_img, n_inv_step=a.n_inv_step, device=self.device, t_0=a.t_0, mode=mode,
-            category=d["category"], cache_dir=self._dir("precomputed"), batch_size=a.bs_train,
-            re_precompute=getattr(a, "re_precompute", False), compute_dtype=self.compute_dtype,
-            class_name=class_name, save_imgs_dir=save_dir,
-            shuffle_seed=(a.seed if mode == "train" and getattr(a, "shuffle_train_dataloader", False)
-                          else None),
-        )
+        with self._sharded():
+            return pc.precompute_pairs(
+                self.spec, model, self.schedule, train_ds if mode == "train" else test_ds,
+                n_img=n_img, n_inv_step=a.n_inv_step, device=self.device, t_0=a.t_0, mode=mode,
+                category=d["category"], cache_dir=self._dir("precomputed"),
+                batch_size=a.bs_train, re_precompute=getattr(a, "re_precompute", False),
+                compute_dtype=self.compute_dtype, class_name=class_name, save_imgs_dir=save_dir,
+                shuffle_seed=(a.seed if mode == "train"
+                              and getattr(a, "shuffle_train_dataloader", False) else None),
+                mesh=self.mesh)
 
     def _dir(self, name: str) -> str:
         p = os.path.join(self.work_dir, name)
         os.makedirs(p, exist_ok=True)
         return p
+
+    # ------------------------------------------------------------------
+    # placement on the mesh (the JAX runner's _put / _put_padded / fetch)
+    # ------------------------------------------------------------------
+    def _sharded(self):
+        """The mesh's spatial group for the UNet calls in the block (none
+        without spatial sharding)."""
+        return spatial.sharded(self.mesh.spatial_info())
+
+    def _refuse_spatial(self, what: str) -> None:
+        if self.mesh.spatial > 1:
+            raise NotImplementedError(
+                f"{what} under spatial sharding (--tp_spatial / --sp) {_TODO} (M10c: spatial "
+                "training needs K1-bwd and K2-bwd across ranks, and the CLIP / LPIPS nets the "
+                "gathered image)")
+
+    def _noise(self, shape, n_real: Optional[int] = None):
+        """(generator, noise_fn) for a chain over a global batch of `shape`
+        (its first `n_real` rows real): the seeded generator; on a mesh a
+        noise_fn that draws the global batch's noise from it, as one
+        process draws, and takes this rank's block."""
+        gen = self._generator()
+        fn = self.mesh.noise_fn(gen, shape, n_real)
+        return (gen, None) if fn is None else (None, fn)
 
     def _ckpt_path(self, it: int, extra=None) -> str:
         a = self.args
@@ -269,8 +312,14 @@ class AsyrpRunner:
         rate, the drop-last batches of the training latents, SGD at every
         edited timestep, the `.pth` checkpoint; an existing checkpoint of an
         iteration is loaded and the iteration skipped (plain SGD keeps no
-        optimizer state). `--do_test` then writes the test grids."""
+        optimizer state). `--do_test` then writes the test grids.
+
+        Under --dp each rank trains on its rows of every batch (bs_train
+        divides by the data axis) and the gradients are averaged over the
+        ranks before each SGD step; the CLIP term's batch mean is the global
+        batch's (`Mesh.batch_mean`)."""
         a = self.args
+        self._refuse_spatial("--run_train")
         train_target = "rows" if a.train_delta_h else "blocks"
         if train_target == "blocks" and a.get_h_num < 1:
             # the reference's default 0 leaves its optimizer with no parameters
@@ -305,13 +354,14 @@ class AsyrpRunner:
                 ignore_timestep=a.ignore_timesteps,
                 times=None if a.ignore_timesteps else tuple(seq_train))
             trainable = [edit.delta_rows]
+        self.mesh.replicate(trainable)  # one Δ state on every rank
 
         extra_loss = None
         if self.clip_ctx is not None and a.clip_loss_w:
             from asyrp_official_torch.losses.clip_loss import train_clip_term
 
             extra_loss = train_clip_term(self.clip_ctx, self.src_txts[0], self.trg_txts[0],
-                                         a.clip_loss_w)
+                                         a.clip_loss_w, batch_mean=self.mesh.batch_mean)
         if self.id_net is not None and a.id_loss_w:
             clip_extra, id_net = extra_loss, self.id_net
 
@@ -362,7 +412,8 @@ class AsyrpRunner:
         step = tr.make_train_step(self.spec, self.schedule, seq_train, t_edit=self.t_edit,
                                   loss_fn=loss_fn, compute_dtype=self.compute_dtype,
                                   ignore_timesteps=a.ignore_timesteps, train_target=train_target,
-                                  cached_origin=use_origin_cache)
+                                  cached_origin=use_origin_cache,
+                                  sync_grads=self.mesh.sync_grads if self.mesh.data > 1 else None)
         origin_cache: Dict[int, torch.Tensor] = {}
         if use_origin_cache:
             log.info("origin-trajectory cache ON: %d batch(es) x %d steps (%.0f MB), reused "
@@ -386,8 +437,8 @@ class AsyrpRunner:
             for bi, ofs in enumerate(range(0, len(x_lat_all), a.bs_train)):
                 if x_lat_all[ofs: ofs + a.bs_train].shape[0] != a.bs_train:
                     break  # drop_last
-                xb = torch.from_numpy(x_lat_all[ofs: ofs + a.bs_train]).to(self.device)
-                x0b = torch.from_numpy(x0_all[ofs: ofs + a.bs_train]).to(self.device)
+                xb = self.mesh.put(x_lat_all[ofs: ofs + a.bs_train])
+                x0b = self.mesh.put(x0_all[ofs: ofs + a.bs_train])
                 t0 = time.perf_counter()
                 if use_origin_cache:
                     if ofs not in origin_cache:
@@ -395,7 +446,8 @@ class AsyrpRunner:
                     metrics = step(model, edit, optimizer, xb, x0b, lr, origin_cache[ofs])
                 else:
                     metrics = step(model, edit, optimizer, xb, x0b, lr)
-                losses.append(float(metrics["loss"]))  # the host fetch waits for the device
+                # the host fetch waits for the device
+                losses.append(self.mesh.mean_over_data(float(metrics["loss"])))
                 batch_ms.append((time.perf_counter() - t0) * 1e3)
                 # the reference checks its counter before incrementing: saves at
                 # batches 0, step, 2*step ...
@@ -421,7 +473,7 @@ class AsyrpRunner:
             log.info("iter %d: mean loss %.4f (lr %.4g%s)", it_out,
                      float(np.mean(losses or [0.0])), lr, timing)
             self._save_delta(edit, extra_blocks, save_name, seq_train)
-            if a.save_checkpoint_only_last_iter and it_out > 0:
+            if a.save_checkpoint_only_last_iter and it_out > 0 and self.mesh.is_writer:
                 prev = self._ckpt_path(it_out - 1)
                 if os.path.exists(prev):
                     os.remove(prev)
@@ -443,7 +495,10 @@ class AsyrpRunner:
 
     def _save_delta(self, edit: EditState, extra_blocks, path: str, seq_train) -> None:
         """Blocks: the trained block first, the untrained get_h_num > 1
-        extras after it. Rows: one NHWC row per key of `_row_keys`."""
+        extras after it. Rows: one NHWC row per key of `_row_keys`. Written
+        by the writer rank (every rank holds the same Δ state)."""
+        if not self.mesh.is_writer:
+            return
         if edit.mode == "input":
             rows = rows_to_nhwc(edit.delta_rows)
             delta_ckpt.save_delta_checkpoint(
@@ -489,9 +544,14 @@ class AsyrpRunner:
         each pass from the same seeded eta noise, unless --pass_editing.
         `--save_process_origin` / `--save_process_delta_h` also write the
         per-step [x; x0_t] frames. With `collect_delta`, returns the
-        per-step Δh [S, B, h, w, C], summed over the coefficient passes."""
+        per-step Δh [S, B, h, w, C], summed over the coefficient passes (on
+        a mesh: this rank's rows of the batch, whole images).
+
+        On a mesh every rank runs its block of the batch (B divides by the
+        data axis) with the global batch's eta noise, and fetches the
+        images; the writer rank writes the grid."""
         a = self.args
-        x_dev = torch.from_numpy(np.ascontiguousarray(x_lat, np.float32)).to(self.device)
+        x_dev = self.mesh.put(x_lat)
         rows: List[np.ndarray] = []
         if a.save_x0 and x0 is not None:
             rows.append(np.asarray(x0))
@@ -500,8 +560,9 @@ class AsyrpRunner:
             gen = self._cached_engine(
                 "gen", tuple(seq), t_addnoise=self.t_addnoise if a.origin_process_addnoise else -1,
                 sample_type=a.sample_type, collect=("x", "x0_t") if process else ())
-            x, ys = gen(model, x_dev, self._generator())
-            rows.append(x.cpu().numpy())
+            with self._sharded():
+                x, ys = gen(model, x_dev, *self._noise(x_lat.shape))
+            rows.append(self.mesh.fetch(x))
             if process:
                 self._dump_process(ys, seq, folder, file_name, "origin")
 
@@ -520,12 +581,13 @@ class AsyrpRunner:
             for coeff in (list(hs_coeff_list) if hs_coeff_list else [None]):
                 e = edit if coeff is None else dataclasses.replace(
                     edit, hs_coeff=torch.tensor(coeff, dtype=torch.float32, device=self.device))
-                x, ys = run(model, e, x_dev, self._generator())
-                rows.append(x.cpu().numpy())
+                with self._sharded():
+                    x, ys = run(model, e, x_dev, *self._noise(x_lat.shape))
+                rows.append(self.mesh.fetch(x))
                 if collect_delta:
                     # summed over the coefficient passes; the harvest divides
                     # by the image count only, as the reference does
-                    h_new = ys["delta_h"].cpu().numpy()
+                    h_new = self.mesh.fetch(ys["delta_h"], batch_dim=None, height_dim=2)
                     harvested = h_new if harvested is None else harvested + h_new
                 if process:
                     self._dump_process(ys, seq, folder, file_name, "delta_h")
@@ -534,15 +596,20 @@ class AsyrpRunner:
             raise ValueError("nothing to draw: --pass_editing with neither --save_x0 nor "
                              "--save_x_origin leaves zero grid rows")
         out = os.path.join(folder, f"{file_name}_ngen{a.n_train_step}.png")
-        save_image(np.concatenate(rows, axis=0), out, nrow=max(1, x_lat.shape[0]), pm1=True)
-        log.info("%s saved (%d rows)", out, len(rows))
+        if self.mesh.is_writer:
+            save_image(np.concatenate(rows, axis=0), out, nrow=max(1, x_lat.shape[0]), pm1=True)
+            log.info("%s saved (%d rows)", out, len(rows))
         return harvested
 
     def _dump_process(self, ys, seq, folder: str, file_name: str, tag: str) -> None:
-        """Per-step [x; x0_t] frames, `{folder}/{file_name}/{tag}_{t}.png`."""
+        """Per-step [x; x0_t] frames, `{folder}/{file_name}/{tag}_{t}.png`
+        (the [S, B, H, W, C] stacks gathered from the mesh; the writer rank
+        writes)."""
+        xs, x0s = (self.mesh.fetch(ys[k], batch_dim=1, height_dim=2) for k in ("x", "x0_t"))
+        if not self.mesh.is_writer:
+            return
         out_dir = os.path.join(folder, file_name)
         os.makedirs(out_dir, exist_ok=True)
-        xs, x0s = ys["x"].cpu().numpy(), ys["x0_t"].cpu().numpy()
         for i, t in enumerate(generation_table(seq).t):
             save_image(np.concatenate([xs[i], x0s[i]], axis=0),
                        os.path.join(out_dir, f"{tag}_{int(t)}.png"), nrow=xs.shape[1], pm1=True)
@@ -680,8 +747,10 @@ class AsyrpRunner:
         # the train split first (where the mean-of-Δh harvest runs), then the test split
         splits = ([("train", a.n_train_img)] if a.do_train else []) + (
             [("test", a.n_test_img)] if a.do_test else [])
+        # the harvest: this rank's sum over its rows of the batches, and the
+        # images in it; n_done counts the global batch's images
         harvest_sum: Optional[np.ndarray] = None
-        n_done = 0
+        n_done = n_local = 0
         grid_ms: List[float] = []
         for mode, n_img in splits:
             pairs = self.get_pairs(model, mode)
@@ -705,6 +774,7 @@ class AsyrpRunner:
                 s = h.sum(axis=1)  # [S, h, w, C], summed over the batch
                 harvest_sum = s if harvest_sum is None else harvest_sum + s
                 n_done += xb.shape[0]
+                n_local += h.shape[1]
                 if n_done >= mean_dh_pending and ofs + a.bs_train >= n_img:
                     # the reference's loop breaks on the last training image
                     # before its save (diffusion_latent.py:803-828)
@@ -716,12 +786,17 @@ class AsyrpRunner:
                 if n_done >= mean_dh_pending:
                     # per-timestep mean over the images, then the global mean as row 0
                     tab = generation_table(seq_test, t_edit=self.t_edit)
-                    per_t = harvest_sum / n_done
+                    # the ranks' sums and counts combined over the data axis (the
+                    # spatial ranks of one data index hold the same images)
+                    per_t = (combine_delta_means(harvest_sum, n_local,
+                                                 group=self.mesh.data_group, device=self.device)
+                             if self.mesh.data > 1 else harvest_sum / n_local)
                     active = tab.use_delta > 0
                     mean_rows = {int(t): per_t[i] for i, t in enumerate(tab.t) if active[i]}
                     mean_rows[0] = per_t[active].mean(axis=0)
-                    delta_ckpt.save_delta_checkpoint(latent_path, delta_rows=mean_rows)
-                    log.info("mean-of-delta-h saved: %s", latent_path)
+                    if self.mesh.is_writer:
+                        delta_ckpt.save_delta_checkpoint(latent_path, delta_rows=mean_rows)
+                        log.info("mean-of-delta-h saved: %s", latent_path)
                     mean_dh_pending = 0
                     # the remaining images are edited with the harvested rows
                     edit = self._edit_from_rows(mean_rows, hs_coeff, seq_test)
@@ -739,10 +814,14 @@ class AsyrpRunner:
     def run_style_transfer(self) -> None:
         """DiffStyle: each `--content_dir` image inverted once, each
         `--style_dir` image inverted once with its h trajectory, then every
-        pair generated; `content{ci}_style{si}.png` under `--save_dir`."""
+        pair generated; `content{ci}_style{si}.png` under `--save_dir`.
+        Under --dp each batch-1 image goes through the padded put (every
+        rank runs a copy) and the output is sliced back to the real row, as
+        the JAX runner does."""
         from asyrp_official_torch.pipelines.style_transfer import make_style_transfer
 
         a = self.args
+        self._refuse_spatial("--diff_style")
         self.set_interval()
         model = self.load_pretrained()
         size = self.config["data"]["image_size"]
@@ -758,16 +837,17 @@ class AsyrpRunner:
             compute_dtype=self.compute_dtype)
 
         def batch(img):
-            return torch.from_numpy(img[None]).to(self.device)
+            return self.mesh.put_padded(img[None])[0]
 
         content_lats = [st.invert_content(model, batch(contents[ci]))
                         for ci in range(len(contents))]
         for si in range(len(styles)):
             h_traj = st.invert_style(model, batch(styles[si]))
             for ci, x_lat in enumerate(content_lats):
-                stylized = st.generate(model, x_lat, h_traj, self._generator())
-                save_image(stylized[0].cpu().numpy(),
-                           os.path.join(out_dir, f"content{ci}_style{si}.png"), pm1=True)
+                stylized = self.mesh.fetch(st.generate(model, x_lat, h_traj, self._generator()))
+                if self.mesh.is_writer:
+                    save_image(stylized[0], os.path.join(out_dir, f"content{ci}_style{si}.png"),
+                               pm1=True)
         log.info("style transfer results in %s", out_dir)
 
     # ------------------------------------------------------------------
@@ -775,8 +855,10 @@ class AsyrpRunner:
         """The LPIPS calibration stage: per-timestep LPIPS(x_t, x0) and
         LPIPS(x0_t, x0) over a 1000-step (--n_inv_step) inversion of the
         training images; the four tsvs go to {work_dir}/utils/, where
-        `set_interval` reads them."""
+        `set_interval` reads them. Under --dp each rank inverts its rows of
+        every batch."""
         a = self.args
+        self._refuse_spatial("--lpips")
         if self.lpips_net is None:
             raise RuntimeError("LPIPS weights are required for the calibration stage: pass "
                                "--lpips_ckpt (an npz of the lpips package's AlexNet + lin "
@@ -791,7 +873,7 @@ class AsyrpRunner:
             self.spec, model, self.schedule, train_ds, self.lpips_net,
             n_img=a.n_train_img + 1, n_inv_step=a.n_inv_step, t_0=a.t_0,
             batch_size=a.bs_train, out_dir=self._dir("utils"), dataset_name=name,
-            compute_dtype=self.compute_dtype)
+            compute_dtype=self.compute_dtype, mesh=self.mesh)
 
     def run_fidelity(self) -> Dict[str, Any]:
         """The fidelity runbook: invert→edit every test image
@@ -799,8 +881,10 @@ class AsyrpRunner:
         checkpoint, write `{exp}/fidelity/test_{i}.png`, and, given
         --fidelity_ref_dir with the reference's outputs under the same
         names, write the LPIPS report `lpips_report.json` (gate: mean ≤
-        0.01). Every missing artefact is reported at once."""
+        0.01). Every missing artefact is reported at once. Under --dp each
+        batch is padded to the data axis and its outputs sliced back."""
         a = self.args
+        self._refuse_spatial("--run_fidelity")
         missing = []
         if not getattr(a, "model_path", None) and not getattr(a, "allow_random_weights", False):
             missing.append("base diffusion ckpt: --model_path <ckpt>")
@@ -848,20 +932,25 @@ class AsyrpRunner:
         n = min(a.n_test_img, len(test_ds))
         for ofs in range(0, n, a.bs_train):
             idxs = list(range(ofs, min(ofs + a.bs_train, n)))
-            x0 = torch.from_numpy(np.stack([np.asarray(test_ds[i]) for i in idxs])).to(self.device)
-            out = run(model, edit, x0, self._generator()).cpu().numpy()
+            x0 = np.stack([np.asarray(test_ds[i]) for i in idxs])
+            x_dev, n_real = self.mesh.put_padded(x0)
+            out = self.mesh.fetch(run(model, edit, x_dev, *self._noise(
+                (x_dev.shape[0] * self.mesh.data,) + x0.shape[1:], n_real)))[:n_real]
             for k, i in enumerate(idxs):
                 # one H x W image, as torchvision's save_image writes a single
                 # image (the JAX runbook's one-image grid is 8 columns wide)
-                save_image(out[k], os.path.join(out_dir, f"test_{i}.png"), pm1=True)
+                if self.mesh.is_writer:
+                    save_image(out[k], os.path.join(out_dir, f"test_{i}.png"), pm1=True)
         log.info("fidelity outputs: %s (%d images)", out_dir, n)
         if not ref_dir:
             return {"out_dir": out_dir, "n": n}
 
+        self.mesh.barrier()  # the writer's outputs are on disk before any rank reads them
         report = compare_output_dirs(out_dir, ref_dir, self.lpips_net)
         report_path = os.path.join(out_dir, "lpips_report.json")
-        with open(report_path, "w") as f:
-            json.dump(report, f, indent=1)
+        if self.mesh.is_writer:
+            with open(report_path, "w") as f:
+                json.dump(report, f, indent=1)
         log.info("fidelity LPIPS mean=%.4f max=%.4f n=%d -> %s (gate: mean <= 0.01)",
                  report["mean"], report["max"], report["n"], report_path)
         return report

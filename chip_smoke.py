@@ -134,9 +134,10 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   11. M7 on `custom.yml` through the port's CLI, in-process, from phase
      7's images, phase 10's seeded `.pt` and phase 4's block: (a) the LPIPS
      calibration stage (`--lpips`, 2 images, a random AlexNet + lin written
-     in the `--lpips_ckpt` npz format) at 100 steps (the recipe runs 1000;
+     in the `--lpips_ckpt` npz format) at 50 steps (the recipe runs 1000;
      cut for the time limit: to 200 when phase 12 came, to 100 when phase
-     14 came) f32, bf16, and f32 with the plain versions (the four curves
+     14 came, to 50 when phase 15 came) f32, bf16, and f32 with the plain
+     versions (the four curves
      within 1e-3 of scale), f32 at `--bs_train 2` over 5 steps (10 until
      phase 14)
      (cuDNN's f32 FFT path, recorded, not gated); K1, K2 and K3 launched, K3
@@ -158,12 +159,13 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      redrawn, saved as a `.pt` without `label_emb.weight` (ADM's released
      unconditional layout), two random 256^2 images per split as
      `imagenet/{val,train}/<wnid>/<wnid>/*.{JPEG,jpeg}` of one class, a Δ
-     checkpoint at 1024 channels; (b) `--run_test --target_class_num`, 20 +
-     20 steps (40 + 40 until phase 14 came: cut for the time limit) at batch
-     1, float32 and --bf16: K1, the multi-head K2 and K3
-     launched, the one-head K2 never, the latent cache named by the class;
-     (c) the float32 invert+edit chain against the plain versions (1e-3,
-     eps std > 0.1) and where the time goes in one eval (as in 6); (d)
+     checkpoint at 1024 channels; (b) `--run_test --target_class_num`, 10 +
+     10 steps (40 + 40 until phase 14 came, 20 + 20 until phase 15 came: cut
+     for the time limit) at batch 1, float32 and --bf16: K1, the multi-head
+     K2 and K3 launched, the one-head K2 never, the latent cache named by
+     the class; (c) the float32 invert+edit chain, 20 + 20 steps (40 + 40
+     until phase 15 came), against the plain versions (1e-3, eps std > 0.1)
+     and where the time goes in one eval (as in 6); (d)
      `--run_train --train_delta_block --target_class_num` on phase 9's
      recipe, float32 and --bf16 (K1-bwd, K2-bwd-MH and K3-bwd launched, peak
      device memory), the float32 run again with the plain versions (block
@@ -221,6 +223,26 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      dbias and the per-sample pre-add or FiLM operand's gradient, and
      K2-bwd(-MH), against autograd through the plain forward, bit for bit
      across two calls.
+  15. Multi-device (`parallel/`), rank processes on the one card, each
+     through the port's CLI with its launch counters zeroed just before its
+     runs and read just after; every rank on cuda:0 over gloo (NCCL refuses
+     two ranks on one card), except (a): (a) one NCCL rank, `--dp -1`
+     serving on `custom.yml` (4 + 4 steps, f32), bit for bit the run without
+     a process group; (b) two ranks, `--dp 2` Δ-training (CLIP + L1, bs 2, 4
+     steps) then serving its block, against one process (Δ leaves 5e-5,
+     grids 2 levels: the JAX package's tests/test_runner_dp.py bounds); (c)
+     four ranks, `--dp 4 --tp_spatial` serving `custom.yml` and `--dp 2 --sp
+     2` serving `afhq.yml` (bs 2), against one process (x_lat and x_rec
+     1e-3 of scale, grids 2 levels): K1 across ranks (`gn_part`,
+     `gn_apply`) and K2 with Tq != Tk launched, the one-rank K1 and K2
+     never; rank 0's collectives (count, bytes, time synchronized around
+     each) per UNet eval: gloo through the host with four ranks on one
+     card, what the exchanges cost here, not multi-GPU scaling; (d) both new
+     entries against their plain versions at every shape (c) gave rank 0,
+     f32 and bf16: CUDA-event and device times, SDPA at the same Tq / Tk,
+     the bound, calls per run. Phase 3's repetitions per row went 15 / 12
+     -> 10 / 8, phase 11's `--lpips` 100 -> 50 steps and phase 12's grids
+     20 -> 10 and chain 40 -> 20 steps for its room.
 Every run of a path (phases 4, 7-13) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
@@ -246,6 +268,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 STEPS = 40
@@ -301,8 +324,9 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 # phase 3's repetitions per row: CUDA-event runs (the median) and calls back to
-# back behind the sleep (25 and 20 until phase 14 came: cut for the time limit)
-ROW_RUNS, ROW_DEVICE_RUNS = 15, 12
+# back behind the sleep (25 and 20 until phase 14 came, 15 and 12 until phase 15
+# came: cut for the time limit)
+ROW_RUNS, ROW_DEVICE_RUNS = 10, 8
 DTYPES = ("float32", "bfloat16")
 
 
@@ -446,7 +470,10 @@ def counters():
             "attention_mh_bwd": k2.attention.mh_bwd_launches, "ddim_step": k3.ddim_step.launches,
             "ddim_step_bwd": k3.ddim_step.bwd_launches, "ddpm_step": kddpm.ddpm_step.launches,
             "ddim_step_scalar": k3.ddim_step.scalar_launches,
-            "ddpm_step_scalar": kddpm.ddpm_step.scalar_launches}
+            "ddpm_step_scalar": kddpm.ddpm_step.scalar_launches,
+            "group_norm_part": k1.group_norm.part_launches,
+            "group_norm_apply": k1.group_norm.apply_launches,
+            "attention_kv": k2.attention.kv_launches}
 
 
 def zero_counters() -> None:
@@ -454,8 +481,9 @@ def zero_counters() -> None:
     from asyrp_official_torch.ops import ddpm_step as kddpm
 
     k1.group_norm.launches = k1.group_norm.bwd_launches = 0
+    k1.group_norm.part_launches = k1.group_norm.apply_launches = 0
     k2.attention.launches = k2.attention.mh_launches = k2.attention.bwd_launches = 0
-    k2.attention.mh_bwd_launches = 0
+    k2.attention.mh_bwd_launches = k2.attention.kv_launches = 0
     k3.ddim_step.launches = k3.ddim_step.bwd_launches = k3.ddim_step.scalar_launches = 0
     kddpm.ddpm_step.launches = kddpm.ddpm_step.scalar_launches = 0
 
@@ -1399,11 +1427,13 @@ def main_path_phase(torch, card, log, ws_root):
     return timings, launches
 
 
-def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False):
-    """The float32 serving chain (invert + edit) with kernels vs plain
-    versions on the card, from the CLI run's first test image and the same
-    noise; then its time per dtype. With `eps_check`, one edited eval at
-    t = 999 must give eps far from zero and eps_mod apart from eps."""
+def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False,
+                steps: int = STEPS):
+    """The float32 serving chain (invert + edit, `steps` + `steps`) with
+    kernels vs plain versions on the card, from the CLI run's first test
+    image and the same noise; then its time per dtype. With `eps_check`, one
+    edited eval at t = 999 must give eps far from zero and eps_mod apart
+    from eps."""
     import numpy as np
 
     from asyrp_official_torch import uniform_seq
@@ -1432,7 +1462,7 @@ def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False
         if not std > MIN_EPS_STD or not moved > 1e-3:
             fail(f"eps std {std:.3f}, edit moved eps by {moved:.3e}: the comparison would prove "
                  "nothing")
-    seq = uniform_seq(STEPS, 999)
+    seq = uniform_seq(steps, 999)
     run = engine.make_invert_edit(runner.spec, runner.schedule, seq, seq, t_edit=T_EDIT,
                                   t_addnoise=T_ADDNOISE)
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
@@ -1448,7 +1478,7 @@ def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False
     if out_k.shape != (1, IMAGE, IMAGE, 3):
         fail(f"chain output shape {tuple(out_k.shape)}")
     err = errs(out_k, out_p)[1]
-    phase(f"  float32 invert+edit chain ({STEPS}+{STEPS} steps, bs 1), kernels vs plain: "
+    phase(f"  float32 invert+edit chain ({steps}+{steps} steps, bs 1), kernels vs plain: "
           f"rel err {err:.3e} (tol {CHAIN_TOL:g}), output max |x| {float(out_p.abs().max()):.3f}; "
           f"launches per chain {per_request}")
     if err > CHAIN_TOL:
@@ -1470,7 +1500,7 @@ def chain_phase(torch, dev, card, ws, argv, config, ckpt, pairs, eps_check=False
         if not torch.isfinite(out).all():
             fail(f"non-finite {dname} chain output")
         chain_ms[dname] = times[1]
-        phase(f"  {dname} invert+edit chain ({STEPS}+{STEPS} steps, bs 1) on {card}: "
+        phase(f"  {dname} invert+edit chain ({steps}+{steps} steps, bs 1) on {card}: "
               f"runs {', '.join(f'{t:.1f}' for t in times)} ms (first warms up)")
     return err, chain_ms, per_request, (runner.spec, model, edit)
 
@@ -2086,9 +2116,10 @@ def openai_argv(fam: str, ws: str, model_path: str, bf16: bool = False, steps: i
 AFHQ_RUNS = (  # (label, --bf16, steps, --sample_type)
     ("float32", False, STEPS, "ddim"), ("bfloat16", True, STEPS, "ddim"),
     ("ddpm float32", False, DDPM_STEPS, "ddpm"))
-# phase 12 (b)'s serving grids (40 until phase 14 came: cut for the time limit;
-# the chain of (c) stays at STEPS)
-IMAGENET_SERVE_STEPS = 20
+# phase 12 (b)'s serving grids (40 until phase 14 came, 20 until phase 15 came:
+# cut for the time limit) and (c)'s chain (40 + 40 until phase 15 came)
+IMAGENET_SERVE_STEPS = 10
+IMAGENET_CHAIN_STEPS = 20
 IMAGENET_RUNS = (("float32", False, IMAGENET_SERVE_STEPS, "ddim"),
                  ("bfloat16", True, IMAGENET_SERVE_STEPS, "ddim"))
 
@@ -2527,9 +2558,9 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
 # ---------------------------------------------------------------------------
 
 # the calibration recipe runs 1000 steps; cut for the script's time limit (to 200
-# when phase 12 came, to 100 when phase 14 came: the f32, bf16 and plain runs
-# share it)
-LPIPS_STEPS = 100
+# when phase 12 came, to 100 when phase 14 came, to 50 when phase 15 came: the
+# f32, bf16 and plain runs share it)
+LPIPS_STEPS = 50
 # --bs_train 2: cuDNN's f32 FFT convolutions (ROADMAP Queue 3); 10 until phase 14
 LPIPS_BS2_STEPS = 5
 LPIPS_TOL = 1e-3  # the f32 curves, kernels vs plain, of each curve's scale
@@ -3104,7 +3135,7 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
         torch, dev, card, ws, openai_argv("imagenet", ws, model_path), IMAGENET_CONFIG,
         "imagenet_delta.pth",
         f"{cache_category}_test_t999_nim2_ninv{IMAGENET_SERVE_STEPS}_pairs.npz",
-        eps_check=True)
+        eps_check=True, steps=IMAGENET_CHAIN_STEPS)
     phase("  where the time goes in one IMAGENET UNet eval at batch 1 (torch.profiler):")
     profile = profile_phase(torch, dev, card, served)
     del served
@@ -3970,6 +4001,497 @@ def base_phase(torch, dev, card, ws_root: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: multi-device (parallel/), on the one card
+# ---------------------------------------------------------------------------
+
+# phase 15's grids: inversion, training and generation steps (the runs are
+# compared with a single-process run of the same recipe, not timed)
+MD_STEPS = 4
+MD_TOL = 1e-3  # x of a sharded run against the single-process run, of scale
+MD_DELTA_TOL = 5e-5  # Δ leaves, --dp 2 against one process (JAX tests/test_runner_dp.py)
+MD_GRID_TOL = 2  # uint8 levels of a grid, likewise
+MD_KERNELS = ("group_norm_part", "group_norm_apply", "attention_kv")
+MD_DEVICE = "cuda:0"  # every rank on the one card: an explicit device pins it
+TOL.update({"group_norm_across": {"float32": 1e-5, "bfloat16": 2e-2},
+            "attention_kv": {"float32": 1e-5, "bfloat16": 2e-2}})
+
+# One rank of phase 15: the process group (gloo on cuda:0 for every rank,
+# as NCCL refuses two ranks on one card; NCCL for a world of one; none for
+# the single-process references), then the port's CLI runs of its spec with
+# the launch counters zeroed just before each and read just after. With
+# "record", rank 0 also keeps the shapes of the new entries' launches, every
+# collective's time (synchronized around it) and bytes received, and the
+# UNet evals of each run.
+MD_WORKER = r"""
+import json, sys, time
+import torch
+import torch.distributed as dist
+
+port, rank, world, backend, spec_path = sys.argv[1:6]
+rank, world = int(rank), int(world)
+spec = json.load(open(spec_path))
+sys.path.insert(0, spec["repo"])
+torch.cuda.set_device(0)
+if backend != "none":
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+import chip_smoke as cs
+from asyrp_official_torch.cli.main import main
+from asyrp_official_torch.models import registry
+from asyrp_official_torch.ops import attention as k2, groupnorm as k1
+
+rec = {"gn": {}, "kv": {}, "coll": [0, 0, 0.0], "evals": 0}
+if spec.get("record"):
+    apply_, attn = k1._apply_cuda, k2._attention_cuda
+    reduce_, gather_ = dist.all_reduce, dist.all_gather
+    fused = lambda pa, ss: "pre_add" if pa is not None else "scale_shift" if ss is not None else ""
+
+    def apply_rec(x, w, b, mean, rstd, silu, pre_add, scale_shift):
+        key = json.dumps([list(x.shape), str(x.dtype), bool(silu), fused(pre_add, scale_shift)])
+        rec["gn"][key] = rec["gn"].get(key, 0) + 1
+        return apply_(x, w, b, mean, rstd, silu, pre_add, scale_shift)
+
+    def attn_rec(q, k, v, with_lse, num_heads=1, legacy_scale=False):
+        if k.shape[1] != q.shape[1]:
+            key = json.dumps([list(q.shape), list(k.shape), str(q.dtype), num_heads,
+                              bool(legacy_scale)])
+            rec["kv"][key] = rec["kv"].get(key, 0) + 1
+        return attn(q, k, v, with_lse, num_heads, legacy_scale)
+
+    def timed(fn, n_bytes):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec["coll"][0] += 1
+            rec["coll"][1] += n_bytes(*a)
+            rec["coll"][2] += (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    reduce_rec = timed(reduce_, lambda t, *a: t.numel() * t.element_size())
+    gather_rec = timed(gather_, lambda parts, t, *a: len(parts) * t.numel() * t.element_size())
+
+    apply_model = registry.ModelSpec.apply
+
+    def apply_count(self, *a, **kw):
+        rec["evals"] += 1
+        return apply_model(self, *a, **kw)
+
+    k1._apply_cuda, k2._attention_cuda = apply_rec, attn_rec
+    dist.all_reduce, dist.all_gather = reduce_rec, gather_rec
+    registry.ModelSpec.apply = apply_count
+results = []
+for argv in spec["runs"]:
+    rec.update(gn={}, kv={}, coll=[0, 0, 0.0], evals=0)
+    cs.zero_counters()
+    t0 = time.perf_counter()
+    rc = main(argv)
+    torch.cuda.synchronize()
+    results.append({"rc": rc, "counts": cs.counters(), "wall_s": time.perf_counter() - t0,
+                    **json.loads(json.dumps(rec))})
+    if rc != 0:
+        break
+json.dump(results, open(f"{spec['out']}.{rank}.json", "w"))
+if backend != "none":
+    dist.barrier()
+    dist.destroy_process_group()
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(world: int, backend: str, runs, out: str, record: bool = False):
+    """Start `world` rank processes of MD_WORKER on the CLI runs `runs`.
+    Returns a waiter: wait(timeout) -> every rank's results."""
+    spec = {"repo": REPO, "runs": runs, "out": out, "record": record}
+    with open(out + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen([sys.executable, "-c", MD_WORKER, str(port), str(r), str(world),
+                               backend, out + ".spec.json"], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+
+    def wait(timeout: float):
+        deadline = time.monotonic() + timeout
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            for p in procs:
+                p.communicate()
+            fail(f"phase 15: {world} {backend} rank(s) did not finish within {timeout:.0f} s")
+        for r, (p, log_) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"phase 15: rank {r} of {world} ({backend}) exited {p.returncode}:\n"
+                     f"{log_[-3000:]}")
+        res = [json.load(open(f"{out}.{r}.json")) for r in range(world)]
+        for r, rr in enumerate(res):
+            bad = [x["rc"] for x in rr if x["rc"] != 0]
+            if bad or len(rr) != len(runs):
+                fail(f"phase 15: rank {r} of {world} ({backend}): a CLI run exited {bad}:\n"
+                     f"{logs[r][-3000:]}")
+        return res
+
+    return wait
+
+
+def grid_arrays(ws: str):
+    import numpy as np
+    from PIL import Image
+
+    return {os.path.relpath(p, ws): np.asarray(Image.open(p)).astype(np.int16)
+            for p in sorted(glob.glob(os.path.join(ws, "runs", "**", "*.png"), recursive=True))}
+
+
+def pairs_arrays(ws: str):
+    import numpy as np
+
+    out = {}
+    for p in sorted(glob.glob(os.path.join(ws, "precomputed", "*.npz"))):
+        with np.load(p) as d:
+            out.update({f"{os.path.basename(p)}:{k}": d[k] for k in ("x_lat", "x_rec")})
+    return out
+
+
+def grids_diff(a, b, what: str) -> int:
+    import numpy as np
+
+    if not a or sorted(a) != sorted(b):
+        fail(f"{what}: grids {sorted(a)} vs {sorted(b)}")
+    return max(int(np.abs(a[k] - b[k]).max()) for k in a)
+
+
+def md_serve_argv(ws: str, config: str, imgs: str, extra=(), n_img: int = 1, bs: int = 1,
+                  weights=("--allow_random_weights",), ckpt: Optional[str] = "smoke_delta.pth"):
+    """Serving argv of phase 15; `ckpt` None serves the exp's own trained
+    checkpoint."""
+    return ["--config", config, "--exp", os.path.join(ws, "runs", "md"), "--run_test",
+            "--train_delta_block", *weights, "--device", MD_DEVICE,
+            "--custom_train_dataset_dir", imgs, "--custom_test_dataset_dir", imgs,
+            "--work_dir", ws, *(["--manual_checkpoint_name", ckpt] if ckpt else []),
+            "--n_inv_step", str(MD_STEPS), "--n_train_step", str(MD_STEPS),
+            "--n_test_step", str(MD_STEPS),
+            "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
+            "--bs_train", str(bs), "--n_test_img", str(n_img), "--do_train", "0",
+            "--save_x_origin", "--seed", str(SEED), "--ni", *extra]
+
+
+def md_train_argv(ws: str, imgs: str, clip_ckpt: str, extra=()):
+    return ["--config", CONFIG, "--exp", os.path.join(ws, "runs", "md"), "--run_train",
+            "--train_delta_block", "--edit_attr", "smiling", "--allow_random_weights",
+            "--device", MD_DEVICE, "--clip_ckpt", clip_ckpt, "--clip_loss_w", "1",
+            "--l1_loss_w", "3",
+            "--get_h_num", "1", "--n_inv_step", str(MD_STEPS), "--n_train_step", str(MD_STEPS),
+            "--n_iter", "1", "--n_train_img", "2", "--bs_train", "2", "--lr_training", "0.5",
+            "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
+            "--do_test", "0", "--custom_train_dataset_dir", imgs,
+            "--custom_test_dataset_dir", imgs, "--work_dir", ws, "--seed", str(SEED), "--ni",
+            *extra]
+
+
+def md_workspace(root: str, name: str, ckpts=()) -> str:
+    """A work dir with the two random images and the seeded Δ checkpoints."""
+    ws = os.path.join(root, name)
+    os.makedirs(os.path.join(ws, "checkpoint"))
+    make_serving_workspace(ws)
+    for src in ckpts:
+        shutil.copy(src, os.path.join(ws, "checkpoint"))
+    return ws
+
+
+def md_trained_leaves(ws: str):
+    import numpy as np
+
+    from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint
+
+    (path,) = glob.glob(os.path.join(ws, "checkpoint", "md_*_0.pth"))
+    blk = load_delta_checkpoint(path)["blocks"][0]
+    return {f"{g}.{k}": np.asarray(blk[g][k]) for g in sorted(blk) for k in sorted(blk[g])}
+
+
+def multi_device_phase(torch, dev, card, ws_root: str, clip_ckpt: str, afhq_model: str,
+                       afhq_delta: str):
+    """Phase 15: the port's multi-device paths through its CLI, with rank
+    processes on the one card: (a) one NCCL rank, `--dp -1` serving, against
+    the run without a process group (bit for bit); (b) two gloo ranks,
+    `--dp 2` Δ-training (CLIP + L1, bs 2) then serving, against one process
+    (Δ leaves 5e-5, grids 2 levels); (c) four gloo ranks, `--dp 4
+    --tp_spatial` serving of custom.yml and `--dp 2 --sp 2` serving of
+    afhq.yml (bs 2), against one process (x_lat and x_rec 1e-3 of scale,
+    grids 2 levels), K1 across ranks and K2 with Tq != Tk launched and the
+    one-rank K1 and K2 never; the collectives' time per UNet eval. Returns
+    the results and the shapes (d) times."""
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ws_root, "multi_device")
+    os.makedirs(root)
+    out = {}
+
+    # (a) and (b): the rank processes and their single-process references together
+    ws_a = {k: md_workspace(root, f"a_{k}") for k in ("nccl", "none")}
+    ws_b = {k: md_workspace(root, f"b_{k}") for k in ("dp2", "none")}
+    for ws in ws_b.values():
+        os.remove(os.path.join(ws, "checkpoint", "smoke_delta.pth"))
+    imgs = lambda ws: os.path.join(ws, "imgs")
+    serve_a = lambda k: md_serve_argv(ws_a[k], CONFIG, imgs(ws_a[k]),
+                                      ["--dp", "-1"] if k == "nccl" else [])
+    # training, then serving its checkpoint (the exp's iteration 0)
+    b_runs = lambda k: [md_train_argv(ws_b[k], imgs(ws_b[k]), clip_ckpt,
+                                      ["--dp", "2"] if k == "dp2" else []),
+                        md_serve_argv(ws_b[k], CONFIG, imgs(ws_b[k]),
+                                      ["--n_iter", "1"] + (["--dp", "2"] if k == "dp2" else []),
+                                      n_img=2, bs=2, ckpt=None)]
+    t0 = time.perf_counter()
+    waits = [start_ranks(1, "nccl", [serve_a("nccl")], os.path.join(root, "a_nccl")),
+             start_ranks(1, "none", [serve_a("none")], os.path.join(root, "a_none")),
+             start_ranks(2, "gloo", b_runs("dp2"), os.path.join(root, "b_dp2")),
+             start_ranks(1, "none", b_runs("none"), os.path.join(root, "b_none"))]
+    res_a_nccl, res_a_none, res_b_dp2, res_b_none = (w(600) for w in waits)
+    out["seconds_a_b"] = time.perf_counter() - t0
+    ga, gn = grid_arrays(ws_a["nccl"]), grid_arrays(ws_a["none"])
+    pa, pn = pairs_arrays(ws_a["nccl"]), pairs_arrays(ws_a["none"])
+    same = (sorted(ga) == sorted(gn) and all(np.array_equal(ga[k], gn[k]) for k in ga)
+            and sorted(pa) == sorted(pn) and all(np.array_equal(pa[k], pn[k]) for k in pa))
+    if not ga or not pa or not same:
+        fail(f"phase 15 (a): --dp -1 on one NCCL rank differs from the run without a group "
+             f"({sorted(ga)}, {sorted(pa)})")
+    out["a"] = {"bitwise_equal": True, "grids": len(ga), "launches": res_a_nccl[0][0]["counts"]}
+    phase(f"  (a) --dp -1 serving on one NCCL rank (custom.yml, {MD_STEPS} + {MD_STEPS} steps, "
+          f"f32): {len(ga)} grids and {len(pa)} latent arrays bit for bit those of the run "
+          f"without a process group; launches {res_a_nccl[0][0]['counts']}")
+    la, lb = md_trained_leaves(ws_b["none"]), md_trained_leaves(ws_b["dp2"])
+    d_err = max(float(np.abs(la[k] - lb[k]).max()) for k in la)
+    g_err = grids_diff(grid_arrays(ws_b["dp2"]), grid_arrays(ws_b["none"]), "phase 15 (b)")
+    counts_b = [r["counts"] for r in res_b_dp2[0]]
+    for c_, what in zip(counts_b, ("training", "serving")):
+        require_launches(c_, TRAIN_KERNELS if what == "training" else
+                         ("group_norm", "attention", "ddim_step"), f"phase 15 (b) {what}")
+    out["b"] = {"delta_max_abs_err": d_err, "grid_max_levels": g_err, "launches": counts_b,
+                "wall_s": {k: [r["wall_s"] for r in v[0]] for k, v in
+                           (("dp2", res_b_dp2), ("single", res_b_none))}}
+    phase(f"  (b) --dp 2 on two gloo ranks: Δ-training (CLIP + L1, bs 2, {MD_STEPS} steps) then "
+          f"serving, against one process: Δ leaves max |a - b| {d_err:.3e} (tol "
+          f"{MD_DELTA_TOL:g}), grids {g_err} levels (tol {MD_GRID_TOL}); rank 0 launches "
+          f"{counts_b}; walls (train, serve) 2 ranks {out['b']['wall_s']['dp2']} s, one process "
+          f"{out['b']['wall_s']['single']} s")
+    if d_err > MD_DELTA_TOL or g_err > MD_GRID_TOL:
+        fail(f"phase 15 (b): --dp 2 differs from one process: Δ {d_err:.3e}, grids {g_err}")
+
+    # (c) spatial sharding on four ranks, and the single-process references
+    afhq_imgs = os.path.join(os.environ["ASYRP_TPU_DATA"], "afhq", "test", "dog")
+    ws_c = {(k, fam): md_workspace(root, f"c_{k}_{fam}", (afhq_delta,))
+            for k in ("spatial", "none") for fam in ("custom", "afhq")}
+
+    def c_runs(k):
+        tp = ["--dp", "4", "--tp_spatial"] if k == "spatial" else []
+        sp = ["--dp", "2", "--sp", "2"] if k == "spatial" else []
+        ws = ws_c[k, "custom"]
+        custom = md_serve_argv(ws, CONFIG, imgs(ws), tp)
+        afhq = md_serve_argv(ws_c[k, "afhq"], AFHQ_CONFIG, afhq_imgs, sp, n_img=2, bs=2,
+                             weights=("--model_path", afhq_model),
+                             ckpt=os.path.basename(afhq_delta))
+        return [custom, afhq]
+
+    t0 = time.perf_counter()
+    waits = [start_ranks(4, "gloo", c_runs("spatial"), os.path.join(root, "c_spatial"),
+                         record=True),
+             start_ranks(1, "none", c_runs("none"), os.path.join(root, "c_none"))]
+    res_c, res_c_none = (w(600) for w in waits)
+    out["seconds_c"] = time.perf_counter() - t0
+    g_err, x_err = 0, {}
+    for fam in ("custom", "afhq"):
+        gs, gn = grid_arrays(ws_c["spatial", fam]), grid_arrays(ws_c["none", fam])
+        g_err = max(g_err, grids_diff(gs, gn, f"phase 15 (c) {fam}"))
+        ps, pn = pairs_arrays(ws_c["spatial", fam]), pairs_arrays(ws_c["none", fam])
+        if not ps or sorted(ps) != sorted(pn):
+            fail(f"phase 15 (c) {fam}: latent caches {sorted(ps)} vs {sorted(pn)}")
+        x_err.update({f"{fam} {k.split(':')[1]}": float(np.abs(ps[k] - pn[k]).max()
+                                                      / np.abs(pn[k]).max()) for k in ps})
+    labels = ("custom.yml --dp 4 --tp_spatial", "afhq.yml --dp 2 --sp 2")
+    out["c"] = {"x_rel_err": x_err, "grid_max_levels": g_err, "runs": {}}
+    seen = {"group_norm_across": {}, "attention_kv": {}}
+    for i, label in enumerate(labels):
+        counts = {k_: sum(r[i]["counts"][k_] for r in res_c) for k_ in res_c[0][i]["counts"]}
+        if not all(counts[k_] for k_ in MD_KERNELS):
+            fail(f"phase 15 (c) {label}: the new entries did not all launch: {counts}")
+        if counts["group_norm"] or counts["attention"] or counts["attention_mh"]:
+            fail(f"phase 15 (c) {label}: a one-rank K1 or K2 launched under spatial sharding: "
+                 f"{counts}")
+        r0 = res_c[0][i]
+        n_coll, n_bytes, coll_ms = r0["coll"]
+        evals = max(r0["evals"], 1)
+        run = {"launches": counts, "rank0_launches": r0["counts"], "wall_s": r0["wall_s"],
+               "single_process_wall_s": res_c_none[0][i]["wall_s"], "unet_evals": r0["evals"],
+               "collectives": n_coll, "collective_mb": n_bytes / 1e6,
+               "collective_ms": coll_ms, "collective_ms_per_eval": coll_ms / evals,
+               "collectives_per_eval": n_coll / evals}
+        out["c"]["runs"][label] = run
+        family = "openai" if "afhq" in label else "ddpm"
+        for key, n in r0["gn"].items():
+            shape, dname, silu, fused = json.loads(key)
+            if dname == "torch.float32":
+                k_ = (tuple(shape), silu, 1e-5 if family == "openai" else 1e-6, fused or None)
+                seen["group_norm_across"][k_] = seen["group_norm_across"].get(k_, 0) + n
+        for key, n in r0["kv"].items():
+            qs, ks, dname, heads, legacy = json.loads(key)
+            if dname == "torch.float32":
+                k_ = (tuple(qs), tuple(ks), heads, legacy)
+                seen["attention_kv"][k_] = seen["attention_kv"].get(k_, 0) + n
+        phase(f"  (c) {label} ({MD_STEPS} + {MD_STEPS} steps, f32) on {card}: launches over "
+              f"the ranks {counts}; rank 0 ran {r0['evals']} UNet evals with {n_coll} "
+              f"collectives ({n_bytes / 1e6:.1f} MB; {n_coll / evals:.0f} per eval) taking "
+              f"{coll_ms:.1f} ms = {coll_ms / evals:.2f} ms per eval, synchronized around each "
+              f"(gloo through the host, four ranks sharing one card: what the exchanges cost "
+              f"here, not multi-GPU scaling); whole CLI run {r0['wall_s']:.1f} s on 4 ranks vs "
+              f"{res_c_none[0][i]['wall_s']:.1f} s in one process")
+    worst = max(x_err.values())
+    phase(f"  (c) against one process: x_lat / x_rec max |a - b| / max |b| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in x_err.items())
+          + f" (tol {MD_TOL:g}); grids {g_err} levels (tol "
+          f"{MD_GRID_TOL})")
+    if worst > MD_TOL or g_err > MD_GRID_TOL:
+        fail(f"phase 15 (c): sharded serving differs from one process: x {worst:.3e}, grids "
+             f"{g_err}")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase(f"  phase 15 (a)-(c) took {out['seconds']:.1f} s ((a) + (b) {out['seconds_a_b']:.1f} "
+          f"s, (c) {out['seconds_c']:.1f} s)")
+    return out, seen
+
+
+def md_rows(torch, dev, seen):
+    """Phase 15 (d): K1 across ranks (the part statistics, then the apply
+    from the combined statistics) and K2 with Tq != Tk against their plain
+    versions at every shape (c) gave them on rank 0, f32 and bf16: CUDA-event
+    and device times, SDPA at the same Tq / Tk (K2), the bound. Per row and
+    per request (rank 0's calls over one run of (c))."""
+    import torch.nn.functional as F
+
+    from asyrp_official_torch.ops import attention as k2, groupnorm as k1
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    out = {}
+    for name in ("group_norm_across", "attention_kv"):
+        out[name] = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            es = torch.tensor([], dtype=dtype).element_size()
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
+                   "plain_device_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "calls": 0}
+            if name == "attention_kv":
+                tot.update(library_ms=0.0, library_device_ms=0.0)
+            by = {"bytes": 0.0, "operations": 0.0}
+            for key, count in sorted(seen[name].items(), key=lambda kv: str(kv[0])):
+                if name == "group_norm_across":
+                    shape, silu, eps, fused = key
+                    x = (randn(*shape) * 3 + 4).to(dtype)
+                    w, b = 1 + 0.1 * randn(shape[1]), 0.1 * randn(shape[1])
+                    kw, extra = {}, 0
+                    if fused == "pre_add":
+                        kw["pre_add"] = randn(shape[0], shape[1], dtype=dtype)
+                        extra = shape[0] * shape[1] * es
+                    elif fused == "scale_shift":
+                        kw["scale_shift"] = (0.1 * randn(shape[0], 2 * shape[1])).to(dtype)
+                        extra = 2 * shape[0] * shape[1] * es
+                    # this block as one of 4 ranks' (the other parts as its own)
+                    parts_p = k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
+                    mean, rstd = k1.combine_group_stats(parts_p.expand(4, *parts_p.shape), eps)
+
+                    def run_k():
+                        k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
+                        return k1.group_norm_apply(x, w, b, mean, rstd, silu=silu, **kw)
+
+                    def run_p():
+                        k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
+                        return k1.group_norm_apply_plain(x, w, b, mean, rstd, silu=silu, **kw)
+
+                    parts = k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
+                    m_k, r_k = k1.combine_group_stats(parts.expand(4, *parts.shape), eps)
+                    got = [m_k, r_k, run_k()]
+                    want = [mean, rstd, run_p()]
+                    lib = None
+                    n = x.numel()
+                    b_ms, b_by = bound(2 * n * es + 2 * shape[1] * 4 + extra, n * (10 + 4 * silu),
+                                       PEAK_FLOPS["float32"])
+                    label = f"{list(shape)} silu={int(silu)} eps={eps:g} fused={fused}"
+                else:
+                    qs, ks, heads, legacy = key
+                    q = randn(*qs, dtype=dtype)
+                    kk, v = randn(*ks, dtype=dtype), randn(*ks, dtype=dtype)
+                    kw = dict(num_heads=heads, legacy_scale=legacy)
+                    run_k = lambda: k2.attention(q, kk, v, **kw)
+                    run_p = lambda: k2.attention_plain(q, kk, v, **kw)
+                    bsz, tq, c = qs
+                    tk, hd = ks[1], c // heads
+                    q4 = q.view(bsz, tq, heads, hd).transpose(1, 2)
+                    k4, v4 = (a.view(bsz, tk, heads, hd).transpose(1, 2) for a in (kk, v))
+                    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5)
+                    o_p, lse_p = k2._plain_with_lse(q, kk, v, heads, legacy)
+                    got = [run_k(), *k2._attention_cuda(q, kk, v, True, heads, legacy)]
+                    want = [o_p, o_p, lse_p]
+                    b_ms, b_by = bound(2 * bsz * (tq + tk) * c * es, 4 * bsz * tq * tk * c,
+                                       PEAK_FLOPS[dname])
+                    label = f"q {list(qs)} k {list(ks)} heads={heads} legacy_scale={int(legacy)}"
+                torch.cuda.synchronize()
+                abs_err = rel_err = 0.0
+                for g_, w_ in zip(got, want):
+                    if not torch.isfinite(g_.float()).all():
+                        fail(f"{name} {label} {dname}: non-finite output")
+                    a_, r_ = errs(g_.float(), w_.float())
+                    abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
+                fns = (run_k, run_p) + ((lib,) if lib else ())
+                ms = [time_ms(f, runs=ROW_RUNS) for f in fns]
+                dv = [device_ms(f, runs=ROW_DEVICE_RUNS) for f in fns]
+                tol = TOL[name][dname]
+                lib_note = (f", SDPA {ms[2]:.4f} ms (device {dv[2]:.4f})" if lib else "")
+                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e} (tol {tol:g}); "
+                      f"kernel {ms[0]:.4f} ms per call (device {dv[0]:.4f}), plain {ms[1]:.4f} "
+                      f"ms (device {dv[1]:.4f}){lib_note}; bound {b_ms:.4f} ms ({b_by})"
+                      f"{'' if rel_err <= tol else '  <-- FAIL'}")
+                if rel_err > tol:
+                    fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
+                for k_, v_ in (("ms", ms[0]), ("plain_ms", ms[1]), ("device_ms", dv[0]),
+                               ("plain_device_ms", dv[1]), ("bound_ms", b_ms)):
+                    tot[k_] += v_ * count
+                if lib:
+                    tot["library_ms"] += ms[2] * count
+                    tot["library_device_ms"] += dv[2] * count
+                tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+                tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
+                tot["calls"] += count
+                by[b_by] += b_ms * count
+            tot["bound_by"] = max(by, key=by.get)
+            tot.setdefault("library_ms", None)
+            out[name][dname] = tot
+            lib_sum = ("" if tot["library_ms"] is None else
+                       f", SDPA {tot['library_ms']:.3f} ms (device {tot['library_device_ms']:.3f})")
+            phase(f"  {name} {dname}: {tot['calls']} calls per request on rank 0 take "
+                  f"{tot['ms']:.3f} ms (device {tot['device_ms']:.3f}) vs plain "
+                  f"{tot['plain_ms']:.3f} ms (device {tot['plain_device_ms']:.3f}){lib_sum}; "
+                  f"bound {tot['bound_ms']:.3f} ms")
+    return out
+
+
 def _ptxas_by_entry(log: str):
     """{mangled entry name: {"registers": n, "spills": ptxas's spill line}}
     from nvcc's -Xptxas -v output."""
@@ -4225,6 +4747,14 @@ def main() -> int:
               "train-state sidecar, respaced sampling, the serving export, ResNet-18 and the "
               "shape report")
         base = base_phase(torch, dev, card, ws_root)
+        torch.cuda.empty_cache()
+        phase("phase 15: multi-device through the port's CLI (parallel/: --dp, --tp_spatial, "
+              "--sp), rank processes on the one card")
+        md, md_seen = multi_device_phase(torch, dev, card, ws_root, clip_ckpt, model_path,
+                                         os.path.join(afhq_root, "afhq_delta.pth"))
+        phase(f"  (d) K1 across ranks and K2 with Tq != Tk against their plain versions at the "
+              f"shapes of (c) (ms = median of {ROW_RUNS} CUDA-event runs)")
+        md_kernel_rows = md_rows(torch, dev, md_seen)
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
@@ -4332,6 +4862,34 @@ def main() -> int:
                                                "profiled_ms")
                              if k in v} for d, v in r.items()},
         })
+    md_runs = md["c"]["runs"]
+    for name, replaces, counter in (
+            ("group_norm_across", "asyrp_official_tpu/models/common.py:147 (group_norm on "
+             "activations GSPMD splits by rows, parallel/spatial.py:42 spatial_shard and :65 "
+             "batch_spatial_shard; former Pallas ops/groupnorm.py:80 at 4b63bc3^): gn_part + "
+             "gn_apply", "group_norm_apply"),
+            ("attention_kv", "asyrp_official_tpu/models/common.py:238 (spatial_attention on "
+             "activations GSPMD splits by rows, parallel/spatial.py:42 and :65: a rank's query "
+             "rows against the whole image's keys)", "attention_kv")):
+        r = md_kernel_rows[name]
+        f32 = r["float32"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": ("asyrp_official_torch/csrc/groupnorm.cu" if name == "group_norm_across"
+                       else "asyrp_official_torch/csrc/attention.cu"),
+            "replaces": replaces,
+            "launches": sum(v["launches"][counter] for v in md_runs.values()),
+            "launches_by_run": {k: v["launches"][counter] for k, v in md_runs.items()},
+            "max_abs_err": max(v["max_abs_err"] for v in r.values()),
+            "max_rel_err_by_dtype": {d: v["max_rel_err"] for d, v in r.items()},
+            "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],
+            "bound_by": f32["bound_by"], "library_ms": f32["library_ms"],
+            "calls_per_request": f32["calls"],
+            "by_dtype": {d: {k: v[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms", "device_ms", "plain_device_ms",
+                                               "library_device_ms") if k in v}
+                         for d, v in r.items()},
+        })
     summary = {"card": card, "attention_sass": sass, "step_rows": rows["step_rows"],
                "serving": timings,
                "invert_edit_chain_ms": chain_ms,
@@ -4344,7 +4902,7 @@ def main() -> int:
                         "profile": afhq_profile, "training": afhq_training},
                "rows_and_multi_edit": rows_multi, "lpips_id_fidelity": m7, "imagenet": imagenet,
                "style_and_library_modes": style, "base_training_rows": base_rows,
-               "base_training_and_library": base,
+               "base_training_and_library": base, "multi_device": md,
                "seconds": time.perf_counter() - t_start}
     print(json.dumps(summary))
     print(card)

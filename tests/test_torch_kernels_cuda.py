@@ -848,3 +848,81 @@ def test_rows_training_gradient_kernels_match_plain(request, init, tf32):
         _two_dtypes(grad, "rows gradient")
     assert (k1.group_norm.bwd_launches > launched[0] and k2.attention.bwd_launches > launched[1]
             and k3.ddim_step.bwd_launches > launched[2])
+
+
+# K1 across ranks and K2 with Tq != Tk: the entries spatial sharding runs
+# (S row blocks of one image, computed on one card here). The shapes are the
+# serving path's at S = 2 and 4: DDPM++ custom.yml (256^2) and afhq.yml.
+_ACROSS_NORMS = [
+    # (whole NCHW shape, S, fused)
+    ((1, 128, 256, 256), 4, "pre_add"),
+    ((1, 256, 256, 256), 4, None),     # the decoder's concat at 256^2
+    ((1, 256, 64, 64), 2, "pre_add"),
+    ((1, 512, 16, 16), 4, "scale_shift"),
+    ((1, 512, 8, 8), 4, None),         # the bottleneck: 2 rows per rank
+    ((2, 384, 32, 32), 2, "scale_shift"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,s,fused", _ACROSS_NORMS)
+def test_group_norm_across_kernels_match_plain(cuda_device, shape, s, fused, dtype, bound):
+    """Per row block: the part statistics kernel against the plain parts
+    (combined), and the apply kernel against the plain apply from the same
+    combined statistics; and the whole (blocks concatenated) against
+    `group_norm_plain` on the whole tensor."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    b, c = shape[:2]
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 3 + 4).to(dtype)
+    w = 1 + 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    bias = 0.1 * torch.randn(c, generator=g, device=cuda_device)
+    kw = {}
+    if fused == "pre_add":
+        kw["pre_add"] = torch.randn(b, c, generator=g, device=cuda_device).to(dtype)
+    elif fused == "scale_shift":
+        kw["scale_shift"] = (0.5 * torch.randn(b, 2 * c, generator=g, device=cuda_device)).to(dtype)
+    blocks = [t.contiguous() for t in x.chunk(s, dim=2)]
+    n_part, n_apply = k1.group_norm.part_launches, k1.group_norm.apply_launches
+    parts = torch.stack([k1.group_norm_part_stats(xb, pre_add=kw.get("pre_add")) for xb in blocks])
+    parts_p = torch.stack([k1.group_norm_part_stats_plain(xb, pre_add=kw.get("pre_add"))
+                           for xb in blocks])
+    mean, rstd = k1.combine_group_stats(parts, 1e-6)
+    mean_p, rstd_p = k1.combine_group_stats(parts_p, 1e-6)
+    close_to_scale(mean_p.cpu().numpy(), mean.cpu().numpy(), "across mean", bound=1e-5)
+    close_to_scale(rstd_p.cpu().numpy(), rstd.cpu().numpy(), "across rstd", bound=1e-5)
+    got = [k1.group_norm_apply(xb, w, bias, mean, rstd, silu=True, **kw) for xb in blocks]
+    for xb, yb in zip(blocks, got):
+        want = k1.group_norm_apply_plain(xb, w, bias, mean, rstd, silu=True, **kw)
+        close_to_scale(want.float().cpu().numpy(), yb.float().cpu().numpy(), "across apply",
+                       bound=bound)
+    whole = k1.group_norm_plain(x, w, bias, silu=True, **kw)
+    close_to_scale(whole.float().cpu().numpy(), torch.cat(got, dim=2).float().cpu().numpy(),
+                   "across vs whole", bound=bound)
+    assert k1.group_norm.part_launches == n_part + s
+    assert k1.group_norm.apply_launches == n_apply + s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,tq,tk,c,heads,legacy", [
+    (1, 64, 256, 512, 1, False),    # DDPM++ 16^2 at S = 4
+    (1, 128, 256, 512, 1, False),   # S = 2
+    (1, 16, 64, 512, 1, False),     # the 8^2 bottleneck at S = 4
+    (1, 64, 256, 512, 8, True),     # afhq.yml 8 heads of 64 at S = 4
+    (2, 128, 256, 512, 8, True),
+    (1, 100, 256, 512, 1, False),   # ragged Tq
+    (1, 37, 200, 512, 8, True),     # ragged Tq and Tk
+])
+def test_attention_kv_kernel_matches_plain(cuda_device, b, tq, tk, c, heads, legacy, dtype,
+                                           bound):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn(b, tq, c, generator=g, device=cuda_device).to(dtype)
+    k, v = (torch.randn(b, tk, c, generator=g, device=cuda_device).to(dtype) for _ in range(2))
+    n = k2.attention.kv_launches
+    _check_lse(q, k, v, heads, legacy, bound)
+    got = k2.attention(q, k, v, num_heads=heads, legacy_scale=legacy)
+    want = k2.attention_plain(q, k, v, num_heads=heads, legacy_scale=legacy)
+    close_to_scale(want.float().cpu().numpy(), got.float().cpu().numpy(), "attention kv",
+                   bound=bound)
+    assert k2.attention.kv_launches == n + 2
