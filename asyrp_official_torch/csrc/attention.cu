@@ -110,6 +110,14 @@
 // exchange took 57% of a one-head block's cycles, and the backward would
 // need two per tile). `attn_bwd` is a programmatic dependent launch: its
 // blocks start while `attn_bwd_d` runs and wait for it before they read D.
+//   - Tq may differ from Tk (`asyrp_attention_bwd_kv`, the gradient of
+//     `asyrp_attention_kv`): the grid is (ceil(Tk/64) + ceil(Tq/64), nc,
+//     B*H); the dK/dV blocks walk ceil(Tq/64) query tiles, the dQ blocks
+//     ceil(Tk/64) key tiles; D, lse and the q, o, dO and dq rows run over
+//     Tq, the k, v, dk and dv rows over Tk, each side with its own tensor
+//     maps (zero past its length) and row bounds. dK and dV are then what
+//     this call's Tq queries give to every key: under spatial sharding the
+//     adjoint of the K/V gather sums the ranks' parts (not folded in here).
 //   - Loads: A1 and A2 (the block's own rows) and B1 and B2 (the tile's).
 //     bf16: the block's A1, A2 chunks (all nc of each) stay resident, and a
 //     ring of 4 stages, 3 ahead, holds the tile's B1, B2 chunks of one
@@ -949,7 +957,7 @@ __global__ void __launch_bounds__(kThreads, 1)
              const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const T* __restrict__ d_o, const float* __restrict__ lse,
              const float* __restrict__ dd, T* __restrict__ dq, T* __restrict__ dk,
-             T* __restrict__ dv, int t_len, int d, int heads, float scale, float pre) {
+             T* __restrict__ dv, int tq, int tk, int d, int heads, float scale, float pre) {
   using L = Layout<T>;
   constexpr bool kRes = Ring<T>::kResident;
   constexpr int S = Ring<T>::kStages, CB = L::kChunkBytes, SB = Ring<T>::kChunks * CB;
@@ -961,15 +969,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint8_t* res = smem + S * SB;  // resident: A1 chunks 0..nc-1, then A2 chunks
   uint64_t* full = reinterpret_cast<uint64_t*>(res + (kRes ? 2 * nc * CB : 0));  // S + 1
   float* tile_vals = reinterpret_cast<float*>(full + S + 1);  // the tile's lse (base 2), D
-  const int nt = (t_len + kRows - 1) / kRows;
-  const bool kv = blockIdx.x < nt;  // dK/dV block (rows: keys), else dQ (rows: queries)
-  const int r0 = (kv ? blockIdx.x : blockIdx.x - nt) * kRows;
+  // the first ceil(tk/64) blocks own 64 keys each, the rest 64 queries; a
+  // block walks the other side's tiles (queries for keys, keys for queries)
+  const int nt_k = (tk + kRows - 1) / kRows;
+  const bool kv = blockIdx.x < nt_k;  // dK/dV block (rows: keys), else dQ (rows: queries)
+  const int r0 = (kv ? blockIdx.x : blockIdx.x - nt_k) * kRows;
+  const int own_len = kv ? tk : tq, tile_len = kv ? tq : tk;
+  const int nt = (tile_len + kRows - 1) / kRows;
   const int ld = heads * d;
   const int64_t bh = blockIdx.z;
   const int b = bh / heads, h = bh % heads;
-  const int64_t base = (int64_t)b * t_len * ld + (int64_t)h * d;
-  const float* lse_bh = lse + bh * t_len;
-  const float* d_bh = dd + bh * t_len;
+  // the head's columns of this sample: of q, o, dO (tq rows), of k, v (tk)
+  const int64_t base_q = (int64_t)b * tq * ld + (int64_t)h * d;
+  const int64_t base_k = (int64_t)b * tk * ld + (int64_t)h * d;
+  const float* lse_bh = lse + bh * tq;
+  const float* d_bh = dd + bh * tq;
   const bool scaled = pre != 1.f;
   const bool leader = threadIdx.x == 0;
   const int n_items = nt * nc;
@@ -982,7 +996,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // the operands: A1 (this block's rows, pre-scaled), B1 (the tile's rows,
-  // pre-scaled), A2 (this block's rows), B2 (the tile's rows)
+  // pre-scaled), A2 (this block's rows), B2 (the tile's rows); the even
+  // ones are of the block's own side, the odd ones of the tile's
+  auto keys_of = [&](int s) { return kv == ((s & 1) == 0); };  // k or v, not q or dO
   auto map_of = [&](int s) -> const CUtensorMap* {
     if (s == 0) return kv ? &map_k : &map_q;
     if (s == 1) return kv ? &map_q : &map_k;
@@ -1029,8 +1045,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       } else {
 #pragma unroll
         for (int s = 0; s < 4; ++s)
-          fwd::load_chunk<T>(smem_u32(dst + s * CB), src_of(s) + base, (s & 1) ? t0 : r0,
-                             cc * kChunk, t_len, d, ld);
+          fwd::load_chunk<T>(smem_u32(dst + s * CB), src_of(s) + (keys_of(s) ? base_k : base_q),
+                             (s & 1) ? t0 : r0, cc * kChunk, keys_of(s) ? tk : tq, d, ld);
       }
     }
     if constexpr (!kTma) fwd::cp_async_commit();
@@ -1078,7 +1094,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (!kv) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (row_a + 8 * r < t_len) lse_r[r] = lse_bh[row_a + 8 * r] * kLog2e;
+      if (row_a + 8 * r < tq) lse_r[r] = lse_bh[row_a + 8 * r] * kLog2e;
   }
   float acc1[32], acc2[32], x[32], y[32];
 #pragma unroll
@@ -1088,7 +1104,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // dK/dV blocks: the tile's lse and D by column, loaded now, read after
     // the products below (thread i < 64: lse of query t0 + i; else its D)
     const int vi = t0 + (threadIdx.x & 63);
-    const bool v_ok = kv && vi < t_len;
+    const bool v_ok = kv && vi < tq;
     float col_val = 0.f;
     if (v_ok && (threadIdx.x < 64 || t > 0)) col_val = (threadIdx.x < 64 ? lse_bh : d_bh)[vi];
 #pragma unroll
@@ -1106,7 +1122,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (!kv) {
 #pragma unroll
         for (int r = 0; r < 2; ++r)
-          if (row_a + 8 * r < t_len) d_r[r] = d_bh[row_a + 8 * r];
+          if (row_a + 8 * r < tq) d_r[r] = d_bh[row_a + 8 * r];
       }
     }
     // every thread has passed this tile's first acquire, so the last tile's
@@ -1115,8 +1131,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       tile_vals[threadIdx.x] = threadIdx.x < 64 ? col_val * kLog2e : col_val;
       __syncthreads();
     }
-    // P and dS in place of X and Y; columns past T have P = 0
-    const int cols = t_len - t0;
+    // P and dS in place of X and Y; columns past the tile side's length have P = 0
+    const int cols = tile_len - t0;
     if (kv) {
       if (cols < kRows) p_and_ds<true, true>(x, y, tile_vals, lse_r, d_r, scale2, cols, q);
       else p_and_ds<true, false>(x, y, tile_vals, lse_r, d_r, scale2, cols, q);
@@ -1135,8 +1151,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row_a + 8 * r;
-      if (row >= t_len) continue;
-      const int64_t at = base + (int64_t)row * ld + col;
+      if (row >= own_len) continue;
+      const int64_t at = (kv ? base_k : base_q) + (int64_t)row * ld + col;
       const float a0 = acc1[4 * i + 2 * r], a1 = acc1[4 * i + 2 * r + 1];
       // the cotangent of q' (k') is rounded to the I/O type before the pre-scale
       if (kv) {
@@ -1152,18 +1168,20 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* d_o,
-           const void* lse, void* dd, void* dq, void* dk, void* dv, int batch, int t_len, int ch,
-           int heads, float scale, float pre, cudaStream_t stream) {
-  if (heads < 1 || ch % heads != 0 || t_len < 1 || batch < 1) return (int)cudaErrorInvalidValue;
+           const void* lse, void* dd, void* dq, void* dk, void* dv, int batch, int tq, int tk,
+           int ch, int heads, float scale, float pre, cudaStream_t stream) {
+  if (heads < 1 || ch % heads != 0 || tq < 1 || tk < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
   const int d = ch / heads;
   if (d % 16 != 0 || d > 512 || batch * heads > 65535) return (int)cudaErrorInvalidValue;
   const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k);
   const T *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(d_o);
   float* df = static_cast<float*>(dd);
-  const int64_t n_rows = (int64_t)batch * heads * t_len;
+  // D over the tq query rows
+  const int64_t n_rows = (int64_t)batch * heads * tq;
   constexpr int rows_per_block = kDThreads / 32;
   attn_bwd_d<T><<<(unsigned)((n_rows + rows_per_block - 1) / rows_per_block), kDThreads, 0,
-                  stream>>>(static_cast<const T*>(o), dot, df, n_rows, t_len, d, heads);
+                  stream>>>(static_cast<const T*>(o), dot, df, n_rows, tq, d, heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1171,16 +1189,17 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   const int smem = smem_bytes<T>(nc);
   CUtensorMap maps[4] = {};  // q, k, v, dO; unused by the f32 route
   if (sizeof(T) == 2) {
+    // q and dO over their tq rows, k and v over their tk
     const void* ptrs[4] = {q, k, v, d_o};
     for (int i = 0; i < 4; ++i)
-      if (!fwd::bf16_map(maps + i, ptrs[i], batch, t_len, heads, d))
+      if (!fwd::bf16_map(maps + i, ptrs[i], batch, (i == 1 || i == 2) ? tk : tq, heads, d))
         return (int)cudaErrorInvalidValue;
   }
   err = cudaFuncSetAttribute(attn_bwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int nt = (t_len + kRows - 1) / kRows;
+  const int nt_q = (tq + kRows - 1) / kRows, nt_k = (tk + kRows - 1) / kRows;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * nt, nc, batch * heads);
+  cfg.gridDim = dim3(nt_k + nt_q, nc, batch * heads);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -1193,8 +1212,8 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, attn_bwd<T>, maps[0], maps[1], maps[2], maps[3], qt, kt, vt, dot,
                            static_cast<const float*>(lse), static_cast<const float*>(df),
-                           static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), t_len,
-                           d, heads, scale, pre);
+                           static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), tq,
+                           tk, d, heads, scale, pre);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -1235,20 +1254,24 @@ extern "C" int asyrp_attention_kv(const void* q, const void* k, const void* v, v
 }
 
 // The backward: q, k, v, o (the forward's output), d_o and the outputs dq,
-// dk, dv are contiguous [batch, t_len, ch] in the I/O dtype, ch = heads * d
-// with head h in channels [h*d, (h+1)*d); lse is the forward's float32
-// [batch, heads, t_len]; d is float32 [batch, heads, t_len] scratch.
-// `scale` and `pre` as for the forward.
-extern "C" int asyrp_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                   const void* d_o, const void* lse, void* d, void* dq, void* dk,
-                                   void* dv, int batch, int t_len, int ch, int heads, float scale,
-                                   float pre, int dtype, void* stream) {
+// dk, dv are contiguous in the I/O dtype, q, o, d_o and dq [batch, tq, ch],
+// k, v, dk and dv [batch, tk, ch], ch = heads * d with head h in channels
+// [h*d, (h+1)*d); lse is the forward's float32 [batch, heads, tq]; d is
+// float32 [batch, heads, tq] scratch. With tq != tk (a rank's rows of a
+// spatially sharded image, the gradient of `asyrp_attention_kv`) dk and dv
+// are what these tq queries give to the tk keys. `scale` and `pre` as for
+// the forward.
+extern "C" int asyrp_attention_bwd_kv(const void* q, const void* k, const void* v,
+                                      const void* o, const void* d_o, const void* lse, void* d,
+                                      void* dq, void* dk, void* dv, int batch, int tq, int tk,
+                                      int ch, int heads, float scale, float pre, int dtype,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return bwd::launch<float>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch, heads, scale,
-                              pre, s);
+    return bwd::launch<float>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, tq, tk, ch, heads,
+                              scale, pre, s);
   if (dtype == 1)
-    return bwd::launch<__nv_bfloat16>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, t_len, ch,
+    return bwd::launch<__nv_bfloat16>(q, k, v, o, d_o, lse, d, dq, dk, dv, batch, tq, tk, ch,
                                       heads, scale, pre, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -882,6 +882,128 @@ __global__ void __launch_bounds__(kApplyThreads) gn_apply(
   }
 }
 
+// ---------------------------------------------------------------------------
+// the backward across ranks: the forward's mean and rstd are the combined
+// ones, so dx = rstd * (g - mean(g) - xhat * mean(g * xhat)), g = dz * w,
+// needs only each (sample, group)'s two sums over the whole image. gn_bwd_part
+// gives this rank's: one block per (sample, channel) sums dz and dz * xhat
+// over the channel's local H*W (fixed order: strided per thread, then the
+// block's tree), writes them to wsum [B, 2, C] (this rank's partials of dw
+// and db), and the last block of a group to finish (a counter per group,
+// left at zero again) forms the group's sums of w * those, channel by
+// channel in order. The caller all-reduces the sums over the ranks and
+// divides by the group's count; gn_bwd_apply then forms dx elementwise.
+//
+// Bound: device-memory bytes. gn_bwd_part reads x and dy once; gn_bwd_apply
+// reads them again and writes dx. The design is the simple one: a block
+// per channel (16-byte loads where the channel's run is whole vectors), and
+// a grid-stride elementwise pass.
+// ---------------------------------------------------------------------------
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kPartThreads) gn_bwd_part(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ mean, const float* __restrict__ rstd,
+    float* __restrict__ sums, float* wsum, int* done, int channels, int groups, int64_t hw,
+    int silu) {
+  constexpr int NW = kPartThreads / 32;
+  __shared__ float2 red[NW];
+  const int64_t bc = blockIdx.x;
+  const int c = (int)(bc % channels);
+  const int64_t bi = bc / channels;
+  const int cpg = channels / groups;
+  const int64_t bg = bi * groups + c / cpg;
+  const float m = mean[bg], r = rstd[bg], wc = w[c], bc_ = b[c];
+  const T* xc = x + bc * hw;
+  const T* dc = dy + bc * hw;
+  float sdz = 0.f, sdzx = 0.f;
+  auto add = [&](float xv, float dv) {
+    const float xhat = (xv - m) * r;
+    const float dz = dz_of(dv, xhat, wc, bc_, silu);
+    sdz += dz;
+    sdzx += dz * xhat;
+  };
+  const int nv = (int)(hw / VEC);
+#pragma unroll 4
+  for (int j = threadIdx.x; j < nv; j += kPartThreads) {
+    float fx[VEC], fd[VEC];
+    unpack<T, VEC>(ld_vec<T, VEC>(xc, j), fx);
+    unpack<T, VEC>(ld_vec<T, VEC>(dc, j), fd);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) add(fx[e], fd[e]);
+  }
+  const float2 t = block_sum2<NW>(sdzx, sdz, red);
+  if (threadIdx.x == 0) {
+    wsum[(bi * 2) * channels + c] = t.x;
+    wsum[(bi * 2 + 1) * channels + c] = t.y;
+    __threadfence();  // this channel's sums, visible before the count says so
+    if (atomicAdd(done + bg, 1) == cpg - 1) {  // the group's last channel
+      __threadfence();
+      const int c0 = c / cpg * cpg;
+      float sg = 0.f, sgx = 0.f;
+      for (int k = 0; k < cpg; ++k) {
+        const float wk = w[c0 + k];
+        sg += wk * __ldcg(wsum + (bi * 2 + 1) * channels + c0 + k);
+        sgx += wk * __ldcg(wsum + (bi * 2) * channels + c0 + k);
+      }
+      sums[bg * 2] = sg;
+      sums[bg * 2 + 1] = sgx;
+      done[bg] = 0;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kApplyThreads) gn_bwd_apply(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ w,
+    const float* __restrict__ b, const float* __restrict__ mean, const float* __restrict__ rstd,
+    const float* __restrict__ means, T* __restrict__ dx, int channels, int groups, int64_t hw,
+    int64_t total, int silu) {
+  const int cpg = channels / groups;
+  for (int64_t i = blockIdx.x * (int64_t)kApplyThreads + threadIdx.x; i < total;
+       i += (int64_t)gridDim.x * kApplyThreads) {
+    const int64_t bc = i / hw;
+    const int c = (int)(bc % channels);
+    const int64_t bg = (bc / channels) * groups + c / cpg;
+    const float r = rstd[bg];
+    const float xhat = (to_f(x[i]) - mean[bg]) * r;
+    const float g = dz_of(to_f(dy[i]), xhat, w[c], b[c], silu) * w[c];
+    dx[i] = from_f<T>(r * ((g - means[bg * 2]) - xhat * means[bg * 2 + 1]));
+  }
+}
+
+template <typename T>
+int launch_bwd_part(const void* x, const void* dy, const float* w, const float* b,
+                    const float* mean, const float* rstd, float* sums, float* wsum, int* done,
+                    int batch, int channels, int64_t hw, int groups, int silu,
+                    cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  const unsigned blocks = (unsigned)((int64_t)batch * channels);
+  const T *xt = static_cast<const T*>(x), *dt = static_cast<const T*>(dy);
+  if (hw % VEC == 0 && aligned16(x) && aligned16(dy))
+    gn_bwd_part<T, VEC><<<blocks, kPartThreads, 0, stream>>>(xt, dt, w, b, mean, rstd, sums,
+                                                               wsum, done, channels, groups, hw,
+                                                               silu);
+  else
+    gn_bwd_part<T, 1><<<blocks, kPartThreads, 0, stream>>>(xt, dt, w, b, mean, rstd, sums, wsum,
+                                                           done, channels, groups, hw, silu);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd_apply(const void* x, const void* dy, const float* w, const float* b,
+                     const float* mean, const float* rstd, const float* means, void* dx,
+                     int batch, int channels, int64_t hw, int groups, int silu,
+                     cudaStream_t stream) {
+  const int64_t total = (int64_t)batch * channels * hw;
+  int64_t blocks = (total + kApplyThreads - 1) / kApplyThreads;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then the grid strides
+  gn_bwd_apply<T><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), w, b, mean, rstd, means,
+      static_cast<T*>(dx), channels, groups, hw, total, silu);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_part(const void* x, const void* pre_add, float* parts, int batch, int channels,
                 int64_t hw, int groups, int nparts, cudaStream_t stream) {
@@ -1037,4 +1159,49 @@ extern "C" int asyrp_group_norm_bwd(const void* x, const void* dy, const void* w
   prm.chunk_v = pl.chunk_v;
   prm.silu = silu;
   return dispatch<true>(prm, pl, dtype, batch * groups, static_cast<cudaStream_t>(stream));
+}
+
+// Across ranks, backward step 1: x, dy in the I/O dtype (0 = float32, 1 =
+// bfloat16); w, b float32 [C]; mean, rstd the combined float32 [B * G];
+// outputs sums float32 [B * G, 2] (this rank's sums of g = dz * w and of
+// g * xhat per group) and wsum float32 [B, 2, C] (per sample and channel
+// the sums of dz * xhat and of dz); done int32 [B * G], zero on entry and
+// on exit. One kernel launch.
+extern "C" int asyrp_group_norm_bwd_part(const void* x, const void* dy, const void* w,
+                                         const void* b, const void* mean, const void* rstd,
+                                         void* sums, void* wsum, void* done, int batch,
+                                         int channels, int64_t hw, int groups, int silu,
+                                         int dtype, void* stream) {
+  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 ||
+      hw < 1 || hw > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
+  const float *mf = static_cast<const float*>(mean), *rf = static_cast<const float*>(rstd);
+  float *sf = static_cast<float*>(sums), *ws = static_cast<float*>(wsum);
+  int* dn = static_cast<int*>(done);
+  return dtype == 0 ? launch_bwd_part<float>(x, dy, wf, bf, mf, rf, sf, ws, dn, batch, channels,
+                                             hw, groups, silu, s)
+                    : launch_bwd_part<__nv_bfloat16>(x, dy, wf, bf, mf, rf, sf, ws, dn, batch,
+                                                     channels, hw, groups, silu, s);
+}
+
+// Across ranks, backward step 2: dx (the I/O dtype) of the local rows from
+// the whole group's means float32 [B * G, 2] (the ranks' sums over the
+// group's count); the rest as step 1. One kernel launch.
+extern "C" int asyrp_group_norm_bwd_apply(const void* x, const void* dy, const void* w,
+                                          const void* b, const void* mean, const void* rstd,
+                                          const void* means, void* dx, int batch, int channels,
+                                          int64_t hw, int groups, int silu, int dtype,
+                                          void* stream) {
+  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 || hw < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
+  const float *mf = static_cast<const float*>(mean), *rf = static_cast<const float*>(rstd);
+  const float* mm = static_cast<const float*>(means);
+  return dtype == 0 ? launch_bwd_apply<float>(x, dy, wf, bf, mf, rf, mm, dx, batch, channels, hw,
+                                              groups, silu, s)
+                    : launch_bwd_apply<__nv_bfloat16>(x, dy, wf, bf, mf, rf, mm, dx, batch,
+                                                      channels, hw, groups, silu, s);
 }

@@ -198,7 +198,9 @@ def train_clip_term(ctx: CLIPContext, source_class: str, target_class: str,
     """The training loop's CLIP term clip_w · (−log((2 − L_dir) / 2)), as
     `extra(x0, x0_t, x0_t_origin)` for `pipelines.train.default_loss`. The
     term is not a mean of per-image terms (the log of a batch mean), so
-    under data parallelism `batch_mean` takes the global batch's mean."""
+    under data parallelism `batch_mean` takes the global batch's mean.
+    Under spatial sharding `pipelines/train.default_loss` calls it on the
+    gathered whole images and weights it 1/S (each rank's share)."""
     target_direction = ctx.compute_text_direction(source_class, target_class).detach()
 
     def extra(x0, x0_t, x0_t_origin=None):

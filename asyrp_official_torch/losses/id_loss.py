@@ -95,7 +95,8 @@ class IRSE50(nn.Module):
 
     def id_loss(self, x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
         """1 − ⟨feat(x), feat(x_hat)⟩ per sample; x's features are detached,
-        as in the reference."""
+        as in the reference. Whole images: under spatial sharding the
+        training loss passes the gathered ones (`pipelines/train.default_loss`)."""
         with torch.no_grad():
             f = self.extract_feats(x)
         return 1.0 - (f * self.extract_feats(x_hat)).sum(dim=1)

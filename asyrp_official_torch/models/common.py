@@ -12,7 +12,10 @@ Inside a `parallel.spatial.sharded` block the activations are row blocks
 of the image: a 3x3 convolution takes its neighbours' halo rows, the
 downsample convolutions the one row they reach across the block's edge,
 and GroupNorm combines the ranks' statistics (K1 across ranks); 1x1
-convolutions, the pooling and the upsample stay local.
+convolutions, the pooling and the upsample stay local. Each exchange is
+differentiable (`parallel/spatial.py`'s rule 1): under autograd the halos
+send their gradients back to the rows' owners and GroupNorm's backward is
+K1-bwd across ranks.
 """
 from __future__ import annotations
 
@@ -56,6 +59,7 @@ class GroupNorm(nn.Module):
             return _k1.group_norm_across(
                 x, self.weight, self.bias,
                 lambda parts: spatial.all_gather_slots(parts, sg.group, sg.size),
+                reduce=lambda sums: spatial.all_reduce_sum(sums, sg),
                 groups=self.groups, eps=self.eps, silu=silu, pre_add=pre_add,
                 scale_shift=scale_shift)
         return _k1.group_norm(x, self.weight, self.bias, groups=self.groups, eps=self.eps, silu=silu,

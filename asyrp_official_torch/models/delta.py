@@ -13,8 +13,10 @@ GroupNorm+SiLU is kernel K1.
 
 On a row block of h (`parallel.spatial.sharded`) the edits reduce over the
 whole of h: the slerp's norms and dot product and the norm match sum over
-the ranks; the Δh rows, the DiffStyle mask and the global block's CLIP map
-are sliced to the rank's rows.
+the ranks (`spatial.all_reduce_sum`, whose gradient is the same sum); the
+Δh rows, the DiffStyle mask and the global block's CLIP map are sliced to
+the rank's rows, so a trained rows leaf gets its gradient on this rank's
+rows only (the ranks' parts are summed by `parallel.mesh.Mesh.sync_grads`).
 """
 from __future__ import annotations
 

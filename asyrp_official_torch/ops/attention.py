@@ -26,7 +26,11 @@ Under spatial sharding (`parallel/spatial.py`) a rank's queries are its own
 rows of the image ([B, Tq, C], Tq = T / S) and its keys and values the
 whole image's ([B, Tk, C], gathered): the forward kernel's entry
 `asyrp_attention_kv` takes the two lengths (one head or several), counted
-in `attention.kv_launches`. Its gradient is not ported yet (ROADMAP M10c).
+in `attention.kv_launches`, and so does the backward's,
+`asyrp_attention_bwd_kv` (`attention.kv_bwd_launches`): dq for the Tq
+queries, dk and dv over the whole image's Tk keys, the part this rank's
+queries give (the adjoint of the gather sums the ranks' parts and hands
+each rank its rows).
 """
 from __future__ import annotations
 
@@ -99,7 +103,7 @@ def attention_plain(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
 def attention_backward_plain(q, k, v, o, d_o, lse, *, num_heads: int = 1,
                              legacy_scale: bool = False):
     """The backward from the forward's output `o` and log-sum-exp `lse`
-    ([B, H*T], head-major), FlashAttention-2 form, per head: with q' = q*s,
+    ([B, H*Tq], head-major), FlashAttention-2 form, per head: with q' = q*s,
     k' = k*s rounded to the I/O dtype (s = d^-0.25 with `legacy_scale`,
     else 1) and S = q' k'^T * scale (scale = 1 with `legacy_scale`, else
     d^-0.5),
@@ -111,17 +115,18 @@ def attention_backward_plain(q, k, v, o, d_o, lse, *, num_heads: int = 1,
         (P cast to v's dtype)
 
     where rnd() rounds to the I/O dtype, as JAX's gradient of `q * s` in a
-    bf16 q rounds the einsum's cotangent first. Returns (dq, dk, dv) in the
-    I/O dtype, [B, T, C]."""
-    b, t, c = q.shape
+    bf16 q rounds the einsum's cotangent first. The queries [B, Tq, C] may
+    be fewer than the keys and values [B, Tk, C]: dk and dv are then what
+    these queries give. Returns (dq, dk, dv) in the I/O dtype."""
+    b, tq, c = q.shape
     d = c // num_heads
     scale, pre = _scales(d, legacy_scale, q.dtype)
 
     def heads(a):  # [B, T, C] -> [B, H, T, d]
-        return a.reshape(b, t, num_heads, d).transpose(1, 2)
+        return a.reshape(b, a.shape[1], num_heads, d).transpose(1, 2)
 
     def back(a):  # [B, H, T, d] -> [B, T, C]
-        return a.transpose(1, 2).reshape(b, t, c)
+        return a.transpose(1, 2).reshape(b, a.shape[2], c)
 
     acc = _acc(q.dtype)
     qh, kh = heads(q), heads(k)
@@ -129,7 +134,7 @@ def attention_backward_plain(q, k, v, o, d_o, lse, *, num_heads: int = 1,
         qh, kh = qh * pre, kh * pre
     qf, kf, vf, dof = (a.to(acc) for a in (qh, kh, heads(v), heads(d_o)))
     p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale
-                  - lse.reshape(b, num_heads, t)[..., None])
+                  - lse.reshape(b, num_heads, tq)[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2)).to(v.dtype).to(acc)
     ds = p * (dp - (dof * heads(o).to(acc)).sum(dim=-1, keepdim=True))
     dq = (torch.matmul(ds, kf) * scale).to(q.dtype) * pre
@@ -149,7 +154,7 @@ def _fn(name: str, argtypes):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _FWD_ARGS = [_P] * 5 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 _KV_ARGS = [_P] * 5 + [_I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
-_BWD_ARGS = [_P] * 10 + [_I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
+_BWD_KV_ARGS = [_P] * 10 + [_I, _I, _I, _I, _I, ctypes.c_float, ctypes.c_float, _I, _P]
 
 
 def _check_inputs(q, k, v, num_heads: int):
@@ -214,12 +219,9 @@ def _bwd_smem_bytes(dtype, d: int) -> int:
 
 
 def _check_bwd(q, k, v, num_heads: int):
-    """The backward kernel's contract: the forward's (`_check`) with one
-    length T for q, k and v, and its shared memory, which does not grow
-    with T. Returns (B, T, C)."""
-    if k.shape != q.shape:
-        raise ValueError(f"attention backward kernel takes q, k, v of one [B, T, C] shape, got "
-                         f"{tuple(q.shape)}/{tuple(k.shape)}")
+    """The backward kernel's contract: the forward's (`_check`; q of Tq
+    rows, k and v of Tk) and its shared memory, which does not grow with
+    Tq or Tk. Returns (B, Tq, C)."""
     b, t, c = _check(q, k, v, num_heads)
     smem = _bwd_smem_bytes(q.dtype, c // num_heads)
     if smem > _SMEM_LIMIT:
@@ -268,15 +270,18 @@ def _attention_bwd_cuda(q, k, v, o, d_o, lse, num_heads: int, legacy_scale: bool
     scale, pre = _scales(c // num_heads, legacy_scale, q.dtype)
     d = torch.empty(b, num_heads * t, device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        code = _fn("asyrp_attention_bwd", _BWD_ARGS)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
+    tk = k.shape[1]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), d_o.data_ptr(),
             lse.contiguous().data_ptr(), d.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, t, c, num_heads, scale, pre, _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+            dv.data_ptr())
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = _fn("asyrp_attention_bwd_kv", _BWD_KV_ARGS)(
+            *ptrs, b, t, tk, c, num_heads, scale, pre, _DTYPES[q.dtype], stream)
     _build.check(code, "attention backward kernel")
-    if num_heads == 1:
+    if tk != t:
+        attention.kv_bwd_launches += 1
+    elif num_heads == 1:
         attention.bwd_launches += 1
     else:
         attention.mh_bwd_launches += 1
@@ -284,7 +289,7 @@ def _attention_bwd_cuda(q, k, v, o, d_o, lse, num_heads: int, legacy_scale: bool
 
 
 def attention_backward(q, k, v, o, d_o, lse, *, num_heads: int = 1, legacy_scale: bool = False):
-    """K2-bwd: (dq, dk, dv) from the forward's output and `lse` ([B, H*T])
+    """K2-bwd: (dq, dk, dv) from the forward's output and `lse` ([B, H*Tq])
     — the plain version for a CPU tensor, the kernels for a CUDA tensor."""
     b, t, _ = q.shape
     if lse.dtype != _acc(q.dtype) or tuple(lse.shape) != (b, num_heads * t):
@@ -340,9 +345,6 @@ def attention(q, k, v, *, num_heads: int = 1, legacy_scale: bool = False):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if k.shape[1] != q.shape[1]:
-            raise NotImplementedError("attention with Tq != Tk under autograd: spatial training "
-                                      "needs K2-bwd across ranks (ROADMAP M10c)")
         return _Attention.apply(q, k, v, num_heads, legacy_scale)
     if q.device.type == "cpu":
         return attention_plain(q, k, v, num_heads=num_heads, legacy_scale=legacy_scale)
@@ -354,3 +356,4 @@ attention.mh_launches = 0
 attention.bwd_launches = 0
 attention.mh_bwd_launches = 0
 attention.kv_launches = 0
+attention.kv_bwd_launches = 0

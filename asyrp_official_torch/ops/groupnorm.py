@@ -31,7 +31,16 @@ per-group (count, mean, M2) parts (`group_norm_part_stats`, kernel
 (`combine_group_stats`), then the normalize of the local rows
 (`group_norm_apply`, kernel `gn_apply`), pre-add and FiLM fused as in the
 one-rank entry. `group_norm.part_launches` and `group_norm.apply_launches`
-count those launches.
+count those launches. Under autograd it is `_GroupNormAcross` between the
+same torch ops as `group_norm_unfused`: its backward sums each (sample,
+group)'s dz·w and dz·w·xhat over the local rows (`group_norm_bwd_part`,
+kernel `gn_bwd_part`, which also gives the per-channel partial sums of dw
+and db), all-reduces those sums over the ranks, and forms dx elementwise
+from them (`group_norm_bwd_apply`, kernel `gn_bwd_apply`); the weight, bias
+and fused operands' gradients are this rank's partials, which the caller
+sums over the ranks (`parallel/spatial.py`, rule 3).
+`group_norm.bwd_part_launches` and `group_norm.bwd_apply_launches` count
+those launches.
 """
 from __future__ import annotations
 
@@ -47,7 +56,8 @@ from asyrp_official_torch.ops import _build, traced
 __all__ = ["group_norm", "group_norm_plain", "group_norm_unfused", "group_norm_backward",
            "group_norm_backward_plain", "group_norm_plan", "group_norm_across",
            "group_norm_part_stats", "group_norm_part_stats_plain", "combine_group_stats",
-           "group_norm_apply", "group_norm_apply_plain"]
+           "group_norm_apply", "group_norm_apply_plain", "group_norm_bwd_part",
+           "group_norm_bwd_part_plain", "group_norm_bwd_apply", "group_norm_bwd_apply_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -133,6 +143,8 @@ _ARGS = {
     "asyrp_group_norm_plan": [_I, _I, _L, _I, _I, _I, ctypes.POINTER(_L)],
     "asyrp_group_norm_part_stats": [_P] * 3 + [_I, _I, _L, _I, _I, _I, _P],
     "asyrp_group_norm_apply": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_bwd_part": [_P] * 9 + [_I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_bwd_apply": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
 }
 _lib = None
 
@@ -473,21 +485,162 @@ def group_norm_apply(x, weight, bias, mean, rstd, *, silu: bool = False, pre_add
     raise ValueError(f"group_norm_apply: no kernel for device {x.device}")
 
 
-def group_norm_across(x, weight, bias, gather, *, groups: int = 32, eps: float = 1e-6,
-                      silu: bool = False, pre_add=None, scale_shift=None):
+def _xhat_dz(x, dy, weight, bias, mean, rstd, silu):
+    """xhat and dz (dy through SiLU's derivative), f32, as
+    `group_norm_backward_plain` forms them."""
+    b, groups = mean.shape
+    w = weight.float().reshape(_bshape(x))
+    xhat = ((x.float().reshape(b, groups, -1) - mean[..., None]) * rstd[..., None]).reshape(x.shape)
+    dz = dy.float()
+    if silu:
+        z = xhat * w + bias.float().reshape(_bshape(x))
+        s = torch.sigmoid(z)
+        dz = dz * s * (1.0 + z * (1.0 - s))
+    return xhat, dz
+
+
+def group_norm_bwd_part_plain(x, dy, weight, bias, mean, rstd, *, silu: bool = False):
+    """Over this rank's rows of each (sample, group), from the combined
+    `mean` and `rstd` ([B, G] f32): (sums [B, G, 2] f32 of g = dz·w and of
+    g·xhat, wsum [B, 2, C] f32 of dz·xhat and of dz per channel: this rank's
+    partials of dw and db)."""
+    b, groups = mean.shape
+    xhat, dz = _xhat_dz(x, dy, weight, bias, mean, rstd, silu)
+    sum_dims = list(range(2, x.dim()))
+    wsum = torch.stack([(dz * xhat).sum(dim=sum_dims), dz.sum(dim=sum_dims)], dim=1)
+    # g = dz·w summed per group: w times the per-channel sums
+    gsum = (wsum * weight.float()).reshape(b, 2, groups, -1).sum(dim=-1)
+    return torch.stack([gsum[:, 1], gsum[:, 0]], dim=-1), wsum
+
+
+def group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, means, *, silu: bool = False):
+    """dx = rstd·(g - mean(g) - xhat·mean(g·xhat)), g = dz·w, from the
+    whole group's `means` [B, G, 2] (the ranks' `sums` over its count)."""
+    b, groups = mean.shape
+    xhat, dz = _xhat_dz(x, dy, weight, bias, mean, rstd, silu)
+    g = (dz * weight.float().reshape(_bshape(x))).reshape(b, groups, -1)
+    xg = xhat.reshape(b, groups, -1)
+    dx = rstd[..., None] * (g - means[..., 0:1] - xg * means[..., 1:2])
+    return dx.reshape(x.shape).to(x.dtype)
+
+
+def _bwd_operands(x, dy, weight, bias, mean):
+    b, c, hw = _check_input(x, weight, bias, mean.shape[1])
+    dy = dy.contiguous()
+    if dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"group_norm backward: dy {dy.dtype}{tuple(dy.shape)} does not match "
+                         f"x {x.dtype}{tuple(x.shape)}")
+    return b, c, hw, dy
+
+
+def _bwd_part_cuda(x, dy, weight, bias, mean, rstd, silu):
+    b, c, hw, dy = _bwd_operands(x, dy, weight, bias, mean)
+    groups = mean.shape[1]
+    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
+    sums = torch.empty(b, groups, 2, device=x.device, dtype=torch.float32)
+    wsum = torch.empty(b, 2, c, device=x.device, dtype=torch.float32)
+    # per (sample, group): the blocks of its channels that have finished
+    # (the last one sums the group); the kernel leaves it at zero
+    done = torch.zeros(b * groups, device=x.device, dtype=torch.int32)
+    code = _launch(_kernels().asyrp_group_norm_bwd_part, x, x.data_ptr(), dy.data_ptr(),
+                   weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                   sums.data_ptr(), wsum.data_ptr(), done.data_ptr(), b, c, hw, groups, silu,
+                   _DTYPES[x.dtype])
+    _build.check(code, "group_norm backward part kernel")
+    group_norm.bwd_part_launches += 1
+    return sums, wsum
+
+
+def _bwd_apply_cuda(x, dy, weight, bias, mean, rstd, means, silu):
+    b, c, hw, dy = _bwd_operands(x, dy, weight, bias, mean)
+    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
+    means = means.float().contiguous()
+    dx = torch.empty_like(x)
+    code = _launch(_kernels().asyrp_group_norm_bwd_apply, x, x.data_ptr(), dy.data_ptr(),
+                   weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                   means.data_ptr(), dx.data_ptr(), b, c, hw, mean.shape[1], silu,
+                   _DTYPES[x.dtype])
+    _build.check(code, "group_norm backward apply kernel")
+    group_norm.bwd_apply_launches += 1
+    return dx
+
+
+def group_norm_bwd_part(x, dy, weight, bias, mean, rstd, *, silu: bool = False):
+    """K1-bwd across ranks, step 1: (sums [B, G, 2], wsum [B, 2, C]) of
+    this rank's rows — the plain version for a CPU tensor, the kernel for a
+    CUDA tensor."""
+    if x.device.type == "cpu":
+        return group_norm_bwd_part_plain(x, dy, weight, bias, mean, rstd, silu=silu)
+    if x.device.type == "cuda":
+        return _bwd_part_cuda(x, dy, weight, bias, mean, rstd, silu)
+    raise ValueError(f"group_norm_bwd_part: no kernel for device {x.device}")
+
+
+def group_norm_bwd_apply(x, dy, weight, bias, mean, rstd, means, *, silu: bool = False):
+    """K1-bwd across ranks, step 2: dx of this rank's rows from the whole
+    group's `means` — the plain version for a CPU tensor, the kernel for a
+    CUDA tensor."""
+    if x.device.type == "cpu":
+        return group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, means, silu=silu)
+    if x.device.type == "cuda":
+        return _bwd_apply_cuda(x, dy, weight, bias, mean, rstd, means, silu)
+    raise ValueError(f"group_norm_bwd_apply: no kernel for device {x.device}")
+
+
+def _across_stats(x, groups, eps, gather, pre_add=None):
+    parts = gather(group_norm_part_stats(x, groups=groups, pre_add=pre_add))
+    return combine_group_stats(parts, eps), parts.shape[0]
+
+
+class _GroupNormAcross(torch.autograd.Function):
+    """K1 across ranks with its gradient. The forward's combined statistics
+    are constants of the backward's formula, so the backward needs one
+    exchange: the all-reduce (`reduce`) of each group's two sums."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, gather, reduce, groups, eps, silu):
+        (mean, rstd), ranks = _across_stats(x, groups, eps, gather)
+        ctx.save_for_backward(x, weight, bias, mean, rstd)
+        ctx.reduce, ctx.silu = reduce, silu
+        # the whole group's count: the ranks hold equal row blocks
+        ctx.count = ranks * (x.shape[1] // groups) * (x.numel() // (x.shape[0] * x.shape[1]))
+        return group_norm_apply(x, weight, bias, mean, rstd, silu=silu)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, mean, rstd = ctx.saved_tensors
+        sums, wsum = group_norm_bwd_part(x, dy, weight, bias, mean, rstd, silu=ctx.silu)
+        means = ctx.reduce(sums) / ctx.count
+        dx = group_norm_bwd_apply(x, dy, weight, bias, mean, rstd, means, silu=ctx.silu)
+        dw, db = wsum[0] if wsum.shape[0] == 1 else wsum.sum(dim=0)
+        return (dx if ctx.needs_input_grad[0] else None, dw.to(weight.dtype),
+                db.to(bias.dtype), None, None, None, None, None)
+
+
+def group_norm_across(x, weight, bias, gather, *, reduce=None, groups: int = 32,
+                      eps: float = 1e-6, silu: bool = False, pre_add=None, scale_shift=None):
     """`group_norm` of a tensor whose rows are split over ranks: the local
     parts' statistics, `gather(parts)` -> [S, B, G, P, 3] (every rank's, in
     rank order), Chan's combination, then the normalize of the local rows.
-    Serving only: a gradient across ranks is not ported yet (ROADMAP M10c)."""
+    Under autograd `_GroupNormAcross` between separate torch ops (as
+    `group_norm_unfused`), whose backward sums over the ranks with
+    `reduce(t)` (an all-reduce, required there)."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, weight, bias, pre_add, scale_shift)):
-        raise NotImplementedError("group_norm across ranks under autograd: spatial training "
-                                  "needs K1-bwd across ranks (ROADMAP M10c)")
-    parts = gather(group_norm_part_stats(x, groups=groups, pre_add=pre_add))
-    mean, rstd = combine_group_stats(parts, eps)
+        if reduce is None:
+            raise ValueError("group_norm_across under autograd needs `reduce` (the all-reduce "
+                             "of the backward's sums over the ranks)")
+        if pre_add is not None:
+            x = x + _per_channel(pre_add, x)
+        y = _GroupNormAcross.apply(x, weight, bias, gather, reduce, groups, eps,
+                                   silu and scale_shift is None)
+        return y if scale_shift is None else _film(y, scale_shift, silu)
+    (mean, rstd), _ = _across_stats(x, groups, eps, gather, pre_add)
     return group_norm_apply(x, weight, bias, mean, rstd, silu=silu, pre_add=pre_add,
                             scale_shift=scale_shift)
 
 
 group_norm.part_launches = 0
 group_norm.apply_launches = 0
+group_norm.bwd_part_launches = 0
+group_norm.bwd_apply_launches = 0

@@ -13,9 +13,12 @@ deterministic per seed), and `shard_batch` takes its own block of it —
 the value-level contract of the JAX `_put_tree`; `fetch` gathers the
 blocks back in rank order onto every rank. Per-image trajectories are
 independent, so the only cross-image reductions are the Δ-gradient
-all-reduce (`Mesh.sync_grads`), the batch means of a loss
-(`Mesh.batch_mean`) and the mean-of-Δh accumulation
-(`multislice.combine_delta_means`).
+all-reduce (`Mesh.sync_grads`: summed over the spatial ranks, averaged
+over the data axis), the batch means of a loss (`Mesh.batch_mean`) and the
+mean-of-Δh accumulation (`multislice.combine_delta_means`). Under spatial
+sharding each rank's loss is its share (`loss_share`, and the L1 term's
+local sum over the global count in `pipelines/train.default_loss`), and
+the training step sums the shares back for its metrics.
 
 `plan_mesh` holds the guards of the flags (the JAX runner's, with the
 same error texts) as a pure function.
@@ -29,10 +32,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from asyrp_official_torch.parallel.spatial import SpatialGroup, all_gather_slots
+from asyrp_official_torch.parallel.spatial import SpatialGroup, active, all_gather_slots
 
 __all__ = ["DATA_AXIS", "SPATIAL_AXIS", "Mesh", "plan_mesh", "make_mesh", "world_size",
-           "shard_batch", "replicate", "fetch", "pad_to_multiple"]
+           "shard_batch", "replicate", "fetch", "pad_to_multiple", "loss_share"]
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
@@ -214,16 +217,20 @@ class Mesh:
 
     # -- reductions over the data axis ----------------------------------------
     def sync_grads(self, params: Iterable[torch.Tensor]) -> None:
-        """Each parameter's gradient averaged over the data axis: one
-        flattened all-reduce, divided by the data-axis size. The local
-        losses must be per-image means over equal shards (or `batch_mean`),
-        so that the average is the global batch's gradient."""
-        if self.data == 1:
+        """Each parameter's gradient summed over the spatial group (each
+        rank's is the part its rows and its loss share gave), then averaged
+        over the data axis: one flattened all-reduce over every rank of the
+        mesh, divided by the data-axis size (rules 2 and 3 of
+        `parallel/spatial.py`). The local losses must be per-image means
+        over equal shards (or `batch_mean`), so that the average is the
+        global batch's gradient."""
+        if self.size == 1:
             return
         params = [p for p in params if p.requires_grad]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         flat = torch.cat([g.reshape(-1).float() for g in grads])
-        dist.all_reduce(flat, group=self.data_group)
+        # the whole mesh is the data group when there is no spatial axis
+        dist.all_reduce(flat, group=self.data_group if self.spatial == 1 else None)
         flat /= self.data
         ofs = 0
         for p, g in zip(params, grads):
@@ -235,7 +242,10 @@ class Mesh:
         """The mean of a per-image vector over the global batch; its
         gradient is the local mean's, so that a loss nonlinear in a batch
         mean (the CLIP directional term) gets the global batch's gradient
-        after `sync_grads` averages the ranks'."""
+        after `sync_grads` averages the ranks'. On a 2D mesh every spatial
+        rank of a data index holds the same vector (computed on the gathered
+        image): each data group then gives the same mean, replicated over
+        the spatial ranks."""
         if self.data == 1:
             return v.mean()
         total = v.detach().sum().reshape(1).float()
@@ -263,6 +273,15 @@ class Mesh:
     def barrier(self) -> None:
         if self.size > 1:
             dist.barrier()
+
+
+def loss_share(term: torch.Tensor) -> torch.Tensor:
+    """This rank's share of a loss term that every rank of the active
+    spatial group computes whole (from `spatial.gather_image`): 1/S of it,
+    so that the shares sum to the term (rule 2 of `parallel/spatial.py`);
+    the term itself outside a sharded block."""
+    sg = active()
+    return term if sg is None else term / sg.size
 
 
 def _narrow(x, dim: int, start: int, length: int):

@@ -11,7 +11,10 @@ Each inversion step runs the frozen UNet (K1 and K2 inside), then K3 (eta
 0, eps_mod = eps; the first C channels of a `learn_sigma` output), then the
 two LPIPS distances. They go into a device tensor [S, B], which the host
 fetches once per batch: no host sync per step. x0's AlexNet taps are
-computed once per batch.
+computed once per batch. On a row block (`parallel.spatial.sharded`) the
+UNet and K3 run on this rank's rows and the LPIPS net on the whole images
+(`spatial.gather_image` of x0, x_t and x0_t): every rank of the spatial
+group computes the same distances.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from asyrp_official_torch.core.steptable import inversion_table
 from asyrp_official_torch.losses.lpips import LPIPS
 from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.ops import ddim_step as k3
+from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.parallel.mesh import Mesh
 from asyrp_official_torch.utils.assets import write_lpips_tsv
 
@@ -51,15 +55,20 @@ def make_lpips_chain(spec: ModelSpec, schedule: Schedule, seq, lpips_net: LPIPS,
         bsz = x0.shape[0]
         d_x = torch.empty((table.num_steps, bsz), **f32)
         d_x0t = torch.empty((table.num_steps, bsz), **f32)
-        taps0 = lpips_net.taps(x0.permute(0, 3, 1, 2))
+        sg = spatial.active()
+
+        def whole(img):  # NHWC rows -> the NCHW image the LPIPS net takes
+            return spatial.gather_image(img, sg).permute(0, 3, 1, 2)
+
+        taps0 = lpips_net.taps(whole(x0))
         x = x0
         for i in range(table.num_steps):
             eps, *_ = spec.apply(model, x.to(compute_dtype), ts[i].expand(bsz))
             if spec.learn_sigma:
                 eps = eps[..., : eps.shape[-1] // 2]
             x, x0_t = k3.ddim_step(x, eps, eps, at[i:i + 1], at_next[i:i + 1], 0.0)
-            d_x[i] = lpips_net.distance(taps0, x.permute(0, 3, 1, 2))
-            d_x0t[i] = lpips_net.distance(taps0, x0_t.permute(0, 3, 1, 2))
+            d_x[i] = lpips_net.distance(taps0, whole(x))
+            d_x0t[i] = lpips_net.distance(taps0, whole(x0_t))
         return d_x, d_x0t
 
     return run
@@ -85,9 +94,11 @@ def compute_lpips_distance(
     "x0_t_std": ...}, keyed by `seq[1:]` (the reference records each step
     under its destination timestep); writes the reference-format tsvs when
     `out_dir` is given. The images go to the LPIPS net's device, where the
-    model must be. The last batch may be partial. On a `mesh` (data
-    parallelism) each rank runs its rows of the batch, padded to the data
-    axis, the distances are gathered, and the writer rank writes the tsvs."""
+    model must be. The last batch may be partial. On a `mesh` each rank runs
+    its rows of the batch, padded to the data axis (and its rows of each
+    image under spatial sharding, inside the caller's `spatial.sharded`
+    block), the distances are gathered over the data axis, and the writer
+    rank writes the tsvs."""
     place = mesh if mesh is not None else Mesh()
     seq = uniform_seq(n_inv_step, t_0)
     chain = make_lpips_chain(spec, schedule, seq, lpips_net, compute_dtype=compute_dtype)

@@ -148,27 +148,36 @@ def precompute_with_h(
     category: str = "CUSTOM",
     cache_dir: str = "precomputed",
     compute_dtype=torch.float32,
+    mesh: Optional[Mesh] = None,
 ) -> Dict[str, np.ndarray]:
     """Invert `x0` ([B, H, W, C] numpy) recording the bottleneck h of every
     step, keyed by the step's source t. Returns {"x0", "x_lat", "h_traj"
     [S-1, B, h, w, C] (NHWC, as the JAX package writes it), "h_times"};
-    with `cache_key`, cached as `{category}_inv{n}_{key}.npz`."""
+    with `cache_key`, cached as `{category}_inv{n}_{key}.npz`. On a `mesh`
+    each rank inverts its block (its rows under spatial sharding, inside the
+    caller's `spatial.sharded` block) and the latents and the h trajectory
+    are gathered whole before the cache is written: either package reads
+    it."""
     base = None
     if cache_key is not None:
         base = os.path.join(cache_dir, f"{category}_inv{n_inv_step}_{cache_key}")
         if os.path.exists(base + ".npz"):
             with np.load(base + ".npz") as d:
                 return {k: d[k] for k in d.files}
+    place = mesh if mesh is not None else Mesh(device=device)
     seq = uniform_seq(n_inv_step, t_0)
     run = engine.make_invert_with_h(spec, schedule, seq, compute_dtype=compute_dtype)
-    x_lat, h_traj = run(model, torch.from_numpy(np.asarray(x0, np.float32)).to(device))
+    x_dev, n_real = place.put_padded(np.asarray(x0, np.float32), device)
+    x_lat, h_traj = run(model, x_dev)
     out = {
         "x0": np.asarray(x0),
-        "x_lat": x_lat.cpu().numpy(),
-        "h_traj": h_traj.permute(0, 1, 3, 4, 2).cpu().numpy(),
+        "x_lat": place.fetch(x_lat)[:n_real],
+        # [S-1, B, C, h, w]: the batch on axis 1, the rows on axis 3
+        "h_traj": place.fetch(h_traj, batch_dim=1, height_dim=3)[:, :n_real]
+        .transpose(0, 1, 3, 4, 2),
         "h_times": np.asarray(seq[:-1], np.int32),
     }
-    if base is not None:
+    if base is not None and place.is_writer:
         _atomic_savez(base + ".npz", **out)
     return out
 

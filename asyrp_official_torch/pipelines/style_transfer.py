@@ -22,6 +22,7 @@ import torch
 from asyrp_official_torch.core.schedule import Schedule, uniform_seq
 from asyrp_official_torch.models.delta import EditState
 from asyrp_official_torch.models.registry import ModelSpec
+from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.pipelines import engine
 
 __all__ = ["StyleTransfer", "make_style_transfer", "style_transfer"]
@@ -61,8 +62,12 @@ class StyleTransfer:
     def invert_style(self, model, style: torch.Tensor) -> torch.Tensor:
         """style: [B, H, W, C] → the h trajectory [S-1, B, C, h, w]. Only row
         0 of the batch drives the injection: the rows are per step, shared
-        by the content batch."""
-        return self._invert_h(model, style)[1]
+        by the content batch. On a row block (`parallel.spatial.sharded`)
+        the trajectory is gathered whole; each rank injects its own rows
+        (`models/delta.py`)."""
+        h_traj = self._invert_h(model, style)[1]
+        sg = spatial.active()
+        return h_traj if sg is None else spatial.gather(h_traj, 3, sg)
 
     def generate(self, model, x_lat_content: torch.Tensor, h_traj: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -36,6 +36,8 @@ from asyrp_official_torch.core.steptable import generation_table
 from asyrp_official_torch.models.delta import EditState
 from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.ops import ddim_step as k3
+from asyrp_official_torch.parallel import spatial
+from asyrp_official_torch.parallel.mesh import loss_share
 
 __all__ = ["default_loss", "make_optimizer", "steplr_lr", "make_train_step"]
 
@@ -43,10 +45,23 @@ __all__ = ["default_loss", "make_optimizer", "steplr_lr", "make_train_step"]
 def default_loss(x0_t, x0_t_origin, x0, *, l1_w: float = 3.0, cosine: float = 1.0,
                  extra: Optional[Callable] = None):
     """l1_w · L1(x0_t, x0_t_origin) · cosine, plus `extra(x0, x0_t,
-    x0_t_origin)` (the CLIP term, already weighted)."""
-    loss = l1_w * (x0_t - x0_t_origin).abs().mean() * cosine
+    x0_t_origin)` (the CLIP and ID terms, already weighted).
+
+    On a row block (`parallel.spatial.sharded`) this is the rank's share of
+    that loss (rule 2 of `parallel/spatial.py`): the L1 term's local sum over
+    the whole image's count, and `extra` of the whole images
+    (`spatial.gather_image`, the gradient flowing back to each rank's rows)
+    weighted 1/S (`parallel.mesh.loss_share`)."""
+    sg = spatial.active()
+    if sg is None:
+        loss = l1_w * (x0_t - x0_t_origin).abs().mean() * cosine
+        if extra is not None:
+            loss = loss + extra(x0, x0_t, x0_t_origin)
+        return loss
+    loss = l1_w * ((x0_t - x0_t_origin).abs().sum() / (x0_t.numel() * sg.size)) * cosine
     if extra is not None:
-        loss = loss + extra(x0, x0_t, x0_t_origin)
+        whole = [spatial.gather_image(a, sg) for a in (x0, x0_t, x0_t_origin)]
+        loss = loss + loss_share(extra(*whole))
     return loss
 
 
@@ -79,8 +94,12 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
     frozen UNet and x_lat, so it holds for every outer iteration.
 
     `sync_grads(params)` runs on the optimizer's parameters between the
-    backward and the optimizer step: under data parallelism it averages
-    their gradients over the ranks (`parallel.mesh.Mesh.sync_grads`)."""
+    backward and the optimizer step: on a mesh it sums their gradients over
+    the spatial ranks and averages them over the data axis
+    (`parallel.mesh.Mesh.sync_grads`). Under spatial sharding the fn runs
+    inside the caller's `spatial.sharded` block, each rank on its rows with
+    its share of the loss (`default_loss`); the metrics report the shares'
+    sum over the spatial ranks, the loss one process computes."""
     if train_target not in ("blocks", "rows"):
         raise ValueError(f"train_target must be 'blocks' or 'rows', got {train_target!r}")
     table = generation_table(seq_train, t_edit=t_edit, ignore_timesteps=ignore_timesteps,
@@ -147,6 +166,9 @@ def make_train_step(spec: ModelSpec, schedule: Schedule, seq_train, *, t_edit: i
             x_edit = x_next.detach()
             losses.append(loss.detach())
         per_step = torch.stack(losses)
+        sg = spatial.active()
+        if sg is not None:
+            per_step = spatial.all_reduce_sum(per_step, sg)
         return {"loss_per_step": per_step, "loss": per_step.mean(), "x_next": x_edit}
 
     train_step.compute_origins = compute_origins

@@ -26,14 +26,16 @@ Multi-device (`--dp`, `--sp`, `--tp_spatial`; one process per GPU under
 `torchrun`, `parallel/mesh.py`): every rank holds the same host batches,
 runs its block of each (`Mesh.put` / `Mesh.put_padded`, the JAX runner's
 `_put` / `_put_padded`) and fetches the whole result back; the writer
-rank writes the files. Data parallelism runs every mode: the Δ gradients
-are averaged over the data axis after each backward, the eta noise is drawn
-for the global batch and sliced, the mean-of-Δh harvest combines the
-ranks' sums. Spatial sharding (`--tp_spatial`, `--sp`) serves: the UNets'
-layers exchange halos and statistics inside `spatial.sharded`
-(`parallel/spatial.py`). Not ported yet (they raise `NotImplementedError`,
-ROADMAP.md Queue 1, M10c): spatial training, and `--lpips`,
-`--run_fidelity` and `--diff_style` under spatial sharding.
+rank writes the files. Data parallelism and spatial sharding
+(`--tp_spatial`, `--sp`) run every mode: the eta noise is drawn for the
+global batch and sliced, the mean-of-Δh harvest combines the ranks' sums;
+under spatial sharding the UNets' layers exchange halos and statistics
+inside `spatial.sharded` (`parallel/spatial.py`), differentiably in
+training, where each rank backpropagates its share of the loss (the CLIP
+and ID terms on the gathered image) and the Δ gradients are summed over
+the spatial ranks and averaged over the data axis after each backward; the
+LPIPS net of `--lpips` takes the gathered images, DiffStyle's h trajectory
+is gathered whole and each rank injects its own rows.
 """
 from __future__ import annotations
 
@@ -270,13 +272,6 @@ class AsyrpRunner:
         without spatial sharding)."""
         return spatial.sharded(self.mesh.spatial_info())
 
-    def _refuse_spatial(self, what: str) -> None:
-        if self.mesh.spatial > 1:
-            raise NotImplementedError(
-                f"{what} under spatial sharding (--tp_spatial / --sp) {_TODO} (M10c: spatial "
-                "training needs K1-bwd and K2-bwd across ranks, and the CLIP / LPIPS nets the "
-                "gathered image)")
-
     def _noise(self, shape, n_real: Optional[int] = None):
         """(generator, noise_fn) for a chain over a global batch of `shape`
         (its first `n_real` rows real): the seeded generator; on a mesh a
@@ -315,11 +310,12 @@ class AsyrpRunner:
         optimizer state). `--do_test` then writes the test grids.
 
         Under --dp each rank trains on its rows of every batch (bs_train
-        divides by the data axis) and the gradients are averaged over the
-        ranks before each SGD step; the CLIP term's batch mean is the global
-        batch's (`Mesh.batch_mean`)."""
+        divides by the data axis); under --tp_spatial / --sp on its rows of
+        each image, with its share of the loss. The gradients are summed
+        over the spatial ranks and averaged over the data axis before each
+        SGD step; the CLIP term's batch mean is the global batch's
+        (`Mesh.batch_mean`)."""
         a = self.args
-        self._refuse_spatial("--run_train")
         train_target = "rows" if a.train_delta_h else "blocks"
         if train_target == "blocks" and a.get_h_num < 1:
             # the reference's default 0 leaves its optimizer with no parameters
@@ -403,17 +399,18 @@ class AsyrpRunner:
         # The no-grad plain reference trajectory depends only on the frozen
         # UNet and x_lat, so with more than one outer iteration it is
         # computed once per batch and reused; the stacks stay on the device
-        # up to _ORIGIN_CACHE_BYTES.
+        # up to _ORIGIN_CACHE_BYTES of this rank's block (its rows of the
+        # batch and of each image).
         n_outer = a.n_iter - a.start_iter_when_you_use_pretrained
         n_batches = max(1, x_lat_all.shape[0] // a.bs_train)
-        origin_bytes = (n_batches * len(seq_train) * a.bs_train
-                        * int(np.prod(x_lat_all.shape[1:])) * 4)
+        origin_bytes = (n_batches * len(seq_train) * (a.bs_train // self.mesh.data)
+                        * int(np.prod(x_lat_all.shape[1:])) // self.mesh.spatial * 4)
         use_origin_cache = n_outer > 1 and origin_bytes <= _ORIGIN_CACHE_BYTES
         step = tr.make_train_step(self.spec, self.schedule, seq_train, t_edit=self.t_edit,
                                   loss_fn=loss_fn, compute_dtype=self.compute_dtype,
                                   ignore_timesteps=a.ignore_timesteps, train_target=train_target,
                                   cached_origin=use_origin_cache,
-                                  sync_grads=self.mesh.sync_grads if self.mesh.data > 1 else None)
+                                  sync_grads=self.mesh.sync_grads if self.mesh.size > 1 else None)
         origin_cache: Dict[int, torch.Tensor] = {}
         if use_origin_cache:
             log.info("origin-trajectory cache ON: %d batch(es) x %d steps (%.0f MB), reused "
@@ -440,12 +437,13 @@ class AsyrpRunner:
                 xb = self.mesh.put(x_lat_all[ofs: ofs + a.bs_train])
                 x0b = self.mesh.put(x0_all[ofs: ofs + a.bs_train])
                 t0 = time.perf_counter()
-                if use_origin_cache:
-                    if ofs not in origin_cache:
-                        origin_cache[ofs] = step.compute_origins(model, xb)
-                    metrics = step(model, edit, optimizer, xb, x0b, lr, origin_cache[ofs])
-                else:
-                    metrics = step(model, edit, optimizer, xb, x0b, lr)
+                with self._sharded():
+                    if use_origin_cache:
+                        if ofs not in origin_cache:
+                            origin_cache[ofs] = step.compute_origins(model, xb)
+                        metrics = step(model, edit, optimizer, xb, x0b, lr, origin_cache[ofs])
+                    else:
+                        metrics = step(model, edit, optimizer, xb, x0b, lr)
                 # the host fetch waits for the device
                 losses.append(self.mesh.mean_over_data(float(metrics["loss"])))
                 batch_ms.append((time.perf_counter() - t0) * 1e3)
@@ -817,11 +815,11 @@ class AsyrpRunner:
         pair generated; `content{ci}_style{si}.png` under `--save_dir`.
         Under --dp each batch-1 image goes through the padded put (every
         rank runs a copy) and the output is sliced back to the real row, as
-        the JAX runner does."""
+        the JAX runner does; under spatial sharding each rank runs its rows,
+        with the style's h trajectory gathered whole."""
         from asyrp_official_torch.pipelines.style_transfer import make_style_transfer
 
         a = self.args
-        self._refuse_spatial("--diff_style")
         self.set_interval()
         model = self.load_pretrained()
         size = self.config["data"]["image_size"]
@@ -839,15 +837,17 @@ class AsyrpRunner:
         def batch(img):
             return self.mesh.put_padded(img[None])[0]
 
-        content_lats = [st.invert_content(model, batch(contents[ci]))
-                        for ci in range(len(contents))]
-        for si in range(len(styles)):
-            h_traj = st.invert_style(model, batch(styles[si]))
-            for ci, x_lat in enumerate(content_lats):
-                stylized = self.mesh.fetch(st.generate(model, x_lat, h_traj, self._generator()))
-                if self.mesh.is_writer:
-                    save_image(stylized[0], os.path.join(out_dir, f"content{ci}_style{si}.png"),
-                               pm1=True)
+        with self._sharded():
+            content_lats = [st.invert_content(model, batch(contents[ci]))
+                            for ci in range(len(contents))]
+            for si in range(len(styles)):
+                h_traj = st.invert_style(model, batch(styles[si]))
+                for ci, x_lat in enumerate(content_lats):
+                    stylized = self.mesh.fetch(st.generate(model, x_lat, h_traj,
+                                                           self._generator()))
+                    if self.mesh.is_writer:
+                        save_image(stylized[0],
+                                   os.path.join(out_dir, f"content{ci}_style{si}.png"), pm1=True)
         log.info("style transfer results in %s", out_dir)
 
     # ------------------------------------------------------------------
@@ -856,9 +856,9 @@ class AsyrpRunner:
         LPIPS(x0_t, x0) over a 1000-step (--n_inv_step) inversion of the
         training images; the four tsvs go to {work_dir}/utils/, where
         `set_interval` reads them. Under --dp each rank inverts its rows of
-        every batch."""
+        every batch, under spatial sharding its rows of each image (the LPIPS
+        net takes the gathered images)."""
         a = self.args
-        self._refuse_spatial("--lpips")
         if self.lpips_net is None:
             raise RuntimeError("LPIPS weights are required for the calibration stage: pass "
                                "--lpips_ckpt (an npz of the lpips package's AlexNet + lin "
@@ -869,11 +869,12 @@ class AsyrpRunner:
         # the reference processes n_train_img + 1 images: its loop breaks on
         # `step == n_train_img` after processing that step
         # (diffusion_latent.py:1276-1278)
-        return compute_lpips_distance(
-            self.spec, model, self.schedule, train_ds, self.lpips_net,
-            n_img=a.n_train_img + 1, n_inv_step=a.n_inv_step, t_0=a.t_0,
-            batch_size=a.bs_train, out_dir=self._dir("utils"), dataset_name=name,
-            compute_dtype=self.compute_dtype, mesh=self.mesh)
+        with self._sharded():
+            return compute_lpips_distance(
+                self.spec, model, self.schedule, train_ds, self.lpips_net,
+                n_img=a.n_train_img + 1, n_inv_step=a.n_inv_step, t_0=a.t_0,
+                batch_size=a.bs_train, out_dir=self._dir("utils"), dataset_name=name,
+                compute_dtype=self.compute_dtype, mesh=self.mesh)
 
     def run_fidelity(self) -> Dict[str, Any]:
         """The fidelity runbook: invert→edit every test image
@@ -882,9 +883,10 @@ class AsyrpRunner:
         --fidelity_ref_dir with the reference's outputs under the same
         names, write the LPIPS report `lpips_report.json` (gate: mean ≤
         0.01). Every missing artefact is reported at once. Under --dp each
-        batch is padded to the data axis and its outputs sliced back."""
+        batch is padded to the data axis and its outputs sliced back; under
+        spatial sharding each rank runs its rows and the outputs are fetched
+        whole."""
         a = self.args
-        self._refuse_spatial("--run_fidelity")
         missing = []
         if not getattr(a, "model_path", None) and not getattr(a, "allow_random_weights", False):
             missing.append("base diffusion ckpt: --model_path <ckpt>")
@@ -934,8 +936,10 @@ class AsyrpRunner:
             idxs = list(range(ofs, min(ofs + a.bs_train, n)))
             x0 = np.stack([np.asarray(test_ds[i]) for i in idxs])
             x_dev, n_real = self.mesh.put_padded(x0)
-            out = self.mesh.fetch(run(model, edit, x_dev, *self._noise(
-                (x_dev.shape[0] * self.mesh.data,) + x0.shape[1:], n_real)))[:n_real]
+            with self._sharded():
+                x = run(model, edit, x_dev, *self._noise(
+                    (x_dev.shape[0] * self.mesh.data,) + x0.shape[1:], n_real))
+            out = self.mesh.fetch(x)[:n_real]
             for k, i in enumerate(idxs):
                 # one H x W image, as torchvision's save_image writes a single
                 # image (the JAX runbook's one-image grid is 8 columns wide)

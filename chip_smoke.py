@@ -104,8 +104,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      `afhq.yml` from phase 8's perturbed `.pt`, with the CLIP directional
      loss (the random ViT-B/16 of phase 7) and the L1 term, the first of two
      random images as `afhq/train/dog/*.png` (both until phase 14 came: cut
-     for the time limit; phase 12 (d) too), 40-step grids, t_edit 513, 2
-     iterations at batch 1, then the `--do_test` grid; float32 and --bf16.
+     for the time limit; phase 12 (d) too), 10-step grids (40 until phase
+     15 (e)-(f) came: cut for the time limit; phase 12 (d) too), t_edit 513,
+     2 iterations at batch 1, then the `--do_test` grid; float32 and --bf16.
      The launch counters are zeroed just before each run and read just
      after: K1, K1-bwd, the multi-head K2 and K2-bwd-MH, K3 and K3-bwd must
      all have launched, the single-head K2 and K2-bwd not at all. The gate of
@@ -134,9 +135,10 @@ Phases, each printing its result on its own line; any failure exits non-zero:
   11. M7 on `custom.yml` through the port's CLI, in-process, from phase
      7's images, phase 10's seeded `.pt` and phase 4's block: (a) the LPIPS
      calibration stage (`--lpips`, 2 images, a random AlexNet + lin written
-     in the `--lpips_ckpt` npz format) at 50 steps (the recipe runs 1000;
+     in the `--lpips_ckpt` npz format) at 25 steps (the recipe runs 1000;
      cut for the time limit: to 200 when phase 12 came, to 100 when phase
-     14 came, to 50 when phase 15 came) f32, bf16, and f32 with the plain
+     14 came, to 50 when phase 15 came, to 25 when phase 15 (e)-(f) came)
+     f32, bf16, and f32 with the plain
      versions (the four curves
      within 1e-3 of scale), f32 at `--bs_train 2` over 5 steps (10 until
      phase 14)
@@ -163,8 +165,9 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      10 steps (40 + 40 until phase 14 came, 20 + 20 until phase 15 came: cut
      for the time limit) at batch 1, float32 and --bf16: K1, the multi-head
      K2 and K3 launched, the one-head K2 never, the latent cache named by
-     the class; (c) the float32 invert+edit chain, 20 + 20 steps (40 + 40
-     until phase 15 came), against the plain versions (1e-3, eps std > 0.1)
+     the class; (c) the float32 invert+edit chain, 10 + 10 steps (40 + 40
+     until phase 15 came, 20 + 20 until phase 15 (e)-(f) came), against the
+     plain versions (1e-3, eps std > 0.1)
      and where the time goes in one eval (as in 6); (d)
      `--run_train --train_delta_block --target_class_num` on phase 9's
      recipe, float32 and --bf16 (K1-bwd, K2-bwd-MH and K3-bwd launched, peak
@@ -180,7 +183,8 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      `custom.yml` with the random weights of --seed: (a) `--diff_style`
      through the port's CLI, in-process, one random 256^2 content image
      (two until phase 14 came: cut for the time limit) and one distinct
-     style image, 40 + 40 steps, t_edit 513, hs_coeff 0.9,
+     style image, 20 + 20 steps (40 + 40 until phase 15 (e)-(f) came: cut
+     for the time limit), t_edit 513, hs_coeff 0.9,
      content_replace_step 50, float32 and --bf16: K1, K2 and K3 launched,
      K3 exactly as often as the step tables say (2 inversions, 1
      generation), K2-MH never, the output written, 256^2, finite; (b)
@@ -242,7 +246,27 @@ Phases, each printing its result on its own line; any failure exits non-zero:
      f32 and bf16: CUDA-event and device times, SDPA at the same Tq / Tk,
      the bound, calls per run. Phase 3's repetitions per row went 15 / 12
      -> 10 / 8, phase 11's `--lpips` 100 -> 50 steps and phase 12's grids
-     20 -> 10 and chain 40 -> 20 steps for its room.
+     20 -> 10 and chain 40 -> 20 steps for its room. (e) Four gloo ranks,
+     Δ-training under spatial sharding against one process: `custom.yml
+     --dp 4 --tp_spatial` (a DeltaBlock, CLIP + L1, bs 1, 4 + 4 steps, then
+     serving its block; and the Δh rows, `--train_delta_h`) and `afhq.yml
+     --dp 2 --sp 2` (bs 2): Δ leaves 5e-5, grids 2 levels; K1-bwd across
+     ranks (`gn_bwd_part`, `gn_bwd_apply`) and K2-bwd with Tq != Tk
+     (`asyrp_attention_bwd_kv`) launched, no one-rank K1, K2, K1-bwd or
+     K2-bwd; rank 0's collectives per training timestep (count, bytes,
+     time). (f) Two gloo ranks, `--lpips` (4 steps), `--run_fidelity` and
+     `--diff_style` under `--dp 2 --tp_spatial` against one process
+     (images 2 levels, LPIPS curves 5e-3: the JAX package's bound). Then
+     (d) for the two backward entries at every shape (e) gave rank 0:
+     against their plain versions (1e-4 of scale f32, K2-bwd also through
+     autograd and, K2-bwd, against SDPA's backward at the same Tq / Tk;
+     bf16 no farther from the f32 plain versions than 2x the plain versions
+     in bf16), two calls bit for bit, CUDA-event and device times, SDPA's
+     backward's, the bound. For phase 15 (e)-(f)'s room phase 3's
+     repetitions went 10 / 8 -> 4 / 3, the OpenAI training grids of phases
+     9 and 12 (d) 40 -> 10 steps, phase 12 (c)'s chain 20 -> 10, phase 13's
+     DiffStyle 40 + 40 -> 20 + 20 and phase 11's `--lpips` 50 -> 25 steps;
+     (c) runs beside (a) and (b).
 Every run of a path (phases 4, 7-13) fails if a K3, K3-bwd or DDPM-step
 call took the scalar instance: the paths' tensors are aligned, whole 16-byte
 vectors. The float32 runs use full float32 convolutions and matmuls (TF32
@@ -309,6 +333,10 @@ OPENAI_TRAIN_KERNELS = ("group_norm", "group_norm_bwd", "attention_mh", "attenti
 STEP_KERNEL = {"ddim_step": "ddim_fwd", "ddim_step_learn_sigma": "ddim_fwd",
                "ddim_step_bwd": "ddim_bwd", "ddpm_step": "ddpm_fwd"}
 AFHQ_ATTR = "dog_smiling"  # an AFHQ attribute of assets/src_trg_prompts.json
+# the OpenAI-family training grids of phases 9 and 12 (d) (40 until phase 15
+# (e)-(f) came: cut for the time limit) and DiffStyle's inversion and
+# generation grids of phase 13 (40 until then)
+OPENAI_TRAIN_STEPS, STYLE_STEPS = 10, 20
 CHAIN_TOL = 1e-3
 # the f32 trained block, kernels vs plain run: the whole block, and its update
 # from the init (which the L1 term's sign makes noisy, see train_phase)
@@ -325,8 +353,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 L2_BYTES = 50 * 2**20  # the H100 SXM's L2 cache
 # phase 3's repetitions per row: CUDA-event runs (the median) and calls back to
 # back behind the sleep (25 and 20 until phase 14 came, 15 and 12 until phase 15
-# came: cut for the time limit)
-ROW_RUNS, ROW_DEVICE_RUNS = 10, 8
+# came, 10 and 8 until phase 15 (e)-(f) came: cut for the time limit)
+ROW_RUNS, ROW_DEVICE_RUNS = 4, 3
 DTYPES = ("float32", "bfloat16")
 
 
@@ -335,7 +363,13 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(msg: str) -> None:
+    """Print a line; a phase's first line with the script's elapsed seconds."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -473,7 +507,10 @@ def counters():
             "ddpm_step_scalar": kddpm.ddpm_step.scalar_launches,
             "group_norm_part": k1.group_norm.part_launches,
             "group_norm_apply": k1.group_norm.apply_launches,
-            "attention_kv": k2.attention.kv_launches}
+            "attention_kv": k2.attention.kv_launches,
+            "group_norm_bwd_part": k1.group_norm.bwd_part_launches,
+            "group_norm_bwd_apply": k1.group_norm.bwd_apply_launches,
+            "attention_kv_bwd": k2.attention.kv_bwd_launches}
 
 
 def zero_counters() -> None:
@@ -482,6 +519,8 @@ def zero_counters() -> None:
 
     k1.group_norm.launches = k1.group_norm.bwd_launches = 0
     k1.group_norm.part_launches = k1.group_norm.apply_launches = 0
+    k1.group_norm.bwd_part_launches = k1.group_norm.bwd_apply_launches = 0
+    k2.attention.kv_bwd_launches = 0
     k2.attention.launches = k2.attention.mh_launches = k2.attention.bwd_launches = 0
     k2.attention.mh_bwd_launches = k2.attention.kv_launches = 0
     k3.ddim_step.launches = k3.ddim_step.bwd_launches = k3.ddim_step.scalar_launches = 0
@@ -1598,11 +1637,10 @@ def train_argv(ws: str, imgs: str, clip_ckpt: str, exp: str, bf16: bool = False,
 def trained_block(ws: str, exp: str, category: str = "CUSTOM"):
     from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint
 
-    path = os.path.join(ws, "checkpoint",
-                        f"{exp}_LC_{category}_t999_ninv{STEPS}_ngen{STEPS}_1.pth")
-    if not os.path.exists(path):
-        fail(f"training wrote no checkpoint {path}")
-    return load_delta_checkpoint(path)["blocks"][0]
+    paths = glob.glob(os.path.join(ws, "checkpoint", f"{exp}_LC_{category}_t999_ninv*_1.pth"))
+    if len(paths) != 1:
+        fail(f"training wrote no single checkpoint of {exp} in {ws}: {paths}")
+    return load_delta_checkpoint(paths[0])["blocks"][0]
 
 
 def cli_train_run(torch, card, log, argv, ws: str, exp: str, what: str, kernels, init,
@@ -1617,7 +1655,8 @@ def cli_train_run(torch, card, log, argv, ws: str, exp: str, what: str, kernels,
 
     from asyrp_official_torch.cli.main import main as cli_main
 
-    n_edit = sum(1 for t in np.linspace(0, 1, STEPS) * 999 if t >= T_EDIT)
+    steps = int(argv[len(argv) - 1 - argv[::-1].index("--n_train_step") + 1])
+    n_edit = sum(1 for t in np.linspace(0, 1, steps) * 999 if t >= T_EDIT)
     zero_counters()
     torch.cuda.reset_peak_memory_stats()
     n_logs = len(log.iters)
@@ -1753,7 +1792,8 @@ def openai_train_argv(fam: str, ws: str, model_path: str, clip_ckpt: str, exp: s
             "--run_train", "--train_delta_block", "--edit_attr", AFHQ_ATTR,
             "--model_path", model_path, "--device", DEVICE, "--clip_ckpt", clip_ckpt,
             "--clip_loss_w", "1", "--l1_loss_w", "3", "--get_h_num", "1",
-            "--n_inv_step", str(STEPS), "--n_train_step", str(STEPS), "--n_iter", "2",
+            "--n_inv_step", str(OPENAI_TRAIN_STEPS), "--n_train_step", str(OPENAI_TRAIN_STEPS),
+            "--n_iter", "2",
             # one training image (two until phase 14 came: cut for the time limit)
             "--n_train_img", "1", "--bs_train", "1", "--lr_training", "0.5",
             "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
@@ -1954,7 +1994,7 @@ def gradient_check(torch, argv, config: str, faults):
     pairs = runner.get_pairs(model, "train")  # the run's cache
     x = torch.from_numpy(pairs["x_lat"][:1]).to(dev)
     x0 = torch.from_numpy(pairs["x0"][:1]).to(dev)
-    seq, seq_next = train_seq(STEPS, 999, T_EDIT)
+    seq, seq_next = train_seq(args.n_train_step, 999, T_EDIT)
     acp = torch.from_numpy(runner.schedule.alphas_cumprod_ext).to(dev)
     extra = train_clip_term(ctx, runner.src_txts[0], runner.trg_txts[0], 1.0)
     cotangent = torch.randn(x.shape, generator=torch.Generator(device=dev).manual_seed(SEED),
@@ -2117,9 +2157,10 @@ AFHQ_RUNS = (  # (label, --bf16, steps, --sample_type)
     ("float32", False, STEPS, "ddim"), ("bfloat16", True, STEPS, "ddim"),
     ("ddpm float32", False, DDPM_STEPS, "ddpm"))
 # phase 12 (b)'s serving grids (40 until phase 14 came, 20 until phase 15 came:
-# cut for the time limit) and (c)'s chain (40 + 40 until phase 15 came)
+# cut for the time limit) and (c)'s chain (40 + 40 until phase 15 came, 20 + 20
+# until phase 15 (e)-(f) came)
 IMAGENET_SERVE_STEPS = 10
-IMAGENET_CHAIN_STEPS = 20
+IMAGENET_CHAIN_STEPS = 10
 IMAGENET_RUNS = (("float32", False, IMAGENET_SERVE_STEPS, "ddim"),
                  ("bfloat16", True, IMAGENET_SERVE_STEPS, "ddim"))
 
@@ -2558,9 +2599,9 @@ def rows_phase(torch, card, log, ws_root, clip_ckpt: str):
 # ---------------------------------------------------------------------------
 
 # the calibration recipe runs 1000 steps; cut for the script's time limit (to 200
-# when phase 12 came, to 100 when phase 14 came, to 50 when phase 15 came: the
-# f32, bf16 and plain runs share it)
-LPIPS_STEPS = 50
+# when phase 12 came, to 100 when phase 14 came, to 50 when phase 15 came, to 25
+# when phase 15 (e)-(f) came: the f32, bf16 and plain runs share it)
+LPIPS_STEPS = 25
 # --bs_train 2: cuDNN's f32 FFT convolutions (ROADMAP Queue 3); 10 until phase 14
 LPIPS_BS2_STEPS = 5
 LPIPS_TOL = 1e-3  # the f32 curves, kernels vs plain, of each curve's scale
@@ -3141,7 +3182,7 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
     del served
     torch.cuda.empty_cache()
     phase(f"  (d) --run_train --train_delta_block --target_class_num {IMAGENET_CLASS} "
-          f"--edit_attr {AFHQ_ATTR}, 1 image, 2 iterations, {STEPS}-step grids")
+          f"--edit_attr {AFHQ_ATTR}, 1 image, 2 iterations, {OPENAI_TRAIN_STEPS}-step grids")
     training, train_launches = openai_train_phase(torch, card, log, "imagenet", root, model_path,
                                                   clip_ckpt, plain_run=True)
     torch.cuda.empty_cache()
@@ -3169,14 +3210,14 @@ CLIP_TERM_TOL = 1e-4
 
 def style_argv(ws: str, weights, save: str = STYLE_SAVE, bf16: bool = False, extra=()):
     """`--diff_style` on `custom.yml`: the two content images of `ws/contents`
-    each stylized by the style image of `ws/styles`, 40 + 40 steps, t_edit
+    each stylized by the style image of `ws/styles`, STYLE_STEPS + STYLE_STEPS steps, t_edit
     513, the flags' default hs_coeff 0.9 and content_replace_step 50.
     `weights`: a `.pt` path, or None for --allow_random_weights (the same
     weights: the seeded init of --seed)."""
     argv = ["--config", CONFIG, "--exp", os.path.join(ws, "runs", "style"), "--diff_style",
             "--device", DEVICE, "--work_dir", ws, "--content_dir", os.path.join(ws, "contents"),
             "--style_dir", os.path.join(ws, "styles"), "--save_dir", os.path.join(ws, save),
-            "--n_inv_step", str(STEPS), "--n_gen_step", str(STEPS),
+            "--n_inv_step", str(STYLE_STEPS), "--n_gen_step", str(STYLE_STEPS),
             "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
             "--seed", str(SEED), "--ni", *extra]
     argv += ["--model_path", weights] if weights else ["--allow_random_weights"]
@@ -3417,7 +3458,7 @@ def style_phase(torch, dev, card, ws_root: str):
     Image.fromarray((rng.rand(IMAGE, IMAGE, 3) * 255).astype(np.uint8)).save(
         os.path.join(root, "styles", "0.png"))
     model_path = os.path.join(ws_root, "rows", "unet_random.pt")  # phase 10's seeded init
-    seq = uniform_seq(STEPS, 999)
+    seq = uniform_seq(STYLE_STEPS, 999)
     # the K3 launches of one sweep, from the tables: the contents' and the
     # style's inversions, STYLE_CONTENTS x 1 generations,
     # generations, gated at max(t_edit, content_replace_step)
@@ -3426,7 +3467,8 @@ def style_phase(torch, dev, card, ws_root: str):
     n_inv, n_gen = inversion_table(seq).num_steps, gen_table.num_steps
     expect_k3 = (STYLE_CONTENTS + 1) * n_inv + STYLE_CONTENTS * n_gen
     n_dual = int(np.sum(gen_table.use_delta))
-    phase(f"  (a) --diff_style: {STYLE_CONTENTS} content image(s) x 1 style, {STEPS} + {STEPS} "
+    phase(f"  (a) --diff_style: {STYLE_CONTENTS} content image(s) x 1 style, {STYLE_STEPS} + "
+          f"{STYLE_STEPS} "
           f"steps, t_edit "
           f"{T_EDIT}, content_replace_step {CONTENT_REPLACE}, hs_coeff 0.9: K3 derived "
           f"{expect_k3} launches ({STYLE_CONTENTS + 1} x {n_inv} inversion steps + "
@@ -3451,7 +3493,8 @@ def style_phase(torch, dev, card, ws_root: str):
     args = build_parser().parse_args(style_argv(ws, model_path))
     runner = AsyrpRunner(args, load_config(CONFIG), work_dir=ws)
     model = runner.load_pretrained()
-    st = StyleTransfer(runner.spec, runner.schedule, n_inv_step=STEPS, n_gen_step=STEPS,
+    st = StyleTransfer(runner.spec, runner.schedule, n_inv_step=STYLE_STEPS,
+                       n_gen_step=STYLE_STEPS,
                        t_edit=T_EDIT, content_replace_step=CONTENT_REPLACE)
     content0 = ImageFolderDataset(os.path.join(ws, "contents"), IMAGE)[0]
     x_lat = st.invert_content(model, torch.from_numpy(content0[None]).to(dev))
@@ -4020,9 +4063,10 @@ TOL.update({"group_norm_across": {"float32": 1e-5, "bfloat16": 2e-2},
 # as NCCL refuses two ranks on one card; NCCL for a world of one; none for
 # the single-process references), then the port's CLI runs of its spec with
 # the launch counters zeroed just before each and read just after. With
-# "record", rank 0 also keeps the shapes of the new entries' launches, every
-# collective's time (synchronized around it) and bytes received, and the
-# UNet evals of each run.
+# "record", rank 0 also keeps the shapes of the across-ranks entries'
+# launches (forward and backward), every collective's time (synchronized
+# around it) and bytes received, those inside the Δ-training step apart,
+# the training timesteps and the UNet evals of each run.
 MD_WORKER = r"""
 import json, sys, time
 import torch
@@ -4041,9 +4085,13 @@ from asyrp_official_torch.cli.main import main
 from asyrp_official_torch.models import registry
 from asyrp_official_torch.ops import attention as k2, groupnorm as k1
 
-rec = {"gn": {}, "kv": {}, "coll": [0, 0, 0.0], "evals": 0}
+from asyrp_official_torch.pipelines import train as tr
+
+rec = {"gn": {}, "kv": {}, "gnb": {}, "kvb": {}, "coll": [0, 0, 0.0], "coll_train": [0, 0, 0.0],
+       "train": False, "train_steps": 0, "evals": 0}
 if spec.get("record"):
     apply_, attn = k1._apply_cuda, k2._attention_cuda
+    bwd_part_, attn_bwd = k1._bwd_part_cuda, k2._attention_bwd_cuda
     reduce_, gather_ = dist.all_reduce, dist.all_gather
     fused = lambda pa, ss: "pre_add" if pa is not None else "scale_shift" if ss is not None else ""
 
@@ -4059,16 +4107,47 @@ if spec.get("record"):
             rec["kv"][key] = rec["kv"].get(key, 0) + 1
         return attn(q, k, v, with_lse, num_heads, legacy_scale)
 
+    def bwd_part_rec(x, dy, w, b, mean, rstd, silu):
+        key = json.dumps([list(x.shape), str(x.dtype), bool(silu)])
+        rec["gnb"][key] = rec["gnb"].get(key, 0) + 1
+        return bwd_part_(x, dy, w, b, mean, rstd, silu)
+
+    def attn_bwd_rec(q, k, v, o, d_o, lse, num_heads, legacy_scale):
+        if k.shape[1] != q.shape[1]:
+            key = json.dumps([list(q.shape), list(k.shape), str(q.dtype), num_heads,
+                              bool(legacy_scale)])
+            rec["kvb"][key] = rec["kvb"].get(key, 0) + 1
+        return attn_bwd(q, k, v, o, d_o, lse, num_heads, legacy_scale)
+
     def timed(fn, n_bytes):
         def call(*a, **kw):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
             torch.cuda.synchronize()
-            rec["coll"][0] += 1
-            rec["coll"][1] += n_bytes(*a)
-            rec["coll"][2] += (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t0) * 1e3
+            for key in ("coll", "coll_train") if rec["train"] else ("coll",):
+                rec[key][0] += 1
+                rec[key][1] += n_bytes(*a)
+                rec[key][2] += ms
             return out
+        return call
+
+    make_step = tr.make_train_step
+
+    def make_step_rec(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def call(*a_, **kw_):
+            rec["train"] = True
+            try:
+                out = step(*a_, **kw_)
+            finally:
+                rec["train"] = False
+            rec["train_steps"] += len(out["loss_per_step"])
+            return out
+
+        call.compute_origins = step.compute_origins
         return call
 
     reduce_rec = timed(reduce_, lambda t, *a: t.numel() * t.element_size())
@@ -4081,17 +4160,20 @@ if spec.get("record"):
         return apply_model(self, *a, **kw)
 
     k1._apply_cuda, k2._attention_cuda = apply_rec, attn_rec
+    k1._bwd_part_cuda, k2._attention_bwd_cuda = bwd_part_rec, attn_bwd_rec
+    tr.make_train_step = make_step_rec
     dist.all_reduce, dist.all_gather = reduce_rec, gather_rec
     registry.ModelSpec.apply = apply_count
 results = []
 for argv in spec["runs"]:
-    rec.update(gn={}, kv={}, coll=[0, 0, 0.0], evals=0)
+    rec.update(gn={}, kv={}, gnb={}, kvb={}, coll=[0, 0, 0.0], coll_train=[0, 0, 0.0],
+               train_steps=0, evals=0)
     cs.zero_counters()
     t0 = time.perf_counter()
     rc = main(argv)
     torch.cuda.synchronize()
     results.append({"rc": rc, "counts": cs.counters(), "wall_s": time.perf_counter() - t0,
-                    **json.loads(json.dumps(rec))})
+                    **{k: v for k, v in json.loads(json.dumps(rec)).items() if k != "train"}})
     if rc != 0:
         break
 json.dump(results, open(f"{spec['out']}.{rank}.json", "w"))
@@ -4258,13 +4340,33 @@ def multi_device_phase(torch, dev, card, ws_root: str, clip_ckpt: str, afhq_mode
                         md_serve_argv(ws_b[k], CONFIG, imgs(ws_b[k]),
                                       ["--n_iter", "1"] + (["--dp", "2"] if k == "dp2" else []),
                                       n_img=2, bs=2, ckpt=None)]
+    # (c) spatial sharding on four ranks, and the single-process references
+    afhq_imgs = os.path.join(os.environ["ASYRP_TPU_DATA"], "afhq", "test", "dog")
+    ws_c = {(k, fam): md_workspace(root, f"c_{k}_{fam}", (afhq_delta,))
+            for k in ("spatial", "none") for fam in ("custom", "afhq")}
+
+    def c_runs(k):
+        tp = ["--dp", "4", "--tp_spatial"] if k == "spatial" else []
+        sp = ["--dp", "2", "--sp", "2"] if k == "spatial" else []
+        ws = ws_c[k, "custom"]
+        custom = md_serve_argv(ws, CONFIG, imgs(ws), tp)
+        afhq = md_serve_argv(ws_c[k, "afhq"], AFHQ_CONFIG, afhq_imgs, sp, n_img=2, bs=2,
+                             weights=("--model_path", afhq_model),
+                             ckpt=os.path.basename(afhq_delta))
+        return [custom, afhq]
+
+    # (a), (b) and (c) side by side (their collectives' times include the
+    # others' load on the host and the card)
     t0 = time.perf_counter()
     waits = [start_ranks(1, "nccl", [serve_a("nccl")], os.path.join(root, "a_nccl")),
              start_ranks(1, "none", [serve_a("none")], os.path.join(root, "a_none")),
              start_ranks(2, "gloo", b_runs("dp2"), os.path.join(root, "b_dp2")),
-             start_ranks(1, "none", b_runs("none"), os.path.join(root, "b_none"))]
-    res_a_nccl, res_a_none, res_b_dp2, res_b_none = (w(600) for w in waits)
-    out["seconds_a_b"] = time.perf_counter() - t0
+             start_ranks(1, "none", b_runs("none"), os.path.join(root, "b_none")),
+             start_ranks(4, "gloo", c_runs("spatial"), os.path.join(root, "c_spatial"),
+                         record=True),
+             start_ranks(1, "none", c_runs("none"), os.path.join(root, "c_none"))]
+    res_a_nccl, res_a_none, res_b_dp2, res_b_none, res_c, res_c_none = (w(900) for w in waits)
+    out["seconds_a_b_c"] = time.perf_counter() - t0
     ga, gn = grid_arrays(ws_a["nccl"]), grid_arrays(ws_a["none"])
     pa, pn = pairs_arrays(ws_a["nccl"]), pairs_arrays(ws_a["none"])
     same = (sorted(ga) == sorted(gn) and all(np.array_equal(ga[k], gn[k]) for k in ga)
@@ -4294,27 +4396,7 @@ def multi_device_phase(torch, dev, card, ws_root: str, clip_ckpt: str, afhq_mode
     if d_err > MD_DELTA_TOL or g_err > MD_GRID_TOL:
         fail(f"phase 15 (b): --dp 2 differs from one process: Δ {d_err:.3e}, grids {g_err}")
 
-    # (c) spatial sharding on four ranks, and the single-process references
-    afhq_imgs = os.path.join(os.environ["ASYRP_TPU_DATA"], "afhq", "test", "dog")
-    ws_c = {(k, fam): md_workspace(root, f"c_{k}_{fam}", (afhq_delta,))
-            for k in ("spatial", "none") for fam in ("custom", "afhq")}
-
-    def c_runs(k):
-        tp = ["--dp", "4", "--tp_spatial"] if k == "spatial" else []
-        sp = ["--dp", "2", "--sp", "2"] if k == "spatial" else []
-        ws = ws_c[k, "custom"]
-        custom = md_serve_argv(ws, CONFIG, imgs(ws), tp)
-        afhq = md_serve_argv(ws_c[k, "afhq"], AFHQ_CONFIG, afhq_imgs, sp, n_img=2, bs=2,
-                             weights=("--model_path", afhq_model),
-                             ckpt=os.path.basename(afhq_delta))
-        return [custom, afhq]
-
-    t0 = time.perf_counter()
-    waits = [start_ranks(4, "gloo", c_runs("spatial"), os.path.join(root, "c_spatial"),
-                         record=True),
-             start_ranks(1, "none", c_runs("none"), os.path.join(root, "c_none"))]
-    res_c, res_c_none = (w(600) for w in waits)
-    out["seconds_c"] = time.perf_counter() - t0
+    # (c): against the single-process references
     g_err, x_err = 0, {}
     for fam in ("custom", "afhq"):
         gs, gn = grid_arrays(ws_c["spatial", fam]), grid_arrays(ws_c["none", fam])
@@ -4370,9 +4452,94 @@ def multi_device_phase(torch, dev, card, ws_root: str, clip_ckpt: str, afhq_mode
         fail(f"phase 15 (c): sharded serving differs from one process: x {worst:.3e}, grids "
              f"{g_err}")
     out["seconds"] = time.perf_counter() - t_phase
-    phase(f"  phase 15 (a)-(c) took {out['seconds']:.1f} s ((a) + (b) {out['seconds_a_b']:.1f} "
-          f"s, (c) {out['seconds_c']:.1f} s)")
+    phase(f"  phase 15 (a)-(c) took {out['seconds']:.1f} s ((a), (b) and (c) side by side "
+          f"{out['seconds_a_b_c']:.1f} s)")
     return out, seen
+
+
+def md_row_table(torch, dev, seen, builders, seed: int, per: str, lib_name: str):
+    """Phase 15 (d)'s row driver. For each kernel name of `builders` and
+    each shape (key) that `seen` recorded on rank 0, float32 then bfloat16,
+    `builders[name](key, dtype, randn, inputs)` gives the row: `run_k`,
+    `run_p` (the kernel and plain calls), `lib` (one PyTorch call of the
+    same function, or None), the outputs `got` and `want`, `ref` (None, or
+    float32 plain outputs: then the bound is BF16_GRAD_FACTOR x the plain
+    version's own distance from them), `bound`, `label`, `note` and
+    `bitwise` (two calls must agree bit for bit). Every output must be
+    finite and within the bound; CUDA-event and device times of each call.
+    Returns {name: {dtype: totals}}, each weighted by the calls per `per`
+    (`inputs` is the builder's own cache, shared by a key's two dtypes)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    out = {}
+    for name, build in builders.items():
+        out[name] = {}
+        inputs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
+                   "plain_device_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "calls": 0,
+                   "library_ms": None, "library_device_ms": None}
+            by = {"bytes": 0.0, "operations": 0.0}
+            for key, count in sorted(seen[name].items(), key=lambda kv: str(kv[0])):
+                r = build(key, dtype, randn, inputs)
+                label, ref = r["label"], r.get("ref")
+                torch.cuda.synchronize()
+                abs_err = rel_err = 0.0
+                for g_, w_ in zip(r["got"], r["want"] if ref is None else ref):
+                    if not torch.isfinite(g_.float()).all():
+                        fail(f"{name} {label} {dname}: non-finite output")
+                    a_, r_ = errs(g_.float(), w_.float())
+                    abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
+                if ref is None:
+                    tol = TOL[name][dname]
+                    tol_note = f"tol {tol:g}"
+                else:  # bf16: against the f32 plain versions, 2x the plain bf16's own error
+                    plain_err = max(errs(w_.float(), r_.float())[1]
+                                    for w_, r_ in zip(r["want"], ref))
+                    tol = BF16_GRAD_FACTOR * plain_err
+                    tol_note = (f"vs float32 plain; tol {BF16_GRAD_FACTOR:g} x the plain "
+                                f"bfloat16's {plain_err:.3e}")
+                bit_note = ""
+                if r.get("bitwise"):
+                    if not same_bits(r["run_k"](), r["run_k"]()):
+                        fail(f"{name} {label} {dname}: two calls on the same inputs differ")
+                    bit_note = "; bitwise equal across two calls"
+                lib = r.get("lib")
+                fns = (r["run_k"], r["run_p"]) + ((lib,) if lib else ())
+                ms = [time_ms(f, runs=ROW_RUNS) for f in fns]
+                dv = [device_ms(f, runs=ROW_DEVICE_RUNS) for f in fns]
+                lib_note = (f", {lib_name} {ms[2]:.4f} ms (device {dv[2]:.4f})" if lib else "")
+                b_ms, b_by = r["bound"]
+                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e} ({tol_note})"
+                      f"{r.get('note', '')}{bit_note}; kernel {ms[0]:.4f} ms per call (device "
+                      f"{dv[0]:.4f}), plain {ms[1]:.4f} ms (device {dv[1]:.4f}){lib_note}; "
+                      f"bound {b_ms:.4f} ms ({b_by}){'' if rel_err <= tol else '  <-- FAIL'}")
+                if rel_err > tol:
+                    fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
+                for k_, v_ in (("ms", ms[0]), ("plain_ms", ms[1]), ("device_ms", dv[0]),
+                               ("plain_device_ms", dv[1]), ("bound_ms", b_ms)):
+                    tot[k_] += v_ * count
+                if lib:
+                    tot["library_ms"] = (tot["library_ms"] or 0.0) + ms[2] * count
+                    tot["library_device_ms"] = (tot["library_device_ms"] or 0.0) + dv[2] * count
+                tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+                tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
+                tot["calls"] += count
+                by[b_by] += b_ms * count
+            tot["bound_by"] = max(by, key=by.get)
+            out[name][dname] = tot
+            lib_sum = ("" if tot["library_ms"] is None else
+                       f", {lib_name} {tot['library_ms']:.3f} ms (device "
+                       f"{tot['library_device_ms']:.3f})")
+            phase(f"  {name} {dname}: {tot['calls']} calls per {per} on rank 0 take "
+                  f"{tot['ms']:.3f} ms (device {tot['device_ms']:.3f}) vs plain "
+                  f"{tot['plain_ms']:.3f} ms (device {tot['plain_device_ms']:.3f}){lib_sum}; "
+                  f"bound {tot['bound_ms']:.3f} ms")
+    return out
 
 
 def md_rows(torch, dev, seen):
@@ -4385,111 +4552,348 @@ def md_rows(torch, dev, seen):
 
     from asyrp_official_torch.ops import attention as k2, groupnorm as k1
 
-    gen = torch.Generator(device=dev).manual_seed(15)
+    def k1_across(key, dtype, randn, inputs):
+        es = torch.tensor([], dtype=dtype).element_size()
+        shape, silu, eps, fused = key
+        x = (randn(*shape) * 3 + 4).to(dtype)
+        w, b = 1 + 0.1 * randn(shape[1]), 0.1 * randn(shape[1])
+        kw, extra = {}, 0
+        if fused == "pre_add":
+            kw["pre_add"] = randn(shape[0], shape[1]).to(dtype)
+            extra = shape[0] * shape[1] * es
+        elif fused == "scale_shift":
+            kw["scale_shift"] = (0.1 * randn(shape[0], 2 * shape[1])).to(dtype)
+            extra = 2 * shape[0] * shape[1] * es
+        # this block as one of 4 ranks' (the other parts as its own)
+        parts_p = k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
+        mean, rstd = k1.combine_group_stats(parts_p.expand(4, *parts_p.shape), eps)
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+        def run_k():
+            k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
+            return k1.group_norm_apply(x, w, b, mean, rstd, silu=silu, **kw)
 
-    out = {}
-    for name in ("group_norm_across", "attention_kv"):
-        out[name] = {}
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
-            es = torch.tensor([], dtype=dtype).element_size()
-            tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "device_ms": 0.0,
-                   "plain_device_ms": 0.0, "max_abs_err": 0.0, "max_rel_err": 0.0, "calls": 0}
-            if name == "attention_kv":
-                tot.update(library_ms=0.0, library_device_ms=0.0)
-            by = {"bytes": 0.0, "operations": 0.0}
-            for key, count in sorted(seen[name].items(), key=lambda kv: str(kv[0])):
-                if name == "group_norm_across":
-                    shape, silu, eps, fused = key
-                    x = (randn(*shape) * 3 + 4).to(dtype)
-                    w, b = 1 + 0.1 * randn(shape[1]), 0.1 * randn(shape[1])
-                    kw, extra = {}, 0
-                    if fused == "pre_add":
-                        kw["pre_add"] = randn(shape[0], shape[1], dtype=dtype)
-                        extra = shape[0] * shape[1] * es
-                    elif fused == "scale_shift":
-                        kw["scale_shift"] = (0.1 * randn(shape[0], 2 * shape[1])).to(dtype)
-                        extra = 2 * shape[0] * shape[1] * es
-                    # this block as one of 4 ranks' (the other parts as its own)
-                    parts_p = k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
-                    mean, rstd = k1.combine_group_stats(parts_p.expand(4, *parts_p.shape), eps)
+        def run_p():
+            k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
+            return k1.group_norm_apply_plain(x, w, b, mean, rstd, silu=silu, **kw)
 
-                    def run_k():
-                        k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
-                        return k1.group_norm_apply(x, w, b, mean, rstd, silu=silu, **kw)
+        parts = k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
+        m_k, r_k = k1.combine_group_stats(parts.expand(4, *parts.shape), eps)
+        n = x.numel()
+        return dict(run_k=run_k, run_p=run_p, got=[m_k, r_k, run_k()],
+                    want=[mean, rstd, run_p()],
+                    bound=bound(2 * n * es + 2 * shape[1] * 4 + extra, n * (10 + 4 * silu),
+                                PEAK_FLOPS["float32"]),
+                    label=f"{list(shape)} silu={int(silu)} eps={eps:g} fused={fused}")
 
-                    def run_p():
-                        k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
-                        return k1.group_norm_apply_plain(x, w, b, mean, rstd, silu=silu, **kw)
+    def k2_kv(key, dtype, randn, inputs):
+        es = torch.tensor([], dtype=dtype).element_size()
+        dname = str(dtype).split(".")[-1]
+        qs, ks, heads, legacy = key
+        q = randn(*qs).to(dtype)
+        kk, v = randn(*ks).to(dtype), randn(*ks).to(dtype)
+        kw = dict(num_heads=heads, legacy_scale=legacy)
+        run_k = lambda: k2.attention(q, kk, v, **kw)
+        run_p = lambda: k2.attention_plain(q, kk, v, **kw)
+        bsz, tq, c = qs
+        tk, hd = ks[1], c // heads
+        q4 = q.view(bsz, tq, heads, hd).transpose(1, 2)
+        k4, v4 = (a.view(bsz, tk, heads, hd).transpose(1, 2) for a in (kk, v))
+        o_p, lse_p = k2._plain_with_lse(q, kk, v, heads, legacy)
+        return dict(run_k=run_k, run_p=run_p,
+                    lib=lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5),
+                    got=[run_k(), *k2._attention_cuda(q, kk, v, True, heads, legacy)],
+                    want=[o_p, o_p, lse_p],
+                    bound=bound(2 * bsz * (tq + tk) * c * es, 4 * bsz * tq * tk * c,
+                                PEAK_FLOPS[dname]),
+                    label=f"q {list(qs)} k {list(ks)} heads={heads} legacy_scale={int(legacy)}")
 
-                    parts = k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
-                    m_k, r_k = k1.combine_group_stats(parts.expand(4, *parts.shape), eps)
-                    got = [m_k, r_k, run_k()]
-                    want = [mean, rstd, run_p()]
-                    lib = None
-                    n = x.numel()
-                    b_ms, b_by = bound(2 * n * es + 2 * shape[1] * 4 + extra, n * (10 + 4 * silu),
-                                       PEAK_FLOPS["float32"])
-                    label = f"{list(shape)} silu={int(silu)} eps={eps:g} fused={fused}"
-                else:
-                    qs, ks, heads, legacy = key
-                    q = randn(*qs, dtype=dtype)
-                    kk, v = randn(*ks, dtype=dtype), randn(*ks, dtype=dtype)
-                    kw = dict(num_heads=heads, legacy_scale=legacy)
-                    run_k = lambda: k2.attention(q, kk, v, **kw)
-                    run_p = lambda: k2.attention_plain(q, kk, v, **kw)
-                    bsz, tq, c = qs
-                    tk, hd = ks[1], c // heads
-                    q4 = q.view(bsz, tq, heads, hd).transpose(1, 2)
-                    k4, v4 = (a.view(bsz, tk, heads, hd).transpose(1, 2) for a in (kk, v))
-                    lib = lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5)
-                    o_p, lse_p = k2._plain_with_lse(q, kk, v, heads, legacy)
-                    got = [run_k(), *k2._attention_cuda(q, kk, v, True, heads, legacy)]
-                    want = [o_p, o_p, lse_p]
-                    b_ms, b_by = bound(2 * bsz * (tq + tk) * c * es, 4 * bsz * tq * tk * c,
-                                       PEAK_FLOPS[dname])
-                    label = f"q {list(qs)} k {list(ks)} heads={heads} legacy_scale={int(legacy)}"
-                torch.cuda.synchronize()
-                abs_err = rel_err = 0.0
-                for g_, w_ in zip(got, want):
-                    if not torch.isfinite(g_.float()).all():
-                        fail(f"{name} {label} {dname}: non-finite output")
-                    a_, r_ = errs(g_.float(), w_.float())
-                    abs_err, rel_err = max(abs_err, a_), max(rel_err, r_)
-                fns = (run_k, run_p) + ((lib,) if lib else ())
-                ms = [time_ms(f, runs=ROW_RUNS) for f in fns]
-                dv = [device_ms(f, runs=ROW_DEVICE_RUNS) for f in fns]
-                tol = TOL[name][dname]
-                lib_note = (f", SDPA {ms[2]:.4f} ms (device {dv[2]:.4f})" if lib else "")
-                phase(f"  {name} {dname} {label} x{count}: rel err {rel_err:.3e} (tol {tol:g}); "
-                      f"kernel {ms[0]:.4f} ms per call (device {dv[0]:.4f}), plain {ms[1]:.4f} "
-                      f"ms (device {dv[1]:.4f}){lib_note}; bound {b_ms:.4f} ms ({b_by})"
-                      f"{'' if rel_err <= tol else '  <-- FAIL'}")
-                if rel_err > tol:
-                    fail(f"{name} {label} {dname} disagrees with its plain version: {rel_err:.3e}")
-                for k_, v_ in (("ms", ms[0]), ("plain_ms", ms[1]), ("device_ms", dv[0]),
-                               ("plain_device_ms", dv[1]), ("bound_ms", b_ms)):
-                    tot[k_] += v_ * count
-                if lib:
-                    tot["library_ms"] += ms[2] * count
-                    tot["library_device_ms"] += dv[2] * count
-                tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
-                tot["max_rel_err"] = max(tot["max_rel_err"], rel_err)
-                tot["calls"] += count
-                by[b_by] += b_ms * count
-            tot["bound_by"] = max(by, key=by.get)
-            tot.setdefault("library_ms", None)
-            out[name][dname] = tot
-            lib_sum = ("" if tot["library_ms"] is None else
-                       f", SDPA {tot['library_ms']:.3f} ms (device {tot['library_device_ms']:.3f})")
-            phase(f"  {name} {dname}: {tot['calls']} calls per request on rank 0 take "
-                  f"{tot['ms']:.3f} ms (device {tot['device_ms']:.3f}) vs plain "
-                  f"{tot['plain_ms']:.3f} ms (device {tot['plain_device_ms']:.3f}){lib_sum}; "
-                  f"bound {tot['bound_ms']:.3f} ms")
-    return out
+    return md_row_table(torch, dev, seen, {"group_norm_across": k1_across, "attention_kv": k2_kv},
+                        seed=15, per="request", lib_name="SDPA")
+
+
+# phase 15 (e) and (f): spatial training and the other modes under spatial
+# sharding (the Δ leaves and grids against one process, with the JAX
+# package's bounds; the LPIPS curves at its --lpips bound)
+MD_LPIPS_TOL = 5e-3
+MD_TRAIN_KERNELS = ("group_norm_bwd_part", "group_norm_bwd_apply", "attention_kv_bwd")
+MD_ONE_RANK = ("group_norm", "group_norm_bwd", "attention", "attention_mh", "attention_bwd",
+               "attention_mh_bwd")
+TOL.update({"group_norm_bwd_across": {"float32": 1e-4},
+            "attention_kv_bwd": {"float32": 1e-4}})
+
+
+def md_e_runs(ws: str, case: str, clip_ckpt: str, afhq_model: str, mesh=()):
+    """(e)'s CLI runs of one case: `blocks` (custom.yml, CLIP + L1, bs 1,
+    then serving its block), `rows` (custom.yml --train_delta_h, bs 1) or
+    `afhq` (afhq.yml, CLIP + L1, bs 2)."""
+    imgs = os.path.join(ws, "imgs")
+    one = ["--bs_train", "1", "--n_train_img", "1", *mesh]
+    if case == "blocks":
+        return [md_train_argv(ws, imgs, clip_ckpt, one),
+                md_serve_argv(ws, CONFIG, imgs, ["--n_iter", "1", *mesh], ckpt=None)]
+    if case == "rows":
+        argv = md_train_argv(ws, imgs, clip_ckpt, one)
+        return [["--train_delta_h" if a == "--train_delta_block" else a for a in argv]]
+    return [openai_train_argv("afhq", ws, afhq_model, clip_ckpt, "md", extra=[
+        "--device", MD_DEVICE, "--n_inv_step", str(MD_STEPS), "--n_train_step", str(MD_STEPS),
+        "--n_iter", "1", "--n_train_img", "2", "--bs_train", "2", "--do_test", "0", *mesh])]
+
+
+def md_f_runs(ws: str, npz: str, mesh=()):
+    """(f)'s CLI runs on custom.yml with the seeded random UNet: `--lpips`
+    (MD_STEPS inversion steps of 2 images), `--run_fidelity` (phase 15's
+    seeded block, 1 image) and `--diff_style` (1 content x 1 style)."""
+    imgs = os.path.join(ws, "imgs")
+    common = ["--config", CONFIG, "--allow_random_weights", "--device", MD_DEVICE,
+              "--work_dir", ws, "--seed", str(SEED), "--ni",
+              "--user_defined_t_edit", str(T_EDIT), "--user_defined_t_addnoise", str(T_ADDNOISE),
+              "--custom_train_dataset_dir", imgs, "--custom_test_dataset_dir", imgs,
+              "--n_inv_step", str(MD_STEPS), "--n_train_step", str(MD_STEPS),
+              "--n_test_step", str(MD_STEPS), "--bs_train", "1", *mesh]
+    return [["--exp", os.path.join(ws, "runs", "calib"), "--lpips", "--lpips_ckpt", npz,
+             "--n_train_img", "1", *common],
+            ["--exp", os.path.join(ws, "runs", "fid"), "--run_fidelity", "--train_delta_block",
+             "--manual_checkpoint_name", "smoke_delta.pth", "--n_test_img", "1", *common],
+            ["--exp", os.path.join(ws, "runs", "style"), "--diff_style",
+             "--content_dir", os.path.join(ws, "contents"), "--style_dir",
+             os.path.join(ws, "styles"), "--save_dir", os.path.join(ws, "runs", "styled"),
+             "--n_gen_step", str(MD_STEPS), *common]]
+
+
+def md_leaves(ws: str):
+    """The trained Δ's leaves (the exp's iteration 0): a block's, or the rows."""
+    import numpy as np
+
+    from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint
+
+    (path,) = glob.glob(os.path.join(ws, "checkpoint", "md_*_0.pth"))
+    loaded = load_delta_checkpoint(path)
+    if "blocks" not in loaded:
+        return {f"row {t}": np.asarray(r) for t, r in loaded["delta_rows"].items()}
+    blk = loaded["blocks"][0]
+    return {f"{g}.{k}": np.asarray(blk[g][k]) for g in sorted(blk) for k in sorted(blk[g])}
+
+
+def md_train_phase(torch, card, ws_root: str, clip_ckpt: str, afhq_model: str):
+    """Phase 15 (e): four gloo ranks on the one card, Δ-training under
+    spatial sharding against one process: `custom.yml --dp 4 --tp_spatial`
+    (a DeltaBlock, CLIP + L1, bs 1, then serving its block; the Δh rows),
+    `afhq.yml --dp 2 --sp 2` (bs 2); Δ leaves within MD_DELTA_TOL, grids
+    within MD_GRID_TOL; K1-bwd across ranks and K2-bwd with Tq != Tk
+    launched, no one-rank K1, K2, K1-bwd or K2-bwd; rank 0's collectives per
+    training timestep. (f): two gloo ranks, `--lpips`, `--run_fidelity` and
+    `--diff_style` under `--dp 2 --tp_spatial` against one process (curves
+    within MD_LPIPS_TOL, images within MD_GRID_TOL). Returns the results
+    and the backward entries' shapes on rank 0 (for their rows)."""
+    import numpy as np
+
+    from asyrp_official_torch.utils.assets import load_lpips_tsv
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ws_root, "multi_device_train")
+    os.makedirs(root)
+    cases = ("blocks", "rows", "afhq")
+    ws_e = {(k, c): md_workspace(root, f"e_{k}_{c}") for k in ("spatial", "none") for c in cases}
+    ws_f = {k: md_workspace(root, f"f_{k}") for k in ("spatial", "none")}
+    npz = write_lpips_npz(os.path.join(root, "lpips.npz"))
+    for ws in ws_f.values():
+        write_images(ws, n=1, sub="contents")
+        write_images(ws, n=1, sub="styles")
+    meshes = {"blocks": ["--dp", "4", "--tp_spatial"], "rows": ["--dp", "4", "--tp_spatial"],
+              "afhq": ["--dp", "2", "--sp", "2"]}
+    e_runs = lambda k: [argv for c in cases for argv in md_e_runs(
+        ws_e[k, c], c, clip_ckpt, afhq_model, meshes[c] if k == "spatial" else ())]
+    t0 = time.perf_counter()
+    waits = [start_ranks(4, "gloo", e_runs("spatial"), os.path.join(root, "e_spatial"),
+                         record=True),
+             start_ranks(1, "none", e_runs("none"), os.path.join(root, "e_none")),
+             start_ranks(2, "gloo", md_f_runs(ws_f["spatial"], npz, ["--dp", "2", "--tp_spatial"]),
+                         os.path.join(root, "f_spatial"), record=True),
+             start_ranks(1, "none", md_f_runs(ws_f["none"], npz), os.path.join(root, "f_none"))]
+    res_e, res_e_none, res_f, res_f_none = (w(900) for w in waits)
+    out = {"seconds_e_f": time.perf_counter() - t0, "e": {}, "f": {}}
+
+    # (e): the Δ, the grids, the launches and rank 0's collectives per timestep
+    labels = {"blocks": "custom.yml --dp 4 --tp_spatial, DeltaBlock",
+              "rows": "custom.yml --dp 4 --tp_spatial, Δh rows",
+              "afhq": "afhq.yml --dp 2 --sp 2, DeltaBlock, bs 2"}
+    seen = {"group_norm_bwd_across": {}, "attention_kv_bwd": {}}
+    i = 0
+    worst_d = worst_g = 0
+    for c in cases:
+        la, lb = md_leaves(ws_e["none", c]), md_leaves(ws_e["spatial", c])
+        if sorted(la) != sorted(lb):
+            fail(f"phase 15 (e) {c}: leaves {sorted(la)} vs {sorted(lb)}")
+        d_err = max(float(np.abs(la[k] - lb[k]).max()) for k in la)
+        g_err = (grids_diff(grid_arrays(ws_e["spatial", c]), grid_arrays(ws_e["none", c]),
+                            f"phase 15 (e) {c}") if c == "blocks" else None)
+        worst_d, worst_g = max(worst_d, d_err), max(worst_g, g_err or 0)
+        n_runs = 2 if c == "blocks" else 1
+        train = [r[i] for r in res_e]
+        counts = {k_: sum(r[k_] for r in (t["counts"] for t in train)) for k_ in train[0]["counts"]}
+        if not all(counts[k_] for k_ in MD_TRAIN_KERNELS + MD_KERNELS):
+            fail(f"phase 15 (e) {c}: the across-ranks entries did not all launch: {counts}")
+        if any(counts[k_] for k_ in MD_ONE_RANK):
+            fail(f"phase 15 (e) {c}: a one-rank K1, K2, K1-bwd or K2-bwd launched under "
+                 f"spatial sharding: {counts}")
+        r0 = train[0]
+        n_coll, n_bytes, coll_ms = r0["coll_train"]
+        steps = max(r0["train_steps"], 1)
+        run = {"delta_max_abs_err": d_err, "grid_max_levels": g_err, "launches": counts,
+               "rank0_launches": r0["counts"], "wall_s": r0["wall_s"],
+               "single_process_wall_s": res_e_none[0][i]["wall_s"],
+               "train_timesteps": r0["train_steps"], "collectives_per_timestep": n_coll / steps,
+               "collective_mb_per_timestep": n_bytes / steps / 1e6,
+               "collective_ms_per_timestep": coll_ms / steps,
+               "collective_ms_run": r0["coll"][2]}
+        out["e"][labels[c]] = run
+        family = "openai" if c == "afhq" else "ddpm"
+        for key, n in r0["gnb"].items():
+            shape, dname, silu = json.loads(key)
+            if dname == "torch.float32":
+                k_ = (tuple(shape), silu, 1e-5 if family == "openai" else 1e-6)
+                seen["group_norm_bwd_across"][k_] = seen["group_norm_bwd_across"].get(k_, 0) + n
+        for key, n in r0["kvb"].items():
+            qs, ks, dname, heads, legacy = json.loads(key)
+            if dname == "torch.float32":
+                k_ = (tuple(qs), tuple(ks), heads, legacy)
+                seen["attention_kv_bwd"][k_] = seen["attention_kv_bwd"].get(k_, 0) + n
+        grids = "" if g_err is None else f", grids {g_err} levels (tol {MD_GRID_TOL})"
+        phase(f"  (e) {labels[c]} ({MD_STEPS} + {MD_STEPS} steps, f32) on {card}: Δ leaves max "
+              f"|a - b| {d_err:.3e} against one process (tol {MD_DELTA_TOL:g}){grids}; training "
+              f"launches over the ranks {counts}; rank 0: {r0['train_steps']} training "
+              f"timesteps with {n_coll / steps:.0f} collectives each ({n_bytes / steps / 1e6:.2f} "
+              f"MB, {coll_ms / steps:.1f} ms per timestep, synchronized around each: gloo "
+              f"through the host, ranks sharing one card, not multi-GPU scaling); CLI run "
+              f"{r0['wall_s']:.1f} s vs {res_e_none[0][i]['wall_s']:.1f} s in one process")
+        i += n_runs
+    if worst_d > MD_DELTA_TOL or worst_g > MD_GRID_TOL:
+        fail(f"phase 15 (e): spatial training differs from one process: Δ {worst_d:.3e}, "
+             f"grids {worst_g}")
+
+    # (f): --lpips, --run_fidelity and --diff_style under --dp 2 --tp_spatial
+    g_err = grids_diff(grid_arrays(ws_f["spatial"]), grid_arrays(ws_f["none"]), "phase 15 (f)")
+    curve_err = 0.0
+    for kind in LPIPS_KINDS:
+        name = f"celeba_LPIPS_distance_{kind}.tsv"
+        a, b = (load_lpips_tsv(os.path.join(ws_f[k], "utils", name)) for k in ("none", "spatial"))
+        if list(a) != list(b) or not a:
+            fail(f"phase 15 (f): {name} keys {list(a)} vs {list(b)}")
+        curve_err = max(curve_err, max(abs(a[t] - b[t]) for t in a))
+    counts = [{k_: sum(r[j]["counts"][k_] for r in res_f) for k_ in res_f[0][j]["counts"]}
+              for j in range(3)]
+    for c_, what in zip(counts, ("--lpips", "--run_fidelity", "--diff_style")):
+        if not all(c_[k_] for k_ in MD_KERNELS) or any(c_[k_] for k_ in MD_ONE_RANK):
+            fail(f"phase 15 (f) {what}: launches {c_} (the across-ranks entries must launch, "
+                 "the one-rank ones never)")
+    out["f"] = {"image_max_levels": g_err, "lpips_curve_max_abs_err": curve_err,
+                "launches": counts, "wall_s": [r["wall_s"] for r in res_f[0]],
+                "single_process_wall_s": [r["wall_s"] for r in res_f_none[0]]}
+    phase(f"  (f) --lpips ({MD_STEPS} steps, 2 images), --run_fidelity and --diff_style under "
+          f"--dp 2 --tp_spatial on {card}, against one process: images {g_err} levels (tol "
+          f"{MD_GRID_TOL}), LPIPS curves max |a - b| {curve_err:.3e} (tol {MD_LPIPS_TOL:g}); "
+          f"launches over the ranks {counts}; walls {out['f']['wall_s']} s vs "
+          f"{out['f']['single_process_wall_s']} s in one process")
+    if g_err > MD_GRID_TOL or curve_err > MD_LPIPS_TOL:
+        fail(f"phase 15 (f): differs from one process: images {g_err}, curves {curve_err:.3e}")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase(f"  phase 15 (e)-(f) took {out['seconds']:.1f} s")
+    return out, seen
+
+
+def md_bwd_rows(torch, dev, seen):
+    """Phase 15 (d), the backward entries: K1-bwd across ranks (the part
+    sums, then dx from the combined sums) and K2-bwd with Tq != Tk against
+    their plain versions at every shape (e) gave them on rank 0: float32
+    within 1e-4 of scale (the gradients also against `torch.autograd.grad`
+    through the plain forward and, K2-bwd, against SDPA's backward at the
+    same Tq / Tk); bfloat16 no farther from the float32 plain versions on
+    the float32 inputs than 2x the plain versions in bfloat16;
+    two calls bit for bit; CUDA-event and device times, SDPA's backward at
+    the same Tq / Tk (K2), the bound. Per row and per run (rank 0's calls)."""
+    import torch.nn.functional as F
+
+    from asyrp_official_torch.ops import attention as k2, groupnorm as k1
+
+    def k1_bwd_across(key, dtype, randn, inputs):
+        es = torch.tensor([], dtype=dtype).element_size()
+        shape, silu, eps = key
+        if key not in inputs:
+            inputs[key] = (randn(*shape) * 3 + 4, randn(*shape), 1 + 0.1 * randn(shape[1]),
+                           0.1 * randn(shape[1]))
+        x32, dy32, w, b = inputs[key]
+
+        def make(x, dy):
+            # this block as one of 4 ranks' (the other parts, and sums, as its own)
+            parts = k1.group_norm_part_stats_plain(x)
+            mean, rstd = k1.combine_group_stats(parts.expand(4, *parts.shape), eps)
+            count = 4 * x[0, : x.shape[1] // 32].numel()
+
+            def run(part, apply):
+                sums, wsum = part(x, dy, w, b, mean, rstd, silu=silu)
+                return sums, wsum, apply(x, dy, w, b, mean, rstd, 4 * sums / count, silu=silu)
+
+            return (lambda: run(k1.group_norm_bwd_part, k1.group_norm_bwd_apply),
+                    lambda: run(k1.group_norm_bwd_part_plain, k1.group_norm_bwd_apply_plain))
+
+        run_k, run_p = make(x32.to(dtype), dy32.to(dtype))
+        n, bsz, c = x32.numel(), shape[0], shape[1]
+        # the function's own traffic, as the one-rank K1-bwd row counts it: x
+        # and dy read and dx written once; the weight and bias read and wsum
+        # [B, 2, C] written; mean and rstd read, the [B, G, 2] sums written
+        # and read back (the two-pass design reads x and dy twice: 5n)
+        return dict(run_k=run_k, run_p=run_p, got=run_k(), want=run_p(),
+                    ref=make(x32, dy32)[1]() if dtype != torch.float32 else None,
+                    bound=bound(3 * n * es + (2 + 2 * bsz) * c * 4 + 6 * bsz * 32 * 4,
+                                n * (17 + 10 * silu), PEAK_FLOPS["float32"]),
+                    label=f"{list(shape)} silu={int(silu)} eps={eps:g}", bitwise=True)
+
+    def k2_kv_bwd(key, dtype, randn, inputs):
+        es = torch.tensor([], dtype=dtype).element_size()
+        dname = str(dtype).split(".")[-1]
+        qs, ks, heads, legacy = key
+        if key not in inputs:
+            inputs[key] = (randn(*qs), randn(*ks), randn(*ks), randn(*qs))
+        q32, k32, v32, do32 = inputs[key]
+        kw = dict(num_heads=heads, legacy_scale=legacy)
+        q, kk, v, d_o = (t.to(dtype) for t in (q32, k32, v32, do32))
+        o, lse = k2._plain_with_lse(q, kk, v, heads, legacy)
+        run_k = lambda: k2.attention_backward(q, kk, v, o, d_o, lse, **kw)
+        run_p = lambda: k2.attention_backward_plain(q, kk, v, o, d_o, lse, **kw)
+        ref = None
+        if dtype != torch.float32:
+            o32, lse32 = k2._plain_with_lse(q32, k32, v32, heads, legacy)
+            ref = k2.attention_backward_plain(q32, k32, v32, o32, do32, lse32, **kw)
+        bsz, tq, c = qs
+        tk, hd = ks[1], c // heads
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, kk, v))
+        q4, k4, v4 = (a.view(bsz, a.shape[1], heads, hd).transpose(1, 2) for a in (qg, kg, vg))
+        do4 = d_o.view(bsz, tq, heads, hd).transpose(1, 2)
+        o_lib = F.scaled_dot_product_attention(q4, k4, v4, scale=hd ** -0.5)
+        lib = lambda: torch.autograd.grad(o_lib, (qg, kg, vg), do4, retain_graph=True)
+        label = f"q {list(qs)} k {list(ks)} heads={heads} legacy_scale={int(legacy)}"
+        got, want, note = run_k(), run_p(), ""
+        if dtype == torch.float32:
+            # the gradients through autograd, against the plain forward's
+            qa, ka, va = (t.detach().clone().requires_grad_() for t in (q, kk, v))
+            got_a = torch.autograd.grad(k2.attention(qa, ka, va, **kw), (qa, ka, va), d_o)
+            want_a = torch.autograd.grad(k2.attention_plain(qa, ka, va, **kw), (qa, ka, va), d_o)
+            got, want = tuple(got) + tuple(got_a), tuple(want) + tuple(want_a)
+            # and against SDPA's backward at the same Tq / Tk (the same
+            # function: d^-0.5 on the logits of the unscaled q and k)
+            sdpa_err = max(errs(g_.float(), w_.float())[1] for g_, w_ in zip(got_a, lib()))
+            note = f"; vs SDPA's backward {sdpa_err:.3e}"
+            if sdpa_err > TOL["attention_kv_bwd"][dname]:
+                fail(f"attention_kv_bwd {label}: the gradients differ from SDPA's backward by "
+                     f"{sdpa_err:.3e}")
+        return dict(run_k=run_k, run_p=run_p, lib=lib, got=got, want=want, ref=ref,
+                    bound=bound(4 * bsz * (tq + tk) * c * es + 8 * bsz * heads * tq,
+                                10 * bsz * tq * tk * c, PEAK_FLOPS[dname]),
+                    label=label, note=note, bitwise=True)
+
+    return md_row_table(torch, dev, seen, {"group_norm_bwd_across": k1_bwd_across,
+                                           "attention_kv_bwd": k2_kv_bwd},
+                        seed=16, per="run", lib_name="SDPA backward")
 
 
 def _ptxas_by_entry(log: str):
@@ -4755,6 +5159,13 @@ def main() -> int:
         phase(f"  (d) K1 across ranks and K2 with Tq != Tk against their plain versions at the "
               f"shapes of (c) (ms = median of {ROW_RUNS} CUDA-event runs)")
         md_kernel_rows = md_rows(torch, dev, md_seen)
+        phase("  (e) Δ-training under spatial sharding (four gloo ranks) and (f) --lpips, "
+              "--run_fidelity and --diff_style under --dp 2 --tp_spatial, against one process")
+        md_train, md_bwd_seen = md_train_phase(torch, card, ws_root, clip_ckpt, model_path)
+        phase(f"  (d) K1-bwd across ranks and K2-bwd with Tq != Tk against their plain versions "
+              f"at the shapes of (e) (ms = median of {ROW_RUNS} CUDA-event runs)")
+        md_kernel_rows.update(md_bwd_rows(torch, dev, md_bwd_seen))
+        md["train"] = md_train
     finally:
         shutil.rmtree(ws_root, ignore_errors=True)
 
@@ -4863,6 +5274,7 @@ def main() -> int:
                              if k in v} for d, v in r.items()},
         })
     md_runs = md["c"]["runs"]
+    md_train_runs = md["train"]["e"]
     for name, replaces, counter in (
             ("group_norm_across", "asyrp_official_tpu/models/common.py:147 (group_norm on "
              "activations GSPMD splits by rows, parallel/spatial.py:42 spatial_shard and :65 "
@@ -4870,16 +5282,26 @@ def main() -> int:
              "gn_apply", "group_norm_apply"),
             ("attention_kv", "asyrp_official_tpu/models/common.py:238 (spatial_attention on "
              "activations GSPMD splits by rows, parallel/spatial.py:42 and :65: a rank's query "
-             "rows against the whole image's keys)", "attention_kv")):
+             "rows against the whole image's keys)", "attention_kv"),
+            ("group_norm_bwd_across", "asyrp_official_tpu/models/common.py:147 (group_norm's "
+             "gradient on activations GSPMD splits by rows in Δ-training, parallel/spatial.py:42 "
+             "and :65; former jax.custom_vjp ops/groupnorm.py:105-127 at 4b63bc3^): gn_bwd_part "
+             "+ gn_bwd_apply", "group_norm_bwd_apply"),
+            ("attention_kv_bwd", "asyrp_official_tpu/models/common.py:238 (spatial_attention's "
+             "gradient on activations GSPMD splits by rows in Δ-training: a rank's query rows "
+             "against the whole image's keys; former jax.custom_vjp ops/attention.py:98-125 at "
+             "4b63bc3^)", "attention_kv_bwd")):
         r = md_kernel_rows[name]
         f32 = r["float32"]
+        runs_ = md_train_runs if name.endswith("_bwd_across") or name.endswith("_kv_bwd") \
+            else md_runs
         kernels.append({
             "name": name, "route": "cuda",
-            "source": ("asyrp_official_torch/csrc/groupnorm.cu" if name == "group_norm_across"
+            "source": ("asyrp_official_torch/csrc/groupnorm.cu" if name.startswith("group_norm")
                        else "asyrp_official_torch/csrc/attention.cu"),
             "replaces": replaces,
-            "launches": sum(v["launches"][counter] for v in md_runs.values()),
-            "launches_by_run": {k: v["launches"][counter] for k, v in md_runs.items()},
+            "launches": sum(v["launches"][counter] for v in runs_.values()),
+            "launches_by_run": {k: v["launches"][counter] for k, v in runs_.items()},
             "max_abs_err": max(v["max_abs_err"] for v in r.values()),
             "max_rel_err_by_dtype": {d: v["max_rel_err"] for d, v in r.items()},
             "ms": f32["ms"], "plain_ms": f32["plain_ms"], "bound_ms": f32["bound_ms"],

@@ -12,7 +12,8 @@ float32 DDIM and DDPM steps and K3's backward (elementwise, ulp-level
 differences only), 1e-2 where their output is bfloat16. The backward
 kernels (K1-bwd, K2-bwd with one head or several) against
 `torch.autograd.grad` through the plain forward: 1e-4 in float32, 5e-2 in
-bfloat16 (the gradient passes through more roundings of the I/O type).
+bfloat16 (the gradient passes through more roundings of the I/O type);
+the same for K1-bwd across ranks and K2-bwd with Tq != Tk.
 K1's fused entry (pre-add, FiLM epilogue) against K1 followed by the torch
 ops it replaces: 1e-6 of scale in float32, one bf16 step per element (the
 same roundings; SiLU's exp may differ in the last f32 bit).
@@ -926,3 +927,114 @@ def test_attention_kv_kernel_matches_plain(cuda_device, b, tq, tk, c, heads, leg
     close_to_scale(want.float().cpu().numpy(), got.float().cpu().numpy(), "attention kv",
                    bound=bound)
     assert k2.attention.kv_launches == n + 2
+
+
+# K1-bwd across ranks and K2-bwd with Tq != Tk: the backward entries spatial
+# training runs (S row blocks of one image on one card here; the cross-rank
+# sum of the K1 sums is a sum over the blocks). The shapes are chip_smoke.py
+# phase 15 (e)'s: custom.yml's decoder norms at S = 4, from the DeltaBlock's
+# at the 8^2 bottleneck to the 256^2 level, and afhq.yml's at S = 2 (FiLM:
+# the norm without SiLU, the epilogue in torch ops around it); and ragged
+# local runs (the scalar instance).
+_ACROSS_BWD = [
+    # (whole NCHW shape, S, silu)
+    ((1, 512, 8, 8), 4, True),        # the DeltaBlock's norm: [1, 512, 2, 8] per rank
+    ((1, 128, 256, 256), 4, True),    # [1, 128, 64, 256] per rank
+    ((1, 256, 256, 256), 4, True),
+    ((1, 512, 32, 32), 4, False),
+    ((1, 512, 16, 16), 2, False),     # afhq.yml's FiLM norms at S = 2
+    ((2, 384, 32, 32), 2, False),
+    ((1, 64, 6, 5), 2, True),         # 15 elements per channel: the scalar instance
+]
+
+
+def _across_bwd(x, dy, w, b, s, silu, eps=1e-6):
+    """Per block of S: the backward part and apply kernels (the blocks' sums
+    added in block order, as the all-reduce adds the ranks'), and their
+    plain versions from the same combined statistics."""
+    blocks = [t.contiguous() for t in x.chunk(s, dim=2)]
+    dys = [t.contiguous() for t in dy.chunk(s, dim=2)]
+    parts = torch.stack([k1.group_norm_part_stats_plain(xb) for xb in blocks])
+    mean, rstd = k1.combine_group_stats(parts, eps)
+    count = x[0, : x.shape[1] // 32].numel()
+    out = {}
+    for name, part, apply in (("kernel", k1.group_norm_bwd_part, k1.group_norm_bwd_apply),
+                              ("plain", k1.group_norm_bwd_part_plain,
+                               k1.group_norm_bwd_apply_plain)):
+        res = [part(xb, db, w, b, mean, rstd, silu=silu) for xb, db in zip(blocks, dys)]
+        sums = sum(r[0] for r in res)
+        dx = torch.cat([apply(xb, db, w, b, mean, rstd, sums / count, silu=silu)
+                        for xb, db in zip(blocks, dys)], dim=2)
+        out[name] = (dx, sum(r[1] for r in res).sum(dim=0), res)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("shape,s,silu", _ACROSS_BWD)
+def test_group_norm_bwd_across_kernels_match_plain(cuda_device, shape, s, silu, dtype, bound):
+    """`gn_bwd_part` (sums and per-channel partials) and `gn_bwd_apply`
+    against their plain versions per block, and the blocks' dx, dw and db
+    against `torch.autograd.grad` through `group_norm_plain` on the whole
+    tensor; one launch of each per block; two calls bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 3 + 4).to(dtype)
+    dy = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    w = 1 + 0.1 * torch.randn(shape[1], generator=g, device=cuda_device)
+    b = 0.1 * torch.randn(shape[1], generator=g, device=cuda_device)
+    n = k1.group_norm.bwd_part_launches, k1.group_norm.bwd_apply_launches, k1.group_norm.bwd_launches
+    out = _across_bwd(x, dy, w, b, s, silu)
+    assert (k1.group_norm.bwd_part_launches, k1.group_norm.bwd_apply_launches,
+            k1.group_norm.bwd_launches) == (n[0] + s, n[1] + s, n[2])
+    (dx, dwb, res), (dx_p, dwb_p, res_p) = out["kernel"], out["plain"]
+    for (sums, wsum), (sums_p, wsum_p) in zip(res, res_p):
+        close_to_scale(sums_p.cpu().numpy(), sums.cpu().numpy(), "bwd part sums", bound=1e-4)
+        close_to_scale(wsum_p.cpu().numpy(), wsum.cpu().numpy(), "bwd part wsum", bound=1e-4)
+    close_to_scale(dx_p.float().cpu().numpy(), dx.float().cpu().numpy(), "bwd apply dx",
+                   bound=bound)
+    xw, ww, bw = (t.detach().float().requires_grad_() for t in (x, w, b))
+    want = torch.autograd.grad(k1.group_norm_plain(xw, ww, bw, silu=silu), (xw, ww, bw),
+                               dy.float())
+    for wnt, got, what in zip(want, (dx, dwb[0], dwb[1]), ("dx", "dw", "db")):
+        close_to_scale(wnt.cpu().numpy(), got.float().cpu().numpy(), f"across {what}",
+                       bound=bound)
+    again = _across_bwd(x, dy, w, b, s, silu)["kernel"]
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dwb)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("b,tq,tk,c,heads,legacy", [
+    (1, 64, 256, 512, 1, False),    # DDPM++ 16^2 at S = 4: Tq one query tile
+    (1, 16, 64, 512, 1, False),     # the 8^2 bottleneck at S = 4
+    (1, 128, 256, 512, 8, True),    # afhq.yml 8 heads of 64 at S = 2
+    (2, 128, 256, 512, 8, True),
+    (1, 100, 256, 512, 1, False),   # ragged Tq
+    (1, 37, 200, 512, 8, True),     # ragged Tq and Tk
+    (1, 256, 64, 512, 1, False),    # more queries than keys
+])
+def test_attention_bwd_kv_kernel_matches_autograd(cuda_device, b, tq, tk, c, heads, legacy,
+                                                  dtype, bound):
+    """K2-bwd with Tq != Tk (`asyrp_attention_bwd_kv`) against
+    `torch.autograd.grad` through the plain forward; one launch of the kv
+    entry, none of the one-length ones; two calls bit for bit."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q = torch.randn(b, tq, c, generator=g, device=cuda_device).to(dtype).requires_grad_()
+    k, v = (torch.randn(b, tk, c, generator=g, device=cuda_device).to(dtype).requires_grad_()
+            for _ in range(2))
+    d_o = torch.randn(b, tq, c, generator=g, device=cuda_device).to(dtype)
+    kw = dict(num_heads=heads, legacy_scale=legacy)
+    n = k2.attention.kv_bwd_launches, k2.attention.bwd_launches, k2.attention.mh_bwd_launches
+    want = torch.autograd.grad(k2.attention_plain(q, k, v, **kw), (q, k, v), d_o)
+    got = torch.autograd.grad(k2.attention(q, k, v, **kw), (q, k, v), d_o)
+    for ww, gg, what in zip(want, got, "qkv"):
+        close_to_scale(ww.float().cpu().numpy(), gg.float().cpu().numpy(),
+                       f"attention bwd kv d{what}", bound=bound)
+    assert (k2.attention.kv_bwd_launches, k2.attention.bwd_launches,
+            k2.attention.mh_bwd_launches) == (n[0] + 1, n[1], n[2])
+    qd, kd, vd = (t.detach() for t in (q, k, v))
+    o, lse = k2._attention_cuda(qd, kd, vd, True, heads, legacy)
+    first = k2.attention_backward(qd, kd, vd, o, d_o, lse, **kw)
+    second = k2.attention_backward(qd, kd, vd, o, d_o, lse, **kw)
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)

@@ -15,8 +15,14 @@ single-device run the same way, with these tolerances):
   * `--dp 4 --tp_spatial` and `--dp 2 --sp 2` serving on 4 ranks (the
     precompute's inversion sharded too): the grids within 2/255 of the
     single-process run, the harvested rows within 2e-4 of scale (JAX's
-    bound for sharded runs); and every refusal that is left names M10c
-    (spatial training, `--lpips`, `--run_fidelity`, `--diff_style`);
+    bound for sharded runs);
+  * under each of `--dp 4 --tp_spatial` and `--dp 2 --sp 2` on 4 ranks,
+    Δ-training of a DeltaBlock (CLIP + L1) and of the Δh rows, `--lpips`,
+    `--run_fidelity` and `--diff_style`: the Δ leaves within 5e-5, every
+    grid within 2/255 and the LPIPS curves within 5e-3 of the
+    single-process run (the bounds of JAX's `tests/test_runner_dp.py`
+    `test_tp_spatial_training`, `test_dp_sp_2d_mesh` and its `--lpips`
+    test);
   * base training (`pipelines/base_train.py`): one `--dp 2`-style step on
     2 ranks, each with its rows of a global batch whose timesteps and noise
     were drawn once, against one process stepping on the whole batch; both
@@ -82,25 +88,18 @@ SPATIAL_RUNS = [
     ("harvest", RUNS[5][1], ["--dp", "2", "--sp", "2"]),
 ]
 
-WORKER = r'''
-import json, os
-from asyrp_official_torch.cli.main import build_parser, main, load_config
-from asyrp_official_torch.runner import AsyrpRunner
+# on 4 ranks under each spatial layout: training (blocks, rows) and the
+# other modes, from a fresh workspace
+SPATIAL_MESHES = {"tp4": ["--dp", "4", "--tp_spatial"], "sp22": ["--dp", "2", "--sp", "2"]}
+SPATIAL_TRAIN_RUNS = [RUNS[i] for i in (0, 1, 8, 9, 10)]
 
-runs, refuse = json.loads(ARGS[0]), json.loads(ARGS[1])
-for argv in runs:
+WORKER = r'''
+import json
+from asyrp_official_torch.cli.main import main
+
+for argv in json.loads(ARGS[0]):
     rc = main(argv)
     assert rc == 0, (argv, rc)
-for argv in refuse:  # each mode left to M10c refuses under spatial sharding
-    args = build_parser().parse_args(argv)
-    runner = AsyrpRunner(args, load_config(args.config), work_dir=args.work_dir)
-    for method in ("run_training", "run_lpips", "run_fidelity", "run_style_transfer"):
-        try:
-            getattr(runner, method)()
-        except NotImplementedError as e:
-            assert "M10c" in str(e), (method, str(e))
-        else:
-            raise AssertionError(f"{method} ran under spatial sharding")
 '''
 
 
@@ -153,7 +152,7 @@ def dp2(tmp_path_factory):
     ws = str(tmp_path_factory.mktemp("dp_two"))
     _workspace(ws)
     runs = [_argv(ws, exp, flags, ["--dp", "2"]) for exp, flags in RUNS]
-    run_ranks(WORKER, 2, [json.dumps(runs), "[]"], timeout=180)
+    run_ranks(WORKER, 2, [json.dumps(runs)], timeout=180)
     return ws
 
 
@@ -168,8 +167,19 @@ def spatial4(single, tmp_path_factory):
     for d in ("precomputed", "checkpoint_latent"):
         shutil.rmtree(os.path.join(ws, d), ignore_errors=True)
     runs = [_argv(ws, exp, flags, mesh) for exp, flags, mesh in SPATIAL_RUNS]
-    refuse = [_argv(ws, "refuse", RUNS[0][1], ["--dp", "2", "--sp", "2"])]
-    run_ranks(WORKER, 4, [json.dumps(runs), json.dumps(refuse)], timeout=180)
+    run_ranks(WORKER, 4, [json.dumps(runs)], timeout=180)
+    return ws
+
+
+@pytest.fixture(scope="module", params=sorted(SPATIAL_MESHES))
+def spatial_train(request, tmp_path_factory):
+    """Training and the other modes on 4 ranks under one spatial layout,
+    from a fresh workspace."""
+    ws = str(tmp_path_factory.mktemp(f"dp_{request.param}"))
+    _workspace(ws)
+    runs = [_argv(ws, exp, flags, SPATIAL_MESHES[request.param])
+            for exp, flags in SPATIAL_TRAIN_RUNS]
+    run_ranks(WORKER, 4, [json.dumps(runs)], timeout=300)
     return ws
 
 
@@ -228,6 +238,39 @@ def test_dp_harvest_and_lpips_curves_match(single, dp2):
         a = np.loadtxt(p)
         b = np.loadtxt(os.path.join(dp2, "utils", os.path.basename(p)))
         close_to_scale(b, a, os.path.basename(p), bound=1e-5)
+
+
+@pytest.mark.parametrize("exp", ["train", "rows"])
+def test_spatial_training_lands_on_the_single_process_delta(single, spatial_train, exp):
+    """Each rank backpropagates its share of the loss through the exchanges'
+    adjoints and the gradients are summed over the spatial ranks: the Δ
+    lands where one process's does (5e-5; with the CLIP term not weighted
+    1/S the block lands 2.0e-3 to 3.9e-3 off, a mutation check made on a
+    copy of the port)."""
+    a, b = _delta_leaves(single, exp), _delta_leaves(spatial_train, exp)
+    assert len(a) == len(b) > 0
+    init = _delta_leaves(single, exp, it=0)
+    assert max(np.abs(x - y).max() for x, y in zip(a, init)) > 1e-4, "the Δ did not train"
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(y, x, atol=5e-5)
+
+
+def test_spatial_modes_match_the_single_process_outputs(single, spatial_train):
+    """The grids of training, `--run_fidelity` and `--diff_style` within
+    2/255, the `--lpips` curves within 5e-3 (JAX's bound)."""
+    got = _pngs(spatial_train)
+    exps = {k.split(os.sep)[0] for k in got}
+    assert exps == {f"{e}_{RUN}" for e, _ in SPATIAL_TRAIN_RUNS if e != "style"} - {
+        f"lpips_{RUN}"}, exps
+    _grids_match(got, {k: v for k, v in _pngs(single).items() if k in got}, "spatial modes")
+    _grids_match(_pngs(spatial_train, "styled"), _pngs(single, "styled"), "spatial --diff_style")
+    tsvs = sorted(glob.glob(os.path.join(single, "utils", "*.tsv")))
+    assert len(tsvs) == 4
+    for p in tsvs:
+        a = np.loadtxt(p)
+        b = np.loadtxt(os.path.join(spatial_train, "utils", os.path.basename(p)))
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, a, rtol=0, atol=5e-3, err_msg=os.path.basename(p))
 
 
 def test_spatial_serving_matches_the_single_process_grids(single, spatial4):

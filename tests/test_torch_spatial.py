@@ -17,7 +17,9 @@ mask) and the OpenAI conv downsample (the stride-2 halo from above).
 Also the plain versions of both new kernel entries: K1 across ranks (row
 blocks' parts, Chan's combination, the normalize) against `group_norm` on
 the whole tensor, and K2 with Tq != Tk (a row block's queries against the
-whole image's keys) against `spatial_attention` on the whole tensor.
+whole image's keys) against `spatial_attention` on the whole tensor; and
+the gradients of both on one rank (their cross-rank gradients:
+`tests/test_torch_spatial_train.py`).
 """
 import json
 
@@ -254,13 +256,30 @@ def test_attention_kv_plain_matches_the_whole_tensor(s, heads, legacy):
 
 
 def test_kv_entry_refuses_autograd_and_mismatched_shapes():
-    q = torch.randn(1, 16, 32, requires_grad=True)
-    k = v = torch.randn(1, 64, 32)
-    with pytest.raises(NotImplementedError, match="M10c"):
-        k2.attention(q, k, v)
+    """The kv entry still refuses k and v of different lengths; under
+    autograd (spatial training) it and K1 across ranks differentiate: on one
+    rank (the gather a stack of the one part, the reduce the identity) their
+    gradients equal autograd of the plain whole-tensor functions (1e-5 of
+    scale). `tests/test_torch_spatial_train.py` runs them on 2 and 4 ranks."""
+    rng = np.random.RandomState(0)
+    q = torch.from_numpy(rng.randn(1, 16, 32).astype(np.float32)).requires_grad_(True)
+    k, v = (torch.from_numpy(rng.randn(1, 64, 32).astype(np.float32)).requires_grad_(True)
+            for _ in range(2))
     with pytest.raises(ValueError, match="Tk"):
-        k2._check_inputs(q.detach(), k, torch.randn(1, 32, 32), 1)
-    x = torch.randn(1, 64, 4, 4, requires_grad=True)
-    w, b = torch.ones(64), torch.zeros(64)
-    with pytest.raises(NotImplementedError, match="M10c"):
+        k2._check_inputs(q.detach(), k.detach(), torch.randn(1, 32, 32), 1)
+    cot = torch.from_numpy(rng.randn(1, 16, 32).astype(np.float32))
+    got = torch.autograd.grad((k2.attention(q, k, v) * cot).sum(), (q, k, v))
+    want = torch.autograd.grad((k2.attention_plain(q, k, v) * cot).sum(), (q, k, v))
+    for g, w_, n in zip(got, want, "qkv"):
+        close_to_scale(w_.numpy(), g.numpy(), f"K2 Tq != Tk d{n}", bound=1e-5)
+    x = torch.from_numpy(rng.randn(1, 64, 4, 4).astype(np.float32)).requires_grad_(True)
+    w = torch.from_numpy(rng.rand(64).astype(np.float32) + 0.5).requires_grad_(True)
+    b = torch.from_numpy(rng.randn(64).astype(np.float32)).requires_grad_(True)
+    cot = torch.from_numpy(rng.randn(1, 64, 4, 4).astype(np.float32))
+    with pytest.raises(ValueError, match="reduce"):
         k1.group_norm_across(x, w, b, lambda p: p[None])
+    y = k1.group_norm_across(x, w, b, lambda p: p[None], reduce=lambda t: t, silu=True)
+    got = torch.autograd.grad((y * cot).sum(), (x, w, b))
+    want = torch.autograd.grad((k1.group_norm_plain(x, w, b, silu=True) * cot).sum(), (x, w, b))
+    for g, w_, n in zip(got, want, ("x", "weight", "bias")):
+        close_to_scale(w_.numpy(), g.numpy(), f"K1 across d{n}", bound=1e-5)
