@@ -80,10 +80,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--sh_file_name", type=str, default="script.sh")
     add("--bf16", action="store_true", help="run the UNet in bfloat16")
     add("--remat", action="store_true",
-        help="rematerialize UNet resblocks under grad (jax.checkpoint): "
-             "trades ~1 extra forward of FLOPs for activation memory — "
-             "enables larger --bs_train / resolutions than the default "
-             "store-everything backward")
+        help="recompute the UNet's resblocks in the backward "
+             "(torch.utils.checkpoint): about one extra forward of FLOPs "
+             "for activation memory, so a larger --bs_train fits")
     add("--trace_dir", type=str, default=None,
         help="write a TensorBoard-loadable jax.profiler device-timeline "
              "trace of the whole run to this directory (the observability "

@@ -300,6 +300,7 @@ struct FwdParams {
   const void* scale_shift;  // [B, 2C] in the I/O dtype, or null
   float* mean_out;          // [B * G], or null
   float* rstd_out;
+  float* part_out;          // [B * G, 3]: (count, mean, M2) only, no y (across ranks), or null
   int channels, groups, cpg, cluster;
   int hwv, hwv_shift;  // vectors per channel, and its log2 (or -1)
   int group_v;         // vectors per group
@@ -338,8 +339,10 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_fwd(const FwdParams p) {
     start_copies<R>(bars, p.nchunks, p.chunk_v, tma_v, xs, xg, 0, nullptr, nullptr);
 
   for (int i = threadIdx.x; i < cpg; i += NT) {
-    tw[i] = p.w[c0 + i];
-    tb[i] = p.b[c0 + i];
+    if (p.part_out == nullptr) {
+      tw[i] = p.w[c0 + i];
+      tb[i] = p.b[c0 + i];
+    }
     if (p.pre_add) tpa[i] = to_f(static_cast<const T*>(p.pre_add)[(int64_t)bi * p.channels + c0 + i]);
     if (p.scale_shift) {
       const T* ss = static_cast<const T*>(p.scale_shift) + (int64_t)bi * 2 * p.channels;
@@ -436,6 +439,15 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_fwd(const FwdParams p) {
     s = cluster_sum2(&part[1], p.cluster, &total);
     cluster_arrive();  // this block's reads of the others are done; wait before leaving
   }
+  if (p.part_out != nullptr) {  // across ranks: the local group's statistics, no pass 3
+    if (rank == 0 && threadIdx.x == 0) {
+      p.part_out[3 * bg] = n;
+      p.part_out[3 * bg + 1] = mean;
+      p.part_out[3 * bg + 2] = s.x;
+    }
+    if (p.cluster > 1) cluster_wait();
+    return;
+  }
   const float rstd = 1.0f / sqrtf(s.x / n + p.eps);
   if (rank == 0 && threadIdx.x == 0 && p.mean_out != nullptr) {
     p.mean_out[bg] = mean;
@@ -478,6 +490,7 @@ struct BwdParams {
   const float* mean;  // [B * G]
   const float* rstd;
   float* wsum;        // [B, 2, C]: per-sample sums of dz * xhat and dz, or null
+  float* sums_out;    // [B * G, 2]: the sums of g and g * xhat only, no dx (across ranks), or null
   int channels, groups, cpg, cluster;
   int hwv, hwv_shift, group_v, slice_v;
   int res_x, res_dy;  // of a slice, held in shared memory (res_dy <= res_x)
@@ -533,17 +546,37 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_bwd(const BwdParams p) {
     unpack<T, VEC>(v < res_x ? xs[v] : ld_vec<T, VEC>(xgt, v), fx);
     unpack<T, VEC>(v < res_dy ? dys[v] : ld_vec<T, VEC>(dygt, v), fd);
   };
-  // the sums of g and g * xhat over one vector
+  // dw, db where the slice holds at most two channels (a long H*W): their
+  // sums of dz * xhat and dz accumulate in pass 1 (`pc`: the first
+  // channel's, then the second's); else a pass over the slice's channels
+  const int cl_lo = n_s > 0 ? chan(lo, hwv, hwv_shift) : 0;
+  const int nch = n_s > 0 ? chan(lo + n_s - 1, hwv, hwv_shift) - cl_lo + 1 : 0;
+  const bool in_pass = p.wsum != nullptr && nch <= 2;
+  // the sums of g and g * xhat over one vector, and with `in_pass` its
+  // channel's sums of dz * xhat and dz
   auto accumulate = [=](int v, const float (&fx)[VEC], const float (&fd)[VEC], float& sg,
-                        float& sgx) {
+                        float& sgx, float4& pc) {
     const int c = chan(lo + v, hwv, hwv_shift);
     const float w = tw[c], b = tb[c];
+    float sw = 0.f, sb = 0.f;
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const float xh = (fx[k] - m) * r;
-      const float g = dz_of(fd[k], xh, w, b, silu) * w;
+      const float dz = dz_of(fd[k], xh, w, b, silu);
+      const float g = dz * w;
       sg += g;
       sgx += g * xh;
+      sw += dz * xh;
+      sb += dz;
+    }
+    if (in_pass) {
+      if (c == cl_lo) {
+        pc.x += sw;
+        pc.y += sb;
+      } else {
+        pc.z += sw;
+        pc.w += sb;
+      }
     }
   };
 
@@ -551,6 +584,7 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_bwd(const BwdParams p) {
   // (dy past its resident part from device memory), then the rest of the
   // slice from device memory
   float sg = 0.f, sgx = 0.f;
+  float4 pc = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int k = 0; k < p.nchunks; ++k) {
     const int a = k * p.chunk_v, e = min(a + p.chunk_v, tma_v);
     if (e <= a) break;
@@ -569,7 +603,7 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_bwd(const BwdParams p) {
           float fx[VEC], fd[VEC];
           unpack<T, VEC>(xs[v], fx);
           unpack<T, VEC>(rd[u], fd);
-          accumulate(v, fx, fd, sg, sgx);
+          accumulate(v, fx, fd, sg, sgx, pc);
         }
       }
     }
@@ -593,36 +627,64 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_bwd(const BwdParams p) {
         float fx[VEC], fd[VEC];
         unpack<T, VEC>(rx[u], fx);
         unpack<T, VEC>(rd[u], fd);
-        accumulate(v, fx, fd, sg, sgx);
+        accumulate(v, fx, fd, sg, sgx, pc);
       }
     }
   }
   float2 s = block_sum2<NW>(sg, sgx, red);
 
-  // dw, db: each warp takes whole channels of the slice (a channel's
-  // vectors strided over its lanes), in a fixed order
-  if (p.wsum != nullptr) {
+  if (in_pass) {
+    const float2 c0s = block_sum2<NW>(pc.x, pc.y, red);
+    const float2 c1s = block_sum2<NW>(pc.z, pc.w, red);
+    if (threadIdx.x == 0 && nch > 0) {
+      wpart[cl_lo] = c0s;
+      if (nch == 2) wpart[cl_lo + 1] = c1s;
+    }
+  } else if (p.wsum != nullptr) {
+    // dw, db: the slice's channels in rounds, each channel over `wpc`
+    // warps (its vectors strided over their lanes; one warp each where the
+    // slice has as many channels as warps), the warps' sums added in warp
+    // order: a fixed order
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int cl_lo = n_s > 0 ? chan(lo, hwv, hwv_shift) : 0;
-    const int cl_hi = n_s > 0 ? chan(lo + n_s - 1, hwv, hwv_shift) : -1;
-    for (int cl = cl_lo + warp; cl <= cl_hi; cl += NW) {
-      const int a = max(0, cl * hwv - lo), e = min(n_s, (cl + 1) * hwv - lo);
-      const float w = tw[cl], b = tb[cl];
+    const int wpc = nch >= NW ? 1 : NW / max(nch, 1);  // warps per channel
+    const int cpr = NW / wpc;                          // channels per round
+    const int slot = warp / wpc, sub = warp % wpc;
+    for (int k0 = 0; k0 < nch; k0 += cpr) {
+      const int cl = cl_lo + k0 + slot;
+      const bool mine = slot < cpr && k0 + slot < nch;
       float sw = 0.f, sb = 0.f;
-      for (int v = a + lane; v < e; v += 32) {
-        float fx[VEC], fd[VEC];
-        fetch(v, fx, fd);
+      if (mine) {
+        const int a = max(0, cl * hwv - lo), e = min(n_s, (cl + 1) * hwv - lo);
+        const float w = tw[cl], b = tb[cl];
+        for (int v = a + sub * 32 + lane; v < e; v += wpc * 32) {
+          float fx[VEC], fd[VEC];
+          fetch(v, fx, fd);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          const float xh = (fx[k] - m) * r;
-          const float dz = dz_of(fd[k], xh, w, b, silu);
-          sw += dz * xh;
-          sb += dz;
+          for (int k = 0; k < VEC; ++k) {
+            const float xh = (fx[k] - m) * r;
+            const float dz = dz_of(fd[k], xh, w, b, silu);
+            sw += dz * xh;
+            sb += dz;
+          }
         }
       }
       sw = warp_sum(sw);
       sb = warp_sum(sb);
-      if (lane == 0) wpart[cl] = make_float2(sw, sb);
+      if (wpc == 1) {
+        if (mine && lane == 0) wpart[cl] = make_float2(sw, sb);
+        continue;
+      }
+      __syncthreads();  // `red` may still be read
+      if (lane == 0) red[warp] = make_float2(sw, sb);
+      __syncthreads();
+      if (mine && sub == 0 && lane == 0) {
+        float2 t = make_float2(0.f, 0.f);
+        for (int q = 0; q < wpc; ++q) {
+          t.x += red[warp + q].x;
+          t.y += red[warp + q].y;
+        }
+        wpart[cl] = t;
+      }
     }
   }
 
@@ -648,6 +710,14 @@ __global__ void __launch_bounds__(NT, 1024 / NT) gn_bwd(const BwdParams p) {
     }
   }
   if (p.cluster > 1) cluster_arrive();  // this block's reads of the others are done
+  if (p.sums_out != nullptr) {  // across ranks: the local group's sums, no pass 2
+    if (rank == 0 && threadIdx.x == 0) {
+      p.sums_out[2 * bg] = s.x;
+      p.sums_out[2 * bg + 1] = s.y;
+    }
+    if (p.cluster > 1) cluster_wait();
+    return;
+  }
 
   // pass 2: dx, from shared memory
   const float n = (float)p.group_v * (float)VEC;
@@ -797,276 +867,415 @@ int dispatch(const P& prm, const Plan& pl, int dtype, int nbg, cudaStream_t s) {
 // ---------------------------------------------------------------------------
 // across ranks: each rank of a spatial group holds a block of rows of every
 // (sample, group). The statistics of the whole group come in three steps:
-// gn_part gives each part of the local run its count, mean and centred sum
-// of squares (two passes in f32, as the one-rank kernel); the caller
-// gathers the parts of every rank and combines them by Chan's formula
-// (mean = sum n_i m_i / N, M2 = sum M2_i + sum n_i (m_i - mean)^2: the
-// centred squares throughout, never E[x^2] - E[x]^2); gn_apply then
-// normalizes the local rows from the combined mean and rstd with the
-// affine, the FiLM epilogue and SiLU, as pass 3 of gn_fwd. The pre-add is
-// applied (and rounded to T) in both kernels.
+// gn_part gives the local run's count, mean and centred sum of squares (M2)
+// per (sample, group): passes 1-2 of gn_fwd on its cluster plan (the
+// `part_out` mode), so x crosses device memory once, the pre-add fused and
+// rounded to T; the caller gathers every rank's [B * G, 3] (one part per
+// rank); gn_apply combines the S parts of its groups by Chan's formula in
+// its prologue (mean = sum n_i m_i / N, M2 = sum M2_i + sum n_i (m_i -
+// mean)^2: the centred squares throughout, never E[x^2] - E[x]^2), in rank
+// order in f32, so every rank gets the same bits, then normalizes the
+// local rows with the affine, the FiLM epilogue and SiLU as pass 3 of
+// gn_fwd.
 //
-// Bound: device-memory bytes. gn_part reads x twice (the second pass
-// mostly from the L2), gn_apply reads x once and writes y once; the
-// statistics are a few floats per group. The design is the simple one:
-// parts of 8192 elements per block so that a batch-1 call still fills the
-// card, and a grid-stride elementwise pass.
+// The backward: the forward's mean and rstd are the combined ones, so
+// dx = rstd * (g - mean(g) - xhat * mean(g * xhat)), g = dz * w, needs
+// only each (sample, group)'s two sums over the whole image. gn_bwd_part is
+// gn_bwd's sums pass on its cluster plan (the `sums_out` mode): x and dy
+// on chip once, the sums of g and g * xhat across the cluster through
+// DSMEM in rank order, and wsum [B, 2, C] (this rank's partials of dw and
+// db, per channel in a fixed order). The caller all-reduces the sums over
+// the ranks; gn_bwd_apply divides them by the group's count in its
+// prologue and forms dx.
+//
+// Bound: device-memory bytes. The function moves 2n in the forward (x
+// read, y written) and 3n in the backward (x, dy read, dx written); this
+// design moves 3n and 5n (each part kernel reads its inputs once more), so
+// 1.5x and 1.67x of the bound are the best it can do per call.
+//
+// The apply kernels: a block of kApplyThreads threads takes up to
+// kApplyVecs 16-byte vectors per thread (fewer for a small tensor) of one
+// group's local run (grid (slices, B * G)), or, where a group holds fewer
+// vectors than a block does, several whole groups (grid (1, B * G / groups
+// per block)). So a block
+// knows its groups and channel rows from its index; a vector's row within
+// them is a shift (or one 32-bit divide) of its index. Its loads are in
+// flight while the prologue combines the statistics and fills the
+// shared-memory table of its rows' w, b and epilogue terms.
 // ---------------------------------------------------------------------------
 
-constexpr int kPartThreads = 256;
 constexpr int kApplyThreads = 256;
+constexpr int kApplyVecs = 4;  // vectors per thread at most: one block takes up to 1024
+constexpr int kSMs = 132;
+constexpr int kMaxRanks = 64;
 
-template <typename T>
-__global__ void __launch_bounds__(kPartThreads) gn_part(const T* __restrict__ x,
-                                                        const T* __restrict__ pre_add,
-                                                        float* __restrict__ parts, int channels,
-                                                        int groups, int64_t hw,
-                                                        int64_t part_len) {
-  constexpr int NW = kPartThreads / 32;
-  __shared__ float2 red[NW];
-  const int p = blockIdx.x, nparts = gridDim.x, bg = blockIdx.y;
+struct ApplyPlan {
+  int vec, hwv, hwv_shift, group_v, gpb, slice_v, slices, blocks_y;
+  int64_t smem;
+};
+
+// `arrays` the kernel reads by vectors; `aligned`: each starts on 16 bytes
+bool make_apply_plan(int batch, int channels, int64_t hw, int groups, int es, bool aligned,
+                     ApplyPlan* pl) {
+  if (batch < 1 || groups < 1 || channels % groups != 0 || hw < 1) return false;
   const int cpg = channels / groups;
-  const int bi = bg / groups, c0 = (bg % groups) * cpg;
-  const int64_t glen = (int64_t)cpg * hw;
-  const int64_t lo = (int64_t)p * part_len;
-  const int64_t hi = lo + part_len < glen ? lo + part_len : glen;
-  const T* xg = x + (int64_t)bg * glen;
-  const T* pa = pre_add != nullptr ? pre_add + (int64_t)bi * channels + c0 : nullptr;
-  auto val = [&](int64_t e) {
-    float f = to_f(xg[e]);
-    if (pa != nullptr) f = round_to<T>(f + to_f(pa[e / hw]));
-    return f;
-  };
-  float s = 0.f;
-  for (int64_t e = lo + threadIdx.x; e < hi; e += kPartThreads) s += val(e);
-  const float n = hi > lo ? (float)(hi - lo) : 0.f;
-  const float2 tot = block_sum2<NW>(s, 0.f, red);
-  const float mean = n > 0.f ? tot.x / n : 0.f;
-  float m2 = 0.f;
-  for (int64_t e = lo + threadIdx.x; e < hi; e += kPartThreads) {
-    const float d = val(e) - mean;
-    m2 += d * d;
+  const int nbg = batch * groups;
+  const int vmax = 16 / es;
+  pl->vec = (aligned && hw % vmax == 0) ? vmax : 1;
+  const int64_t group_len = (int64_t)cpg * hw;
+  if ((int64_t)nbg * group_len / pl->vec >= (int64_t)1 << 31) return false;
+  pl->hwv = (int)(hw / pl->vec);
+  pl->hwv_shift = -1;
+  if ((pl->hwv & (pl->hwv - 1)) == 0) {
+    pl->hwv_shift = 0;
+    while ((1 << pl->hwv_shift) < pl->hwv) ++pl->hwv_shift;
   }
-  const float2 t2 = block_sum2<NW>(m2, 0.f, red);
-  if (threadIdx.x == 0) {
-    float* o = parts + ((int64_t)bg * nparts + p) * 3;
-    o[0] = n;
-    o[1] = mean;
-    o[2] = t2.x;
+  pl->group_v = (int)(group_len / pl->vec);
+  // vectors per thread: kApplyVecs where that still leaves two blocks per
+  // SM, fewer for a small tensor, whose latency and not its bytes sets the
+  // time (more blocks then share the work)
+  const int64_t total_v = (int64_t)nbg * pl->group_v;
+  int vpt = kApplyVecs;
+  while (vpt > 1 && total_v < (int64_t)kApplyThreads * vpt * 2 * kSMs) vpt /= 2;
+  const int block_v = kApplyThreads * vpt;
+  if (pl->group_v >= block_v) {  // slices of one group
+    pl->gpb = 1;
+    pl->slice_v = block_v;
+    pl->slices = (pl->group_v + block_v - 1) / block_v;
+  } else {  // whole groups
+    pl->gpb = block_v / pl->group_v;
+    if (pl->gpb > nbg) pl->gpb = nbg;
+    pl->slice_v = pl->gpb * pl->group_v;
+    pl->slices = 1;
   }
+  pl->blocks_y = (nbg + pl->gpb - 1) / pl->gpb;
+  if (pl->slices > 65535 || pl->blocks_y > 65535) return false;
+  // mean, rstd (or the two means) per group; five terms per channel row
+  pl->smem = ((int64_t)pl->gpb * 4 + (int64_t)pl->gpb * cpg * 5) * 4;
+  return pl->smem <= 48 * 1024;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kApplyThreads) gn_apply(
-    const T* __restrict__ x, const float* __restrict__ w, const float* __restrict__ b,
-    const T* __restrict__ pre_add, const T* __restrict__ scale_shift,
-    const float* __restrict__ mean, const float* __restrict__ rstd, T* __restrict__ y,
-    int channels, int groups, int64_t hw, int64_t total, int silu) {
-  const int cpg = channels / groups;
-  for (int64_t i = blockIdx.x * (int64_t)kApplyThreads + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * kApplyThreads) {
-    const int64_t bc = i / hw;
-    const int c = (int)(bc % channels);
-    const int64_t bi = bc / channels;
-    const int64_t bg = bi * groups + c / cpg;
-    float f = to_f(x[i]);
-    if (pre_add != nullptr) f = round_to<T>(f + to_f(pre_add[bi * channels + c]));
-    float z = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f, mean[bg]), rstd[bg]), w[c]), b[c]);
-    if (scale_shift != nullptr) {
-      const T* ss = scale_shift + bi * 2 * channels;
-      z = round_to<T>(__fmul_rn(round_to<T>(z), round_to<T>(1.0f + to_f(ss[c]))));
-      z = round_to<T>(__fadd_rn(z, to_f(ss[channels + c])));
+// Chan's combination of a group's S gathered parts (count, mean, M2), in
+// rank order, in f32: (mean, rstd), on every lane of the calling warp. Lane
+// l loads rank l's part (and rank 32 + l's), so the loads are in flight
+// together; the sums then take the ranks in order through the shuffles.
+__device__ __forceinline__ float2 combine_parts(const float* __restrict__ parts, int ranks,
+                                                int nbg, int bg, float eps) {
+  const int lane = threadIdx.x % 32;
+  float qn[2], qm[2], qv[2];
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int r = c * 32 + lane;
+    qn[c] = qm[c] = qv[c] = 0.f;
+    if (r < ranks) {
+      const float* q = parts + ((int64_t)r * nbg + bg) * 3;
+      qn[c] = q[0];
+      qm[c] = q[1];
+      qv[c] = q[2];
     }
-    if (silu) z = z / (1.0f + expf(-z));
-    y[i] = from_f<T>(z);
   }
+  float n = 0.f, nm = 0.f;
+  for (int r = 0; r < ranks; ++r) {
+    const float a = __shfl_sync(0xffffffffu, r < 32 ? qn[0] : qn[1], r % 32);
+    const float m = __shfl_sync(0xffffffffu, r < 32 ? qm[0] : qm[1], r % 32);
+    n += a;
+    nm += a * m;
+  }
+  const float mean = nm / n;
+  float m2 = 0.f, d2 = 0.f;
+  for (int r = 0; r < ranks; ++r) {
+    const float a = __shfl_sync(0xffffffffu, r < 32 ? qn[0] : qn[1], r % 32);
+    const float m = __shfl_sync(0xffffffffu, r < 32 ? qm[0] : qm[1], r % 32);
+    const float v = __shfl_sync(0xffffffffu, r < 32 ? qv[0] : qv[1], r % 32);
+    const float d = m - mean;
+    m2 += v;
+    d2 += a * (d * d);
+  }
+  return make_float2(mean, 1.0f / sqrtf((m2 + d2) / n + eps));
 }
 
-// ---------------------------------------------------------------------------
-// the backward across ranks: the forward's mean and rstd are the combined
-// ones, so dx = rstd * (g - mean(g) - xhat * mean(g * xhat)), g = dz * w,
-// needs only each (sample, group)'s two sums over the whole image. gn_bwd_part
-// gives this rank's: one block per (sample, channel) sums dz and dz * xhat
-// over the channel's local H*W (fixed order: strided per thread, then the
-// block's tree), writes them to wsum [B, 2, C] (this rank's partials of dw
-// and db), and the last block of a group to finish (a counter per group,
-// left at zero again) forms the group's sums of w * those, channel by
-// channel in order. The caller all-reduces the sums over the ranks and
-// divides by the group's count; gn_bwd_apply then forms dx elementwise.
-//
-// Bound: device-memory bytes. gn_bwd_part reads x and dy once; gn_bwd_apply
-// reads them again and writes dx. The design is the simple one: a block
-// per channel (16-byte loads where the channel's run is whole vectors), and
-// a grid-stride elementwise pass.
-// ---------------------------------------------------------------------------
+struct ApplyParams {
+  const void* x;
+  void* y;
+  const float* w;
+  const float* b;
+  const void* pre_add;      // [B, C] in the I/O dtype, or null
+  const void* scale_shift;  // [B, 2C] in the I/O dtype, or null
+  const float* parts;       // [S, B * G, 3] gathered, in rank order
+  float* mean_out;          // [B * G] each, or null
+  float* rstd_out;
+  int ranks, nbg, channels, cpg;
+  int hwv, hwv_shift, group_v, gpb, slice_v;
+  float eps;
+  int silu;
+};
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kPartThreads) gn_bwd_part(
-    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ mean, const float* __restrict__ rstd,
-    float* __restrict__ sums, float* wsum, int* done, int channels, int groups, int64_t hw,
-    int silu) {
-  constexpr int NW = kPartThreads / 32;
-  __shared__ float2 red[NW];
-  const int64_t bc = blockIdx.x;
-  const int c = (int)(bc % channels);
-  const int64_t bi = bc / channels;
-  const int cpg = channels / groups;
-  const int64_t bg = bi * groups + c / cpg;
-  const float m = mean[bg], r = rstd[bg], wc = w[c], bc_ = b[c];
-  const T* xc = x + bc * hw;
-  const T* dc = dy + bc * hw;
-  float sdz = 0.f, sdzx = 0.f;
-  auto add = [&](float xv, float dv) {
-    const float xhat = (xv - m) * r;
-    const float dz = dz_of(dv, xhat, wc, bc_, silu);
-    sdz += dz;
-    sdzx += dz * xhat;
-  };
-  const int nv = (int)(hw / VEC);
-#pragma unroll 4
-  for (int j = threadIdx.x; j < nv; j += kPartThreads) {
-    float fx[VEC], fd[VEC];
-    unpack<T, VEC>(ld_vec<T, VEC>(xc, j), fx);
-    unpack<T, VEC>(ld_vec<T, VEC>(dc, j), fd);
+__global__ void __launch_bounds__(kApplyThreads) gn_apply(const ApplyParams p) {
+  using R = Raw<T, VEC>;
+  extern __shared__ __align__(16) float tab[];
+  const int cpg = p.cpg, gpb = p.gpb;
+  const int g0 = blockIdx.y * gpb;
+  const int ng = min(gpb, p.nbg - g0);
+  const int rows = ng * cpg;
+  float *sm = tab, *sr = tab + gpb;
+  float *tw = tab + 2 * gpb, *tb = tw + gpb * cpg, *tpa = tb + gpb * cpg, *ts1 = tpa + gpb * cpg,
+        *tsh = ts1 + gpb * cpg;
+  // this block's vectors, from its first group's start
+  const int lo = blockIdx.x * p.slice_v;
+  const int hi = min(lo + p.slice_v, ng * p.group_v);
+  const int64_t base = (int64_t)g0 * p.group_v;
+  const R* xg = reinterpret_cast<const R*>(p.x) + base;
+  R* yg = reinterpret_cast<R*>(p.y) + base;
+  R r[kApplyVecs] = {};
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) add(fx[e], fd[e]);
+  for (int u = 0; u < kApplyVecs; ++u) {
+    const int j = lo + u * kApplyThreads + threadIdx.x;
+    if (j < hi) r[u] = ld_vec<T, VEC>(reinterpret_cast<const T*>(xg), j);
   }
-  const float2 t = block_sum2<NW>(sdzx, sdz, red);
-  if (threadIdx.x == 0) {
-    wsum[(bi * 2) * channels + c] = t.x;
-    wsum[(bi * 2 + 1) * channels + c] = t.y;
-    __threadfence();  // this channel's sums, visible before the count says so
-    if (atomicAdd(done + bg, 1) == cpg - 1) {  // the group's last channel
-      __threadfence();
-      const int c0 = c / cpg * cpg;
-      float sg = 0.f, sgx = 0.f;
-      for (int k = 0; k < cpg; ++k) {
-        const float wk = w[c0 + k];
-        sg += wk * __ldcg(wsum + (bi * 2 + 1) * channels + c0 + k);
-        sgx += wk * __ldcg(wsum + (bi * 2) * channels + c0 + k);
+
+  // a row's w, b and epilogue terms (row: b * C + c of this block's rows)
+  auto terms = [&](int i, float (&t)[5]) {
+    const int row = g0 * cpg + i;
+    const int c = row % p.channels, bi = row / p.channels;
+    t[0] = p.w[c];
+    t[1] = p.b[c];
+    t[2] = p.pre_add ? to_f(static_cast<const T*>(p.pre_add)[row]) : 0.f;
+    if (p.scale_shift) {
+      const T* ss = static_cast<const T*>(p.scale_shift) + (int64_t)bi * 2 * p.channels;
+      t[3] = round_to<T>(1.0f + to_f(ss[c]));
+      t[4] = to_f(ss[p.channels + c]);
+    }
+  };
+  auto keep = [&](int i, const float (&t)[5]) {
+    tw[i] = t[0];
+    tb[i] = t[1];
+    tpa[i] = t[2];
+    ts1[i] = t[3];
+    tsh[i] = t[4];
+  };
+  // the first row's terms in flight while a warp per group combines its parts
+  float t0[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  if ((int)threadIdx.x < rows) terms(threadIdx.x, t0);
+  for (int i = threadIdx.x / 32; i < ng; i += kApplyThreads / 32) {
+    const float2 ms = combine_parts(p.parts, p.ranks, p.nbg, g0 + i, p.eps);
+    if (threadIdx.x % 32 == 0) {
+      sm[i] = ms.x;
+      sr[i] = ms.y;
+      if (p.mean_out != nullptr && blockIdx.x == 0) {
+        p.mean_out[g0 + i] = ms.x;
+        p.rstd_out[g0 + i] = ms.y;
       }
-      sums[bg * 2] = sg;
-      sums[bg * 2 + 1] = sgx;
-      done[bg] = 0;
     }
   }
-}
+  if ((int)threadIdx.x < rows) keep(threadIdx.x, t0);
+  for (int i = threadIdx.x + kApplyThreads; i < rows; i += kApplyThreads) {
+    float t[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    terms(i, t);
+    keep(i, t);
+  }
+  __syncthreads();
 
-template <typename T>
-__global__ void __launch_bounds__(kApplyThreads) gn_bwd_apply(
-    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ mean, const float* __restrict__ rstd,
-    const float* __restrict__ means, T* __restrict__ dx, int channels, int groups, int64_t hw,
-    int64_t total, int silu) {
-  const int cpg = channels / groups;
-  for (int64_t i = blockIdx.x * (int64_t)kApplyThreads + threadIdx.x; i < total;
-       i += (int64_t)gridDim.x * kApplyThreads) {
-    const int64_t bc = i / hw;
-    const int c = (int)(bc % channels);
-    const int64_t bg = (bc / channels) * groups + c / cpg;
-    const float r = rstd[bg];
-    const float xhat = (to_f(x[i]) - mean[bg]) * r;
-    const float g = dz_of(to_f(dy[i]), xhat, w[c], b[c], silu) * w[c];
-    dx[i] = from_f<T>(r * ((g - means[bg * 2]) - xhat * means[bg * 2 + 1]));
+  const bool pre = p.pre_add != nullptr, film = p.scale_shift != nullptr;
+  const int silu = p.silu;
+#pragma unroll
+  for (int u = 0; u < kApplyVecs; ++u) {
+    const int j = lo + u * kApplyThreads + threadIdx.x;
+    if (j >= hi) continue;
+    const int row = chan(j, p.hwv, p.hwv_shift);
+    const int gi = gpb == 1 ? 0 : row / cpg;
+    const float mean = sm[gi], rstd = sr[gi], w = tw[row], b = tb[row];
+    float f[VEC];
+    unpack<T, VEC>(r[u], f);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      float v = f[k];
+      if (pre) v = round_to<T>(v + tpa[row]);
+      float z = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v, mean), rstd), w), b);
+      if (film) {
+        z = round_to<T>(__fmul_rn(round_to<T>(z), ts1[row]));
+        z = round_to<T>(__fadd_rn(z, tsh[row]));
+      }
+      if (silu) z = z / (1.0f + expf(-z));
+      f[k] = z;
+    }
+    st_vec<T, VEC>(reinterpret_cast<T*>(yg), j, pack<T, VEC>(f));
   }
 }
 
-template <typename T>
-int launch_bwd_part(const void* x, const void* dy, const float* w, const float* b,
-                    const float* mean, const float* rstd, float* sums, float* wsum, int* done,
-                    int batch, int channels, int64_t hw, int groups, int silu,
-                    cudaStream_t stream) {
-  constexpr int VEC = 16 / sizeof(T);
-  const unsigned blocks = (unsigned)((int64_t)batch * channels);
-  const T *xt = static_cast<const T*>(x), *dt = static_cast<const T*>(dy);
-  if (hw % VEC == 0 && aligned16(x) && aligned16(dy))
-    gn_bwd_part<T, VEC><<<blocks, kPartThreads, 0, stream>>>(xt, dt, w, b, mean, rstd, sums,
-                                                               wsum, done, channels, groups, hw,
-                                                               silu);
-  else
-    gn_bwd_part<T, 1><<<blocks, kPartThreads, 0, stream>>>(xt, dt, w, b, mean, rstd, sums, wsum,
-                                                           done, channels, groups, hw, silu);
-  return (int)cudaGetLastError();
+struct BwdApplyParams {
+  const void* x;
+  const void* dy;
+  void* dx;
+  const float* w;
+  const float* b;
+  const float* mean;  // [B * G] the combined statistics
+  const float* rstd;
+  const float* sums;  // [B * G, 2] the ranks' sums of g and g * xhat
+  float count;        // the whole group's elements
+  int nbg, channels, cpg;
+  int hwv, hwv_shift, group_v, gpb, slice_v;
+  int silu;
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kApplyThreads) gn_bwd_apply(const BwdApplyParams p) {
+  using R = Raw<T, VEC>;
+  extern __shared__ __align__(16) float tab[];
+  const int cpg = p.cpg, gpb = p.gpb;
+  const int g0 = blockIdx.y * gpb;
+  const int ng = min(gpb, p.nbg - g0);
+  const int rows = ng * cpg;
+  float *sm = tab, *sr = tab + gpb, *smg = tab + 2 * gpb, *smgx = tab + 3 * gpb;
+  float *tw = tab + 4 * gpb, *tb = tw + gpb * cpg;
+  const int lo = blockIdx.x * p.slice_v;
+  const int hi = min(lo + p.slice_v, ng * p.group_v);
+  const int64_t base = (int64_t)g0 * p.group_v;
+  const T* xg = reinterpret_cast<const T*>(reinterpret_cast<const R*>(p.x) + base);
+  const T* dyg = reinterpret_cast<const T*>(reinterpret_cast<const R*>(p.dy) + base);
+  R* dxg = reinterpret_cast<R*>(p.dx) + base;
+  R rx[kApplyVecs] = {}, rd[kApplyVecs] = {};
+#pragma unroll
+  for (int u = 0; u < kApplyVecs; ++u) {
+    const int j = lo + u * kApplyThreads + threadIdx.x;
+    if (j < hi) {
+      rx[u] = ld_vec<T, VEC>(xg, j);
+      rd[u] = ld_vec<T, VEC>(dyg, j);
+    }
+  }
+
+  // each thread's first row and group loaded together, then kept
+  for (int i = threadIdx.x; i < max(rows, ng); i += kApplyThreads) {
+    float w = 0.f, b = 0.f, g[4] = {0.f, 0.f, 0.f, 0.f};
+    if (i < rows) {
+      const int c = (g0 * cpg + i) % p.channels;
+      w = p.w[c];
+      b = p.b[c];
+    }
+    if (i < ng) {
+      const int bg = g0 + i;
+      g[0] = p.mean[bg];
+      g[1] = p.rstd[bg];
+      g[2] = p.sums[2 * bg];
+      g[3] = p.sums[2 * bg + 1];
+    }
+    if (i < rows) {
+      tw[i] = w;
+      tb[i] = b;
+    }
+    if (i < ng) {
+      sm[i] = g[0];
+      sr[i] = g[1];
+      smg[i] = g[2] / p.count;
+      smgx[i] = g[3] / p.count;
+    }
+  }
+  __syncthreads();
+
+  const int silu = p.silu;
+#pragma unroll
+  for (int u = 0; u < kApplyVecs; ++u) {
+    const int j = lo + u * kApplyThreads + threadIdx.x;
+    if (j >= hi) continue;
+    const int row = chan(j, p.hwv, p.hwv_shift);
+    const int gi = gpb == 1 ? 0 : row / cpg;
+    const float m = sm[gi], r = sr[gi], mg = smg[gi], mgx = smgx[gi];
+    const float w = tw[row], b = tb[row];
+    float fx[VEC], fd[VEC];
+    unpack<T, VEC>(rx[u], fx);
+    unpack<T, VEC>(rd[u], fd);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float xh = (fx[k] - m) * r;
+      const float g = dz_of(fd[k], xh, w, b, silu) * w;
+      fx[k] = r * ((g - mg) - xh * mgx);
+    }
+    st_vec<T, VEC>(reinterpret_cast<T*>(dxg), j, pack<T, VEC>(fx));
+  }
 }
 
-template <typename T>
-int launch_bwd_apply(const void* x, const void* dy, const float* w, const float* b,
-                     const float* mean, const float* rstd, const float* means, void* dx,
-                     int batch, int channels, int64_t hw, int groups, int silu,
-                     cudaStream_t stream) {
-  const int64_t total = (int64_t)batch * channels * hw;
-  int64_t blocks = (total + kApplyThreads - 1) / kApplyThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then the grid strides
-  gn_bwd_apply<T><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), w, b, mean, rstd, means,
-      static_cast<T*>(dx), channels, groups, hw, total, silu);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_part(const void* x, const void* pre_add, float* parts, int batch, int channels,
-                int64_t hw, int groups, int nparts, cudaStream_t stream) {
-  const int64_t glen = (int64_t)(channels / groups) * hw;
-  const int64_t part_len = (glen + nparts - 1) / nparts;
-  gn_part<T><<<dim3(nparts, batch * groups), kPartThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(pre_add), parts, channels, groups, hw,
-      part_len);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_apply(const void* x, const float* w, const float* b, const void* pre_add,
-                 const void* scale_shift, const float* mean, const float* rstd, void* y,
-                 int batch, int channels, int64_t hw, int groups, int silu,
-                 cudaStream_t stream) {
-  const int64_t total = (int64_t)batch * channels * hw;
-  int64_t blocks = (total + kApplyThreads - 1) / kApplyThreads;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks per SM, then the grid strides
-  gn_apply<T><<<(unsigned)blocks, kApplyThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, b, static_cast<const T*>(pre_add),
-      static_cast<const T*>(scale_shift), mean, rstd, static_cast<T*>(y), channels, groups, hw,
-      total, silu);
+template <typename K, typename P>
+int launch_apply_planned(K kernel, const P& prm, const ApplyPlan& pl, cudaStream_t stream) {
+  kernel<<<dim3(pl.slices, pl.blocks_y), kApplyThreads, pl.smem, stream>>>(prm);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Across ranks, step 1: parts float32 [B * G, nparts, 3] output, per part of
-// each (sample, group)'s local run its (count, mean, M2) of x (+ pre_add
-// [B, C], optional). x and pre_add in the I/O dtype (0 = float32, 1 =
-// bfloat16). One kernel launch.
+// Across ranks, step 1: parts float32 [B * G, 3] output, per (sample,
+// group) of the local x (+ pre_add [B, C], optional) its (count, mean, M2).
+// x and pre_add in the I/O dtype (0 = float32, 1 = bfloat16). One kernel
+// launch (gn_fwd's passes 1-2).
 extern "C" int asyrp_group_norm_part_stats(const void* x, const void* pre_add, void* parts,
                                            int batch, int channels, int64_t hw, int groups,
-                                           int nparts, int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 ||
-      hw < 1 || nparts < 1 || (int64_t)batch * groups > 65535 || nparts > 65535)
+                                           int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  if (!make_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2, 1, false, aligned16(x), &pl))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* out = static_cast<float*>(parts);
-  return dtype == 0
-             ? launch_part<float>(x, pre_add, out, batch, channels, hw, groups, nparts, s)
-             : launch_part<__nv_bfloat16>(x, pre_add, out, batch, channels, hw, groups, nparts,
-                                          s);
+  FwdParams prm = {};
+  prm.x = x;
+  prm.w = nullptr;
+  prm.b = nullptr;
+  prm.pre_add = pre_add;
+  prm.part_out = static_cast<float*>(parts);
+  prm.channels = channels;
+  prm.groups = groups;
+  prm.cpg = channels / groups;
+  prm.cluster = pl.cluster;
+  prm.hwv = pl.hwv;
+  prm.hwv_shift = pl.hwv_shift;
+  prm.group_v = pl.group_v;
+  prm.slice_v = pl.slice_v;
+  prm.res_v = pl.res0;
+  prm.nchunks = pl.nchunks;
+  prm.chunk_v = pl.chunk_v;
+  return dispatch<false>(prm, pl, dtype, batch * groups, static_cast<cudaStream_t>(stream));
 }
 
-// Across ranks, step 3: y from x (+ pre_add) with the combined mean and rstd
-// (float32 [B * G]), the affine (w, b float32 [C]), the FiLM epilogue
-// (scale_shift [B, 2C], optional) and SiLU. One kernel launch.
+// Across ranks, step 3: y from x (+ pre_add) with the statistics combined
+// from `parts`, float32 [ranks, B * G, 3] (every rank's step 1, in rank
+// order), the affine (w, b float32 [C]), the FiLM epilogue (scale_shift
+// [B, 2C], optional) and SiLU; mean, rstd float32 [B * G] outputs (the
+// combined statistics, for the backward), or both null. One kernel launch.
 extern "C" int asyrp_group_norm_apply(const void* x, const void* w, const void* b,
                                       const void* pre_add, const void* scale_shift,
-                                      const void* mean, const void* rstd, void* y, int batch,
-                                      int channels, int64_t hw, int groups, int silu, int dtype,
-                                      void* stream) {
-  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 || hw < 1)
+                                      const void* parts, void* mean, void* rstd, void* y,
+                                      int ranks, int batch, int channels, int64_t hw, int groups,
+                                      float eps, int silu, int dtype, void* stream) {
+  ApplyPlan pl;
+  if ((dtype != 0 && dtype != 1) || ranks < 1 || ranks > kMaxRanks ||
+      !make_apply_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2,
+                       aligned16(x) && aligned16(y), &pl))
     return (int)cudaErrorInvalidValue;
+  ApplyParams prm;
+  prm.x = x;
+  prm.y = y;
+  prm.w = static_cast<const float*>(w);
+  prm.b = static_cast<const float*>(b);
+  prm.pre_add = pre_add;
+  prm.scale_shift = scale_shift;
+  prm.parts = static_cast<const float*>(parts);
+  prm.mean_out = static_cast<float*>(mean);
+  prm.rstd_out = static_cast<float*>(rstd);
+  prm.ranks = ranks;
+  prm.nbg = batch * groups;
+  prm.channels = channels;
+  prm.cpg = channels / groups;
+  prm.hwv = pl.hwv;
+  prm.hwv_shift = pl.hwv_shift;
+  prm.group_v = pl.group_v;
+  prm.gpb = pl.gpb;
+  prm.slice_v = pl.slice_v;
+  prm.eps = eps;
+  prm.silu = silu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
-  const float *mf = static_cast<const float*>(mean), *rf = static_cast<const float*>(rstd);
-  return dtype == 0 ? launch_apply<float>(x, wf, bf, pre_add, scale_shift, mf, rf, y, batch,
-                                          channels, hw, groups, silu, s)
-                    : launch_apply<__nv_bfloat16>(x, wf, bf, pre_add, scale_shift, mf, rf, y,
-                                                  batch, channels, hw, groups, silu, s);
+  using B16 = __nv_bfloat16;
+  if (dtype == 0)
+    return pl.vec == 1 ? launch_apply_planned(gn_apply<float, 1>, prm, pl, s)
+                       : launch_apply_planned(gn_apply<float, 4>, prm, pl, s);
+  return pl.vec == 1 ? launch_apply_planned(gn_apply<B16, 1>, prm, pl, s)
+                     : launch_apply_planned(gn_apply<B16, 8>, prm, pl, s);
 }
 
 // The plan a call takes (for reports): out = {cluster size, vector width,
@@ -1098,7 +1307,7 @@ extern "C" int asyrp_group_norm(const void* x, const void* w, const void* b, voi
   if (!make_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2, 1, false,
                  aligned16(x) && aligned16(y), &pl))
     return (int)cudaErrorInvalidValue;
-  FwdParams prm;
+  FwdParams prm = {};
   prm.x = x;
   prm.y = y;
   prm.w = static_cast<const float*>(w);
@@ -1136,7 +1345,7 @@ extern "C" int asyrp_group_norm_bwd(const void* x, const void* dy, const void* w
   if (!make_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2, 2, wsum != nullptr,
                  aligned16(x) && aligned16(dy) && aligned16(dx), &pl))
     return (int)cudaErrorInvalidValue;
-  BwdParams prm;
+  BwdParams prm = {};
   prm.x = x;
   prm.dy = dy;
   prm.dx = dx;
@@ -1165,43 +1374,86 @@ extern "C" int asyrp_group_norm_bwd(const void* x, const void* dy, const void* w
 // bfloat16); w, b float32 [C]; mean, rstd the combined float32 [B * G];
 // outputs sums float32 [B * G, 2] (this rank's sums of g = dz * w and of
 // g * xhat per group) and wsum float32 [B, 2, C] (per sample and channel
-// the sums of dz * xhat and of dz); done int32 [B * G], zero on entry and
-// on exit. One kernel launch.
+// the sums of dz * xhat and of dz). One kernel launch (gn_bwd's sums pass).
 extern "C" int asyrp_group_norm_bwd_part(const void* x, const void* dy, const void* w,
                                          const void* b, const void* mean, const void* rstd,
-                                         void* sums, void* wsum, void* done, int batch,
-                                         int channels, int64_t hw, int groups, int silu,
-                                         int dtype, void* stream) {
-  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 ||
-      hw < 1 || hw > INT32_MAX)
+                                         void* sums, void* wsum, int batch, int channels,
+                                         int64_t hw, int groups, int silu, int dtype,
+                                         void* stream) {
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  Plan pl;
+  if (!make_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2, 2, true,
+                 aligned16(x) && aligned16(dy), &pl))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
-  const float *mf = static_cast<const float*>(mean), *rf = static_cast<const float*>(rstd);
-  float *sf = static_cast<float*>(sums), *ws = static_cast<float*>(wsum);
-  int* dn = static_cast<int*>(done);
-  return dtype == 0 ? launch_bwd_part<float>(x, dy, wf, bf, mf, rf, sf, ws, dn, batch, channels,
-                                             hw, groups, silu, s)
-                    : launch_bwd_part<__nv_bfloat16>(x, dy, wf, bf, mf, rf, sf, ws, dn, batch,
-                                                     channels, hw, groups, silu, s);
+  // nothing held for a second pass: a slice of at most two channels sums
+  // dw and db in pass 1, and the channel pass of a slice of more (a short
+  // H*W) reads its few vectors again from the L2. So the slice streams, and
+  // four or more 256-thread blocks share an SM, their loads in flight.
+  pl.res0 = pl.res1 = 0;
+  pl.threads = 256;
+  pl.smem = (int64_t)(channels / groups) * (4 * 2 + 8);
+  BwdParams prm = {};
+  prm.x = x;
+  prm.dy = dy;
+  prm.w = static_cast<const float*>(w);
+  prm.b = static_cast<const float*>(b);
+  prm.mean = static_cast<const float*>(mean);
+  prm.rstd = static_cast<const float*>(rstd);
+  prm.wsum = static_cast<float*>(wsum);
+  prm.sums_out = static_cast<float*>(sums);
+  prm.channels = channels;
+  prm.groups = groups;
+  prm.cpg = channels / groups;
+  prm.cluster = pl.cluster;
+  prm.hwv = pl.hwv;
+  prm.hwv_shift = pl.hwv_shift;
+  prm.group_v = pl.group_v;
+  prm.slice_v = pl.slice_v;
+  prm.res_x = pl.res0;
+  prm.res_dy = pl.res1;
+  prm.nchunks = pl.nchunks;
+  prm.chunk_v = pl.chunk_v;
+  prm.silu = silu;
+  return dispatch<true>(prm, pl, dtype, batch * groups, static_cast<cudaStream_t>(stream));
 }
 
 // Across ranks, backward step 2: dx (the I/O dtype) of the local rows from
-// the whole group's means float32 [B * G, 2] (the ranks' sums over the
-// group's count); the rest as step 1. One kernel launch.
+// the ranks' summed `sums` float32 [B * G, 2] over the whole group's
+// `count` elements; the rest as step 1. One kernel launch.
 extern "C" int asyrp_group_norm_bwd_apply(const void* x, const void* dy, const void* w,
                                           const void* b, const void* mean, const void* rstd,
-                                          const void* means, void* dx, int batch, int channels,
-                                          int64_t hw, int groups, int silu, int dtype,
-                                          void* stream) {
-  if ((dtype != 0 && dtype != 1) || batch < 1 || groups < 1 || channels % groups != 0 || hw < 1)
+                                          const void* sums, void* dx, float count, int batch,
+                                          int channels, int64_t hw, int groups, int silu,
+                                          int dtype, void* stream) {
+  ApplyPlan pl;
+  if ((dtype != 0 && dtype != 1) || !(count > 0.f) ||
+      !make_apply_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2,
+                       aligned16(x) && aligned16(dy) && aligned16(dx), &pl))
     return (int)cudaErrorInvalidValue;
+  BwdApplyParams prm;
+  prm.x = x;
+  prm.dy = dy;
+  prm.dx = dx;
+  prm.w = static_cast<const float*>(w);
+  prm.b = static_cast<const float*>(b);
+  prm.mean = static_cast<const float*>(mean);
+  prm.rstd = static_cast<const float*>(rstd);
+  prm.sums = static_cast<const float*>(sums);
+  prm.count = count;
+  prm.nbg = batch * groups;
+  prm.channels = channels;
+  prm.cpg = channels / groups;
+  prm.hwv = pl.hwv;
+  prm.hwv_shift = pl.hwv_shift;
+  prm.group_v = pl.group_v;
+  prm.gpb = pl.gpb;
+  prm.slice_v = pl.slice_v;
+  prm.silu = silu;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float *wf = static_cast<const float*>(w), *bf = static_cast<const float*>(b);
-  const float *mf = static_cast<const float*>(mean), *rf = static_cast<const float*>(rstd);
-  const float* mm = static_cast<const float*>(means);
-  return dtype == 0 ? launch_bwd_apply<float>(x, dy, wf, bf, mf, rf, mm, dx, batch, channels, hw,
-                                              groups, silu, s)
-                    : launch_bwd_apply<__nv_bfloat16>(x, dy, wf, bf, mf, rf, mm, dx, batch,
-                                                      channels, hw, groups, silu, s);
+  using B16 = __nv_bfloat16;
+  if (dtype == 0)
+    return pl.vec == 1 ? launch_apply_planned(gn_bwd_apply<float, 1>, prm, pl, s)
+                       : launch_apply_planned(gn_bwd_apply<float, 4>, prm, pl, s);
+  return pl.vec == 1 ? launch_apply_planned(gn_bwd_apply<B16, 1>, prm, pl, s)
+                     : launch_apply_planned(gn_bwd_apply<B16, 8>, prm, pl, s);
 }

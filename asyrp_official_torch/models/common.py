@@ -23,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from asyrp_official_torch.ops import groupnorm as _k1
@@ -30,6 +31,7 @@ from asyrp_official_torch.parallel import spatial
 
 __all__ = [
     "GroupNorm",
+    "remat",
     "conv2d",
     "linear",
     "mat1x1",
@@ -64,6 +66,33 @@ class GroupNorm(nn.Module):
                 scale_shift=scale_shift)
         return _k1.group_norm(x, self.weight, self.bias, groups=self.groups, eps=self.eps, silu=silu,
                               pre_add=pre_add, scale_shift=scale_shift)
+
+
+def remat(block: nn.Module, *args):
+    """`block(*args)` with its activations recomputed in the backward
+    (the JAX `jax.checkpoint` of a resblock, `cfg.remat`): non-reentrant
+    `torch.utils.checkpoint`, under grad only, so serving, export and the
+    launch counts stay as they are without it.
+
+    The recompute runs inside the backward, on the autograd engine's thread
+    for CUDA tensors, where this thread's `spatial.sharded` context is not
+    set: it re-enters the group the forward ran under, so a row block
+    recomputes with the same halos, gathers and K1 across ranks. Those
+    exchanges then run a second time, and every rank must issue them in the
+    same order. The recompute's early stop (it ends once the last tensor the
+    backward saved is recomputed) cannot split them: which tensors a block
+    saves depends on its ops, not on a rank's rows, so every rank stops
+    after the same op, and a collective after that op is skipped on every
+    rank alike."""
+    if not torch.is_grad_enabled():
+        return block(*args)
+    sg = spatial.active()
+
+    def run(*a):
+        with spatial.sharded(sg):
+            return block(*a)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def _cast(p, dtype):

@@ -49,6 +49,9 @@ class DDPMppConfig:
     in_channels: int = 3
     resolution: int = 256
     resamp_with_conv: bool = True
+    # recompute the encoder's and decoder's resblocks in the backward
+    # (`common.remat`): activation memory for FLOPs when training Δ
+    remat: bool = False
 
     @property
     def temb_ch(self) -> int:
@@ -199,13 +202,19 @@ class DDPMpp(nn.Module):
         temb = cm.linear(self.temb.dense[0], temb)
         return cm.linear(self.temb.dense[1], F.silu(temb))
 
+    def _resblock(self, block, x, temb):
+        """An encoder or decoder resblock, recomputed in the backward under
+        `cfg.remat` (the JAX `_block_fn`; the middle blocks, where Δh
+        enters, are never wrapped)."""
+        return cm.remat(block, x, temb) if self.cfg.remat else block(x, temb)
+
     def _encode(self, x, temb):
         cfg = self.cfg
         hs = [cm.conv2d(self.conv_in, x)]
         for i_level in range(cfg.num_resolutions):
             lvl = self.down[i_level]
             for i_block in range(cfg.num_res_blocks):
-                h = lvl.block[i_block](hs[-1], temb)
+                h = self._resblock(lvl.block[i_block], hs[-1], temb)
                 if len(lvl.attn):
                     h = lvl.attn[i_block](h)
                 hs.append(h)
@@ -228,7 +237,7 @@ class DDPMpp(nn.Module):
         for i_level in reversed(range(cfg.num_resolutions)):
             lvl = self.up[i_level]
             for i_block in range(cfg.num_res_blocks + 1):
-                h = lvl.block[i_block](torch.cat([h, hs.pop()], dim=1), temb)
+                h = self._resblock(lvl.block[i_block], torch.cat([h, hs.pop()], dim=1), temb)
                 if len(lvl.attn):
                     h = lvl.attn[i_block](h)
             if i_level != 0:

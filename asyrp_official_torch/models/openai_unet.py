@@ -64,6 +64,9 @@ class OpenAIUNetConfig:
     resblock_updown: bool = True
     use_new_attention_order: bool = False
     dropout: float = 0.0
+    # recompute every resblock in the backward (`common.remat`): activation
+    # memory for FLOPs (the reference's use_checkpoint)
+    remat: bool = False
 
     @property
     def temb_ch(self) -> int:
@@ -302,14 +305,21 @@ class OpenAIUNet(nn.Module):
             emb = emb + self.label_emb.weight[y]
         return emb
 
+    def _layer(self, layer, h, emb):
+        """One layer; a resblock recomputed in the backward under
+        `cfg.remat` (the JAX `_apply_layer`)."""
+        if self.cfg.remat and isinstance(layer, ResBlock):
+            return cm.remat(layer, h, emb)
+        return layer(h, emb)
+
     def _encode(self, x, emb):
         hs, h = [], x
         for block in self.input_blocks:
             for layer in block:
-                h = layer(h, emb)
+                h = self._layer(layer, h, emb)
             hs.append(h)
         for layer in self.middle_block:
-            h = layer(h, emb)
+            h = self._layer(layer, h, emb)
         return h, hs
 
     def _decode(self, h, hs, emb):
@@ -317,7 +327,7 @@ class OpenAIUNet(nn.Module):
         for block in self.output_blocks:
             h = torch.cat([h, hs.pop()], dim=1)
             for layer in block:
-                h = layer(h, emb)
+                h = self._layer(layer, h, emb)
         return cm.conv2d(self.out[2], self.out[0](h, silu=True))
 
     def apply(self, x_nhwc, t, edit: Optional[EditState] = None, y=None,

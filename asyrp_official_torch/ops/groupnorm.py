@@ -26,17 +26,18 @@ count the kernel launches.
 
 Across ranks (spatial sharding, `parallel/spatial.py`), `group_norm_across`
 normalizes a tensor whose rows are split over a group of ranks: each rank's
-per-group (count, mean, M2) parts (`group_norm_part_stats`, kernel
-`gn_part`), gathered and combined by Chan's formula
-(`combine_group_stats`), then the normalize of the local rows
-(`group_norm_apply`, kernel `gn_apply`), pre-add and FiLM fused as in the
-one-rank entry. `group_norm.part_launches` and `group_norm.apply_launches`
+per-group (count, mean, M2) (`group_norm_part_stats`, kernel `gn_part`:
+gn_fwd's statistics passes), gathered, then the normalize of the local rows
+(`group_norm_apply`, kernel `gn_apply`, which combines the ranks' parts by
+Chan's formula in its prologue; `combine_group_stats` is the plain
+version's), pre-add and FiLM fused as in the one-rank entry. `group_norm.part_launches` and `group_norm.apply_launches`
 count those launches. Under autograd it is `_GroupNormAcross` between the
 same torch ops as `group_norm_unfused`: its backward sums each (sample,
 group)'s dz·w and dz·w·xhat over the local rows (`group_norm_bwd_part`,
-kernel `gn_bwd_part`, which also gives the per-channel partial sums of dw
-and db), all-reduces those sums over the ranks, and forms dx elementwise
-from them (`group_norm_bwd_apply`, kernel `gn_bwd_apply`); the weight, bias
+kernel `gn_bwd_part`: gn_bwd's sums pass, which also gives the per-channel
+partial sums of dw and db), all-reduces those sums over the ranks, and forms
+dx from them and the group's count (`group_norm_bwd_apply`, kernel
+`gn_bwd_apply`); the weight, bias
 and fused operands' gradients are this rank's partials, which the caller
 sums over the ranks (`parallel/spatial.py`, rule 3).
 `group_norm.bwd_part_launches` and `group_norm.bwd_apply_launches` count
@@ -141,10 +142,10 @@ _ARGS = {
     "asyrp_group_norm": [_P] * 8 + [_I, _I, _L, _I, ctypes.c_float, _I, _I, _P],
     "asyrp_group_norm_bwd": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
     "asyrp_group_norm_plan": [_I, _I, _L, _I, _I, _I, ctypes.POINTER(_L)],
-    "asyrp_group_norm_part_stats": [_P] * 3 + [_I, _I, _L, _I, _I, _I, _P],
-    "asyrp_group_norm_apply": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
-    "asyrp_group_norm_bwd_part": [_P] * 9 + [_I, _I, _L, _I, _I, _I, _P],
-    "asyrp_group_norm_bwd_apply": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_part_stats": [_P] * 3 + [_I, _I, _L, _I, _I, _P],
+    "asyrp_group_norm_apply": [_P] * 9 + [_I, _I, _I, _L, _I, ctypes.c_float, _I, _I, _P],
+    "asyrp_group_norm_bwd_part": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_bwd_apply": [_P] * 8 + [ctypes.c_float, _I, _I, _L, _I, _I, _I, _P],
 }
 _lib = None
 
@@ -375,12 +376,6 @@ group_norm.bwd_launches = 0
 # K1 across ranks: a group's rows split over the ranks of a spatial group
 # ---------------------------------------------------------------------------
 
-_PART_ELEMS = 8192  # elements per part of a group's local run (one block each on the card)
-
-
-def _parts_per_group(group_len: int) -> int:
-    return max(1, min(-(-group_len // _PART_ELEMS), 65535))
-
 
 def group_norm_part_stats_plain(x, *, groups: int = 32, pre_add=None):
     """Per (sample, group) of the local x (+ `pre_add`, added in x's dtype):
@@ -399,7 +394,9 @@ def group_norm_part_stats_plain(x, *, groups: int = 32, pre_add=None):
 def combine_group_stats(parts, eps: float):
     """Chan's combination of partial statistics [..., B, G, P, 3] (the
     leading axes: the ranks) into each group's (mean, rstd) [B, G] f32:
-    mean = sum n_i m_i / N, M2 = sum M2_i + sum n_i (m_i - mean)^2."""
+    mean = sum n_i m_i / N, M2 = sum M2_i + sum n_i (m_i - mean)^2. The
+    specification of `gn_apply`'s prologue, which combines the ranks' parts
+    the same way, in rank order."""
     parts = parts.float()
     if parts.dim() > 4:  # the ranks' axes join the parts'
         parts = parts.movedim(tuple(range(parts.dim() - 4)),
@@ -411,11 +408,13 @@ def combine_group_stats(parts, eps: float):
     return mean, torch.rsqrt(var + eps)
 
 
-def group_norm_apply_plain(x, weight, bias, mean, rstd, *, silu: bool = False, pre_add=None,
-                           scale_shift=None):
-    """`group_norm_plain` with each group's `mean` and `rstd` ([B, G] f32)
-    given: the normalize, the affine, the FiLM epilogue and SiLU, rounded
-    as there."""
+def group_norm_apply_plain(x, weight, bias, parts, *, eps: float = 1e-6, silu: bool = False,
+                           pre_add=None, scale_shift=None, stats: bool = False):
+    """`group_norm_plain` of the local rows with each group's statistics
+    combined from `parts` [S, B, G, P, 3] (every rank's, in rank order;
+    `combine_group_stats`): the normalize, the affine, the FiLM epilogue and
+    SiLU, rounded as there. With `stats`, (y, mean, rstd)."""
+    mean, rstd = combine_group_stats(parts, eps)
     if pre_add is not None:
         x = x + _per_channel(pre_add, x)
     b, groups = mean.shape
@@ -423,10 +422,10 @@ def group_norm_apply_plain(x, weight, bias, mean, rstd, *, silu: bool = False, p
     y = ((xf - mean[..., None]) * rstd[..., None]).reshape(x.shape)
     y = y * weight.float().reshape(_bshape(x)) + bias.float().reshape(_bshape(x))
     if scale_shift is None:
-        if silu:
-            y = y * torch.sigmoid(y)
-        return y.to(x.dtype)
-    return _film(y.to(x.dtype), scale_shift, silu)
+        y = (y * torch.sigmoid(y) if silu else y).to(x.dtype)
+    else:
+        y = _film(y.to(x.dtype), scale_shift, silu)
+    return (y, mean, rstd) if stats else y
 
 
 def _part_stats_cuda(x, groups, pre_add):
@@ -436,36 +435,45 @@ def _part_stats_cuda(x, groups, pre_add):
                          f"channels in {groups} groups, got {x.dtype}{tuple(x.shape)}")
     hw = x.numel() // (b * c)
     pre_add = _check_per_channel(pre_add, x, 1, "pre_add")
-    nparts = _parts_per_group(c // groups * hw)
-    parts = torch.empty(b, groups, nparts, 3, device=x.device, dtype=torch.float32)
+    parts = torch.empty(b, groups, 1, 3, device=x.device, dtype=torch.float32)
     code = _launch(_kernels().asyrp_group_norm_part_stats, x, x.data_ptr(),
                    None if pre_add is None else pre_add.data_ptr(), parts.data_ptr(), b, c, hw,
-                   groups, nparts, _DTYPES[x.dtype])
+                   groups, _DTYPES[x.dtype])
     _build.check(code, "group_norm part-stats kernel")
     group_norm.part_launches += 1
     return parts
 
 
-def _apply_cuda(x, weight, bias, mean, rstd, silu, pre_add, scale_shift):
-    b, c, hw = _check_input(x, weight, bias, mean.shape[1])
+def _apply_cuda(x, weight, bias, parts, eps, silu, pre_add, scale_shift, stats):
+    groups = parts.shape[-3]
+    b, c, hw = _check_input(x, weight, bias, groups)
+    if (parts.dtype != torch.float32 or parts.dim() != 5 or parts.shape[1:] != (b, groups, 1, 3)
+            or parts.get_device() != x.get_device()):
+        raise ValueError(f"group_norm apply: parts must be the gathered float32 [S, {b}, "
+                         f"{groups}, 1, 3] on the input's device, got {parts.dtype}"
+                         f"{tuple(parts.shape)}")
     pre_add = _check_per_channel(pre_add, x, 1, "pre_add")
     scale_shift = _check_per_channel(scale_shift, x, 2, "scale_shift")
-    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
+    parts = parts.contiguous()
     y = torch.empty_like(x)
+    mean = rstd = None
+    if stats:
+        mean, rstd = torch.empty(2, b, groups, device=x.device, dtype=torch.float32)
     code = _launch(_kernels().asyrp_group_norm_apply, x, x.data_ptr(), weight.data_ptr(),
                    bias.data_ptr(), None if pre_add is None else pre_add.data_ptr(),
-                   None if scale_shift is None else scale_shift.data_ptr(), mean.data_ptr(),
-                   rstd.data_ptr(), y.data_ptr(), b, c, hw, mean.shape[1], silu,
-                   _DTYPES[x.dtype])
+                   None if scale_shift is None else scale_shift.data_ptr(), parts.data_ptr(),
+                   None if mean is None else mean.data_ptr(),
+                   None if rstd is None else rstd.data_ptr(), y.data_ptr(), parts.shape[0], b, c,
+                   hw, groups, eps, silu, _DTYPES[x.dtype])
     _build.check(code, "group_norm apply kernel")
     group_norm.apply_launches += 1
-    return y
+    return (y, mean, rstd) if stats else y
 
 
 def group_norm_part_stats(x, *, groups: int = 32, pre_add=None):
-    """The local (count, mean, M2) parts [B, G, P, 3] f32 of each (sample,
-    group): the plain version (P = 1) for a CPU tensor, the kernel for a
-    CUDA tensor."""
+    """The local (count, mean, M2) [B, G, 1, 3] f32 of each (sample,
+    group): the plain version for a CPU tensor, the kernel for a CUDA
+    tensor."""
     if x.device.type == "cpu":
         return group_norm_part_stats_plain(x, groups=groups, pre_add=pre_add)
     if x.device.type == "cuda":
@@ -473,15 +481,17 @@ def group_norm_part_stats(x, *, groups: int = 32, pre_add=None):
     raise ValueError(f"group_norm_part_stats: no kernel for device {x.device}")
 
 
-def group_norm_apply(x, weight, bias, mean, rstd, *, silu: bool = False, pre_add=None,
-                     scale_shift=None):
-    """y from the combined (mean, rstd): the plain version for a CPU
-    tensor, the kernel for a CUDA tensor."""
+def group_norm_apply(x, weight, bias, parts, *, eps: float = 1e-6, silu: bool = False,
+                     pre_add=None, scale_shift=None, stats: bool = False):
+    """y from the gathered `parts` [S, B, G, 1, 3]: the plain version for a
+    CPU tensor, the kernel for a CUDA tensor (which combines the parts in
+    its prologue). With `stats`, (y, mean, rstd): the combined statistics
+    [B, G] f32 the backward reads."""
     if x.device.type == "cpu":
-        return group_norm_apply_plain(x, weight, bias, mean, rstd, silu=silu, pre_add=pre_add,
-                                      scale_shift=scale_shift)
+        return group_norm_apply_plain(x, weight, bias, parts, eps=eps, silu=silu,
+                                      pre_add=pre_add, scale_shift=scale_shift, stats=stats)
     if x.device.type == "cuda":
-        return _apply_cuda(x, weight, bias, mean, rstd, silu, pre_add, scale_shift)
+        return _apply_cuda(x, weight, bias, parts, eps, silu, pre_add, scale_shift, stats)
     raise ValueError(f"group_norm_apply: no kernel for device {x.device}")
 
 
@@ -513,10 +523,13 @@ def group_norm_bwd_part_plain(x, dy, weight, bias, mean, rstd, *, silu: bool = F
     return torch.stack([gsum[:, 1], gsum[:, 0]], dim=-1), wsum
 
 
-def group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, means, *, silu: bool = False):
+def group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, sums, count: int, *,
+                               silu: bool = False):
     """dx = rstd·(g - mean(g) - xhat·mean(g·xhat)), g = dz·w, from the
-    whole group's `means` [B, G, 2] (the ranks' `sums` over its count)."""
+    ranks' summed `sums` [B, G, 2] over the whole group's `count`
+    elements."""
     b, groups = mean.shape
+    means = sums / count
     xhat, dz = _xhat_dz(x, dy, weight, bias, mean, rstd, silu)
     g = (dz * weight.float().reshape(_bshape(x))).reshape(b, groups, -1)
     xg = xhat.reshape(b, groups, -1)
@@ -524,41 +537,35 @@ def group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, means, *, silu: 
     return dx.reshape(x.shape).to(x.dtype)
 
 
-def _bwd_operands(x, dy, weight, bias, mean):
+def _bwd_operands(x, dy, weight, bias, mean, rstd):
     b, c, hw = _check_input(x, weight, bias, mean.shape[1])
     dy = dy.contiguous()
     if dy.dtype != x.dtype or dy.shape != x.shape:
         raise ValueError(f"group_norm backward: dy {dy.dtype}{tuple(dy.shape)} does not match "
                          f"x {x.dtype}{tuple(x.shape)}")
-    return b, c, hw, dy
+    return b, c, hw, dy, mean.float().contiguous(), rstd.float().contiguous()
 
 
 def _bwd_part_cuda(x, dy, weight, bias, mean, rstd, silu):
-    b, c, hw, dy = _bwd_operands(x, dy, weight, bias, mean)
+    b, c, hw, dy, mean, rstd = _bwd_operands(x, dy, weight, bias, mean, rstd)
     groups = mean.shape[1]
-    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
     sums = torch.empty(b, groups, 2, device=x.device, dtype=torch.float32)
     wsum = torch.empty(b, 2, c, device=x.device, dtype=torch.float32)
-    # per (sample, group): the blocks of its channels that have finished
-    # (the last one sums the group); the kernel leaves it at zero
-    done = torch.zeros(b * groups, device=x.device, dtype=torch.int32)
     code = _launch(_kernels().asyrp_group_norm_bwd_part, x, x.data_ptr(), dy.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                   sums.data_ptr(), wsum.data_ptr(), done.data_ptr(), b, c, hw, groups, silu,
-                   _DTYPES[x.dtype])
+                   sums.data_ptr(), wsum.data_ptr(), b, c, hw, groups, silu, _DTYPES[x.dtype])
     _build.check(code, "group_norm backward part kernel")
     group_norm.bwd_part_launches += 1
     return sums, wsum
 
 
-def _bwd_apply_cuda(x, dy, weight, bias, mean, rstd, means, silu):
-    b, c, hw, dy = _bwd_operands(x, dy, weight, bias, mean)
-    mean, rstd = mean.float().contiguous(), rstd.float().contiguous()
-    means = means.float().contiguous()
+def _bwd_apply_cuda(x, dy, weight, bias, mean, rstd, sums, count, silu):
+    b, c, hw, dy, mean, rstd = _bwd_operands(x, dy, weight, bias, mean, rstd)
+    sums = sums.float().contiguous()
     dx = torch.empty_like(x)
     code = _launch(_kernels().asyrp_group_norm_bwd_apply, x, x.data_ptr(), dy.data_ptr(),
                    weight.data_ptr(), bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-                   means.data_ptr(), dx.data_ptr(), b, c, hw, mean.shape[1], silu,
+                   sums.data_ptr(), dx.data_ptr(), float(count), b, c, hw, mean.shape[1], silu,
                    _DTYPES[x.dtype])
     _build.check(code, "group_norm backward apply kernel")
     group_norm.bwd_apply_launches += 1
@@ -576,20 +583,18 @@ def group_norm_bwd_part(x, dy, weight, bias, mean, rstd, *, silu: bool = False):
     raise ValueError(f"group_norm_bwd_part: no kernel for device {x.device}")
 
 
-def group_norm_bwd_apply(x, dy, weight, bias, mean, rstd, means, *, silu: bool = False):
-    """K1-bwd across ranks, step 2: dx of this rank's rows from the whole
-    group's `means` — the plain version for a CPU tensor, the kernel for a
-    CUDA tensor."""
+def group_norm_bwd_apply(x, dy, weight, bias, mean, rstd, sums, count: int, *,
+                         silu: bool = False):
+    """K1-bwd across ranks, step 2: dx of this rank's rows from the ranks'
+    summed `sums` over the group's `count` elements — the plain version for
+    a CPU tensor, the kernel for a CUDA tensor (which divides in its
+    prologue)."""
     if x.device.type == "cpu":
-        return group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, means, silu=silu)
+        return group_norm_bwd_apply_plain(x, dy, weight, bias, mean, rstd, sums, count,
+                                          silu=silu)
     if x.device.type == "cuda":
-        return _bwd_apply_cuda(x, dy, weight, bias, mean, rstd, means, silu)
+        return _bwd_apply_cuda(x, dy, weight, bias, mean, rstd, sums, count, silu)
     raise ValueError(f"group_norm_bwd_apply: no kernel for device {x.device}")
-
-
-def _across_stats(x, groups, eps, gather, pre_add=None):
-    parts = gather(group_norm_part_stats(x, groups=groups, pre_add=pre_add))
-    return combine_group_stats(parts, eps), parts.shape[0]
 
 
 class _GroupNormAcross(torch.autograd.Function):
@@ -599,19 +604,21 @@ class _GroupNormAcross(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, gather, reduce, groups, eps, silu):
-        (mean, rstd), ranks = _across_stats(x, groups, eps, gather)
+        parts = gather(group_norm_part_stats(x, groups=groups))
+        y, mean, rstd = group_norm_apply(x, weight, bias, parts, eps=eps, silu=silu, stats=True)
         ctx.save_for_backward(x, weight, bias, mean, rstd)
         ctx.reduce, ctx.silu = reduce, silu
         # the whole group's count: the ranks hold equal row blocks
-        ctx.count = ranks * (x.shape[1] // groups) * (x.numel() // (x.shape[0] * x.shape[1]))
-        return group_norm_apply(x, weight, bias, mean, rstd, silu=silu)
+        ctx.count = parts.shape[0] * (x.shape[1] // groups) * (
+            x.numel() // (x.shape[0] * x.shape[1]))
+        return y
 
     @staticmethod
     def backward(ctx, dy):
         x, weight, bias, mean, rstd = ctx.saved_tensors
         sums, wsum = group_norm_bwd_part(x, dy, weight, bias, mean, rstd, silu=ctx.silu)
-        means = ctx.reduce(sums) / ctx.count
-        dx = group_norm_bwd_apply(x, dy, weight, bias, mean, rstd, means, silu=ctx.silu)
+        dx = group_norm_bwd_apply(x, dy, weight, bias, mean, rstd, ctx.reduce(sums), ctx.count,
+                                  silu=ctx.silu)
         dw, db = wsum[0] if wsum.shape[0] == 1 else wsum.sum(dim=0)
         return (dx if ctx.needs_input_grad[0] else None, dw.to(weight.dtype),
                 db.to(bias.dtype), None, None, None, None, None)
@@ -620,8 +627,8 @@ class _GroupNormAcross(torch.autograd.Function):
 def group_norm_across(x, weight, bias, gather, *, reduce=None, groups: int = 32,
                       eps: float = 1e-6, silu: bool = False, pre_add=None, scale_shift=None):
     """`group_norm` of a tensor whose rows are split over ranks: the local
-    parts' statistics, `gather(parts)` -> [S, B, G, P, 3] (every rank's, in
-    rank order), Chan's combination, then the normalize of the local rows.
+    statistics, `gather(parts)` -> [S, B, G, 1, 3] (every rank's, in rank
+    order), then the normalize of the local rows from their combination.
     Under autograd `_GroupNormAcross` between separate torch ops (as
     `group_norm_unfused`), whose backward sums over the ranks with
     `reduce(t)` (an all-reduce, required there)."""
@@ -635,8 +642,8 @@ def group_norm_across(x, weight, bias, gather, *, reduce=None, groups: int = 32,
         y = _GroupNormAcross.apply(x, weight, bias, gather, reduce, groups, eps,
                                    silu and scale_shift is None)
         return y if scale_shift is None else _film(y, scale_shift, silu)
-    (mean, rstd), _ = _across_stats(x, groups, eps, gather, pre_add)
-    return group_norm_apply(x, weight, bias, mean, rstd, silu=silu, pre_add=pre_add,
+    parts = gather(group_norm_part_stats(x, groups=groups, pre_add=pre_add))
+    return group_norm_apply(x, weight, bias, parts, eps=eps, silu=silu, pre_add=pre_add,
                             scale_shift=scale_shift)
 
 

@@ -101,6 +101,11 @@ class AsyrpRunner:
         self.args = args
         self.config = config
         self.spec = spec_from_config(config)
+        if getattr(args, "remat", False):
+            # resblocks recomputed in the backward (`models/common.remat`),
+            # in every mode; without a gradient it changes nothing
+            self.spec = dataclasses.replace(
+                self.spec, config=dataclasses.replace(self.spec.config, remat=True))
         self.device = resolve_device(getattr(args, "device", "cuda"))
         if self.device.type == "cuda":
             # full-f32 convolutions and matmuls, as the JAX f32 reference;
@@ -163,8 +168,11 @@ class AsyrpRunner:
                 f"no pretrained diffusion weights for {_route_key(self.config)}: pass "
                 "--model_path <ckpt>; --allow_random_weights runs with random weights "
                 "(tests/plumbing only)")
-        model = self.spec.build()
-        model.load_state_dict(sd)
+        # built on the meta device: every parameter comes from `sd` (the
+        # default init of a 553M-parameter UNet takes seconds on the host)
+        with torch.device("meta"):
+            model = self.spec.build()
+        model.load_state_dict(sd, assign=True)
         self._model = model.to(self.device).eval().requires_grad_(False)
         return self._model
 

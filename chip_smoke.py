@@ -1733,6 +1733,17 @@ def train_phase(torch, card, log, ws_root, clip_ckpt: str):
                             "K1-bwd dx x 1.01": lambda: k1_bwd_fault(1.0, 1.01)})
     gate(check, card)
     results["gradient_check"] = check
+    imgs4 = write_images(os.path.join(ws_root, "train"), n=max(REMAT_BATCHES), sub="imgs4")
+    # the --allow_random_weights init of --seed, saved once: --model_path
+    # then spares each run of the reading the host's seeded init
+    seeded = os.path.join(ws_root, "train", "seeded.pt")
+    torch.save(spec.state_dict_from_jax(spec.init(hostrng.PRNGKey(SEED))), seeded)
+    results["remat"] = remat_reading(
+        torch, card, log, "training path", os.path.join(ws_root, "train"),
+        lambda ws, exp, bf16, extra: train_argv(
+            ws, imgs, clip_ckpt, exp, bf16=bf16, extra=["--model_path", seeded, *(
+                ["--custom_train_dataset_dir", imgs4] if "--bs_train" in extra else []), *extra]),
+        ws_f32)
     return results, launches
 
 
@@ -1768,6 +1779,97 @@ def plain_training_run(ws_f32: str, ws: str, argv, exp: str, init, trained,
         fail(f"the block trained with the kernels disagrees with the plain run: block {whole:.3e}, "
              f"update {update:.3e}")
     return {"whole_block_rel_err": whole, "update_rel_err": update, "plain_run_s": plain_s}
+
+
+# the --remat reading of phases 7 and 12 (d): float32 at bs 1 with and
+# without --remat from the same latents, deterministic cuDNN (the Δ leaves
+# within REMAT_TOL of each other, absolute), and bfloat16 peak memory at
+# these batch sizes with and without it (REMAT_STEPS-step grids, one
+# iteration: the peak is one edited timestep's backward)
+REMAT_TOL = 1e-5
+REMAT_BATCHES = (1, 4)
+REMAT_STEPS = 4
+
+
+def remat_run(torch, log, argv, ws: str, exp: str, category: str, latents_from=None,
+              block: bool = True):
+    """One `--run_train` through the CLI with the counters zeroed just
+    before and read just after: (results, the trained block of its second
+    iteration, or None without `block`)."""
+    from asyrp_official_torch.cli.main import main as cli_main
+
+    if latents_from is not None:
+        shutil.copytree(os.path.join(latents_from, "precomputed"), os.path.join(ws, "precomputed"))
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n_logs = len(log.iters)
+    t0 = time.perf_counter()
+    with deterministic_cudnn(torch):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"{exp} exited {rc}")
+    timing = [re.search(r"([\d.]+) ms/edit-timestep", m) for m in log.iters[n_logs:]]
+    return ({"peak_gb": torch.cuda.max_memory_allocated() / 2**30, "run_s": wall,
+             "ms_per_edit_timestep": float(timing[-1].group(1)), "launches": counters()},
+            trained_block(ws, exp, category) if block else None)
+
+
+def remat_reading(torch, card, log, what: str, root: str, argv_of, latents_from: str,
+                  category: str = "CUSTOM"):
+    """`--remat` on a full-width training path: float32 at bs 1 with and
+    without it from the latents of `latents_from` (the phase's float32
+    run): peak memory, ms per edited timestep, the Δ leaves within
+    REMAT_TOL, K1 launched more often (the recompute); then bfloat16 peak
+    memory at REMAT_BATCHES with and without it. `argv_of(ws, exp, bf16,
+    extra)` is the path's training argv."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out, blocks = {"float32": {}}, {}
+    once = ["--do_test", "0", "--save_train_image", "0"]
+    for remat in (False, True):
+        tag = "remat" if remat else "plain"
+        ws, exp = os.path.join(root, f"remat_f32_{tag}"), f"remat_f32_{tag}"
+        out["float32"][tag], blocks[tag] = remat_run(
+            torch, log, argv_of(ws, exp, False, once + (["--remat"] if remat else [])), ws, exp,
+            category, latents_from=latents_from)
+    a, b = out["float32"]["plain"], out["float32"]["remat"]
+    d_err = max(float(np.abs(blocks["remat"][g][k] - blocks["plain"][g][k]).max())
+                for g in blocks["plain"] for k in blocks["plain"][g])
+    out["float32"]["delta_max_abs_diff"] = d_err
+    phase(f"  {what} --remat on {card}, float32 bs 1 from the same latents (deterministic "
+          f"cuDNN): peak {a['peak_gb']:.2f} -> {b['peak_gb']:.2f} GiB, "
+          f"{a['ms_per_edit_timestep']:.1f} -> {b['ms_per_edit_timestep']:.1f} ms per edited "
+          f"timestep, K1 launches {a['launches']['group_norm']} -> "
+          f"{b['launches']['group_norm']} (K1-bwd {a['launches']['group_norm_bwd']} -> "
+          f"{b['launches']['group_norm_bwd']}); Δ leaves max |a - b| {d_err:.3e} (tol "
+          f"{REMAT_TOL:g})")
+    if d_err > REMAT_TOL:
+        fail(f"{what}: --remat moved the trained Δ by {d_err:.3e}")
+    if not b["launches"]["group_norm"] > a["launches"]["group_norm"]:
+        fail(f"{what}: --remat launched K1 no more often: {a['launches']} vs {b['launches']}")
+    if not b["peak_gb"] < a["peak_gb"]:
+        fail(f"{what}: --remat did not lower the peak: {a['peak_gb']:.2f} vs {b['peak_gb']:.2f}")
+    out["bfloat16_peak_gb"] = {}
+    for bs in REMAT_BATCHES:
+        for remat in (False, True):
+            tag = f"bs{bs}_{'remat' if remat else 'plain'}"
+            ws, exp = os.path.join(root, f"remat_bf16_{tag}"), f"remat_bf16_{tag}"
+            extra = once + ["--n_train_img", str(bs), "--bs_train", str(bs), "--n_iter", "1",
+                            "--n_inv_step", str(REMAT_STEPS), "--n_train_step", str(REMAT_STEPS)]
+            res, _ = remat_run(torch, log, argv_of(ws, exp, True, extra + (
+                ["--remat"] if remat else [])), ws, exp, category, block=False)
+            out["bfloat16_peak_gb"][tag] = res["peak_gb"]
+    pk = out["bfloat16_peak_gb"]
+    out["seconds"] = time.perf_counter() - t0
+    phase(f"  {what} --remat, bfloat16 peak device memory ({REMAT_STEPS}-step grid, one "
+          f"iteration): " + ", ".join(f"bs {bs} {pk[f'bs{bs}_plain']:.2f} -> "
+                                      f"{pk[f'bs{bs}_remat']:.2f} GiB" for bs in REMAT_BATCHES)
+          + f" of {torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}; the reading "
+          f"took {out['seconds']:.1f} s")
+    return out
 
 
 def openai_family(fam: str):
@@ -3056,8 +3158,8 @@ def make_imagenet_workspace(torch, root: str, data: str):
     """The full-width IMAGENET UNet from the seeded init with its all-zero
     output layers redrawn (`perturbed`), saved as a `.pt` WITHOUT
     `label_emb.weight` (the layout of ADM's released unconditional
-    checkpoint, which `imagenet.yml` reads under class_cond); two random
-    256^2 images per split as `{data}/imagenet/{val,train}/<wnid>/<wnid>/`
+    checkpoint, which `imagenet.yml` reads under class_cond); random 256^2
+    images (two val, four train) as `{data}/imagenet/{val,train}/<wnid>/<wnid>/`
     `*.JPEG` / `*.jpeg` of IMAGENET_CLASS; an OpenAI-flavor Δ checkpoint at
     1024 channels. Returns (the `.pt` path, seconds of the host init)."""
     from asyrp_official_torch.cli.main import load_config
@@ -3081,12 +3183,15 @@ def make_imagenet_workspace(torch, root: str, data: str):
     del sd
     wnid = imagenet_classes()[str(IMAGENET_CLASS)][0]
     for mode, ext in (("val", "JPEG"), ("train", "jpeg")):
-        write_images(os.path.join(data, "imagenet", mode, wnid), sub=wnid, ext=ext)
+        # four training images: the --remat reading's batch of 4
+        write_images(os.path.join(data, "imagenet", mode, wnid), sub=wnid, ext=ext,
+                     n=max(REMAT_BATCHES) if mode == "train" else 2)
     block = delta_block_init(hostrng.PRNGKey(7), spec.bottleneck_ch, spec.temb_ch, flavor="openai")
     save_delta_checkpoint(os.path.join(root, "imagenet_delta.pth"), blocks=[block], flavor="openai")
     phase(f"  (a) {n_params:,} parameters from the seeded init (host: {init_s:.1f} s), saved "
           f"without label_emb.weight ({os.path.getsize(model_path) / 2**30:.2f} GiB); class "
-          f"{IMAGENET_CLASS} ({wnid}): 2 val .JPEG and 2 train .jpeg images; a Δ checkpoint of "
+          f"{IMAGENET_CLASS} ({wnid}): 2 val .JPEG and {max(REMAT_BATCHES)} train .jpeg images; a "
+          f"Δ checkpoint of "
           f"{spec.bottleneck_ch} channels")
     return model_path, init_s
 
@@ -3185,6 +3290,12 @@ def imagenet_phase(torch, dev, card, log, ws_root: str, clip_ckpt: str):
           f"--edit_attr {AFHQ_ATTR}, 1 image, 2 iterations, {OPENAI_TRAIN_STEPS}-step grids")
     training, train_launches = openai_train_phase(torch, card, log, "imagenet", root, model_path,
                                                   clip_ckpt, plain_run=True)
+    torch.cuda.empty_cache()
+    training["remat"] = remat_reading(
+        torch, card, log, "IMAGENET training path", root,
+        lambda ws, exp, bf16, extra: openai_train_argv("imagenet", ws, model_path, clip_ckpt, exp,
+                                                       bf16=bf16, extra=extra),
+        os.path.join(root, "train_float32"), category=openai_family("imagenet")[1])
     torch.cuda.empty_cache()
     classifier = classifier_phase(torch, dev, card)
     seconds = time.perf_counter() - t_phase
@@ -4066,7 +4177,8 @@ TOL.update({"group_norm_across": {"float32": 1e-5, "bfloat16": 2e-2},
 # "record", rank 0 also keeps the shapes of the across-ranks entries'
 # launches (forward and backward), every collective's time (synchronized
 # around it) and bytes received, those inside the Δ-training step apart,
-# the training timesteps and the UNet evals of each run.
+# the training timesteps and the UNet evals of each run. Every rank counts
+# the plain K1-across versions' calls on CUDA tensors (none may run there).
 MD_WORKER = r"""
 import json, sys, time
 import torch
@@ -4088,17 +4200,29 @@ from asyrp_official_torch.ops import attention as k2, groupnorm as k1
 from asyrp_official_torch.pipelines import train as tr
 
 rec = {"gn": {}, "kv": {}, "gnb": {}, "kvb": {}, "coll": [0, 0, 0.0], "coll_train": [0, 0, 0.0],
-       "train": False, "train_steps": 0, "evals": 0}
+       "train": False, "train_steps": 0, "evals": 0, "plain_on_card": 0}
+
+
+def on_card(plain):  # counts a plain version's calls on CUDA tensors (none may run)
+    def call(*a, **kw):
+        if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+            rec["plain_on_card"] += 1
+        return plain(*a, **kw)
+    return call
+
+
+k1.combine_group_stats = on_card(k1.combine_group_stats)  # the plain apply's Chan combination
+k1.group_norm_bwd_apply_plain = on_card(k1.group_norm_bwd_apply_plain)  # and the divide
 if spec.get("record"):
     apply_, attn = k1._apply_cuda, k2._attention_cuda
     bwd_part_, attn_bwd = k1._bwd_part_cuda, k2._attention_bwd_cuda
     reduce_, gather_ = dist.all_reduce, dist.all_gather
     fused = lambda pa, ss: "pre_add" if pa is not None else "scale_shift" if ss is not None else ""
 
-    def apply_rec(x, w, b, mean, rstd, silu, pre_add, scale_shift):
+    def apply_rec(x, w, b, parts, eps, silu, pre_add, scale_shift, stats):
         key = json.dumps([list(x.shape), str(x.dtype), bool(silu), fused(pre_add, scale_shift)])
         rec["gn"][key] = rec["gn"].get(key, 0) + 1
-        return apply_(x, w, b, mean, rstd, silu, pre_add, scale_shift)
+        return apply_(x, w, b, parts, eps, silu, pre_add, scale_shift, stats)
 
     def attn_rec(q, k, v, with_lse, num_heads=1, legacy_scale=False):
         if k.shape[1] != q.shape[1]:
@@ -4167,7 +4291,7 @@ if spec.get("record"):
 results = []
 for argv in spec["runs"]:
     rec.update(gn={}, kv={}, gnb={}, kvb={}, coll=[0, 0, 0.0], coll_train=[0, 0, 0.0],
-               train_steps=0, evals=0)
+               train_steps=0, evals=0, plain_on_card=0)
     cs.zero_counters()
     t0 = time.perf_counter()
     rc = main(argv)
@@ -4416,6 +4540,10 @@ def multi_device_phase(torch, dev, card, ws_root: str, clip_ckpt: str, afhq_mode
         if counts["group_norm"] or counts["attention"] or counts["attention_mh"]:
             fail(f"phase 15 (c) {label}: a one-rank K1 or K2 launched under spatial sharding: "
                  f"{counts}")
+        plain_calls = sum(r[i]["plain_on_card"] for r in res_c)
+        if plain_calls:
+            fail(f"phase 15 (c) {label}: {plain_calls} plain K1-across calls (Chan's combination "
+                 f"in torch ops) on the card path")
         r0 = res_c[0][i]
         n_coll, n_bytes, coll_ms = r0["coll"]
         evals = max(r0["evals"], 1)
@@ -4564,26 +4692,34 @@ def md_rows(torch, dev, seen):
         elif fused == "scale_shift":
             kw["scale_shift"] = (0.1 * randn(shape[0], 2 * shape[1])).to(dtype)
             extra = 2 * shape[0] * shape[1] * es
-        # this block as one of 4 ranks' (the other parts as its own)
-        parts_p = k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
-        mean, rstd = k1.combine_group_stats(parts_p.expand(4, *parts_p.shape), eps)
+        # this block as one of 4 ranks' (the other parts as its own), the
+        # gathered parts made once: a call is the two kernels (the part
+        # statistics, then the apply, which combines the 4 parts in its
+        # prologue), not the gather's stack copy between them
+        def gathered(part):
+            parts = part(x, pre_add=kw.get("pre_add"))
+            return parts.expand(4, *parts.shape).contiguous()
+
+        gathered_k = gathered(k1.group_norm_part_stats)
+        gathered_p = gathered(k1.group_norm_part_stats_plain)
 
         def run_k():
             k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
-            return k1.group_norm_apply(x, w, b, mean, rstd, silu=silu, **kw)
+            return k1.group_norm_apply(x, w, b, gathered_k, eps=eps, silu=silu, stats=True, **kw)
 
         def run_p():
             k1.group_norm_part_stats_plain(x, pre_add=kw.get("pre_add"))
-            return k1.group_norm_apply_plain(x, w, b, mean, rstd, silu=silu, **kw)
+            return k1.group_norm_apply_plain(x, w, b, gathered_p, eps=eps, silu=silu, stats=True,
+                                             **kw)
 
-        parts = k1.group_norm_part_stats(x, pre_add=kw.get("pre_add"))
-        m_k, r_k = k1.combine_group_stats(parts.expand(4, *parts.shape), eps)
+        y, m_k, r_k = run_k()
+        y_p, mean, rstd = run_p()
         n = x.numel()
-        return dict(run_k=run_k, run_p=run_p, got=[m_k, r_k, run_k()],
-                    want=[mean, rstd, run_p()],
+        return dict(run_k=run_k, run_p=run_p, got=[m_k, r_k, y], want=[mean, rstd, y_p],
                     bound=bound(2 * n * es + 2 * shape[1] * 4 + extra, n * (10 + 4 * silu),
                                 PEAK_FLOPS["float32"]),
-                    label=f"{list(shape)} silu={int(silu)} eps={eps:g} fused={fused}")
+                    label=f"{list(shape)} silu={int(silu)} eps={eps:g} fused={fused}",
+                    bitwise=True)
 
     def k2_kv(key, dtype, randn, inputs):
         es = torch.tensor([], dtype=dtype).element_size()
@@ -4736,6 +4872,10 @@ def md_train_phase(torch, card, ws_root: str, clip_ckpt: str, afhq_model: str):
         if any(counts[k_] for k_ in MD_ONE_RANK):
             fail(f"phase 15 (e) {c}: a one-rank K1, K2, K1-bwd or K2-bwd launched under "
                  f"spatial sharding: {counts}")
+        plain_calls = sum(t["plain_on_card"] for t in train)
+        if plain_calls:
+            fail(f"phase 15 (e) {c}: {plain_calls} plain K1-across calls (Chan's combination or "
+                 f"the sums' divide in torch ops) on the card path")
         r0 = train[0]
         n_coll, n_bytes, coll_ms = r0["coll_train"]
         steps = max(r0["train_steps"], 1)
@@ -4829,12 +4969,17 @@ def md_bwd_rows(torch, dev, seen):
             mean, rstd = k1.combine_group_stats(parts.expand(4, *parts.shape), eps)
             count = 4 * x[0, : x.shape[1] // 32].numel()
 
-            def run(part, apply):
+            def run(part, apply, summed):
                 sums, wsum = part(x, dy, w, b, mean, rstd, silu=silu)
-                return sums, wsum, apply(x, dy, w, b, mean, rstd, 4 * sums / count, silu=silu)
+                return sums, wsum, apply(x, dy, w, b, mean, rstd, summed, count, silu=silu)
 
-            return (lambda: run(k1.group_norm_bwd_part, k1.group_norm_bwd_apply),
-                    lambda: run(k1.group_norm_bwd_part_plain, k1.group_norm_bwd_apply_plain))
+            # the all-reduce's result made once: a call is the two kernels
+            summed_k = 4 * k1.group_norm_bwd_part(x, dy, w, b, mean, rstd, silu=silu)[0]
+            summed_p = 4 * k1.group_norm_bwd_part_plain(x, dy, w, b, mean, rstd, silu=silu)[0]
+
+            return (lambda: run(k1.group_norm_bwd_part, k1.group_norm_bwd_apply, summed_k),
+                    lambda: run(k1.group_norm_bwd_part_plain, k1.group_norm_bwd_apply_plain,
+                                summed_p))
 
         run_k, run_p = make(x32.to(dtype), dy32.to(dtype))
         n, bsz, c = x32.numel(), shape[0], shape[1]

@@ -2,7 +2,7 @@
 """Device time per call of GroupNorm(+SiLU) (K1) and its backward (K1-bwd)
 at every shape one 256^2 UNet eval gives them, on one NVIDIA GPU:
 
-    python3 scripts/bench_groupnorm.py [--repo DIR] [--evals] [--out FILE.json]
+    python3 scripts/bench_groupnorm.py [--repo DIR] [--evals | --across] [--out FILE.json]
 
 The shapes and their calls per eval come from `chip_smoke.py`'s recorders:
 one edited eval (dual decode) and one training-mode eval of the full-width
@@ -21,6 +21,14 @@ whole UNet evals (single and dual decode, f32 and bf16, both families, at
 batch 1, random weights from `torch.manual_seed(0)`): wall p50 of 20 and
 one eval under torch.profiler, as `chip_smoke.py` phase 6 reads them; run
 it for two checkouts in one call, in turns, to compare their walls.
+`--across` instead times K1 across ranks and K1-bwd across ranks (the
+entries spatial sharding runs, `chip_smoke.py` phase 15) at the same
+shapes with the rows split as phase 15 (c) and (e) split them: DDPM++ over
+4 ranks, AFHQ over 2. One call is what a rank runs on the card: the part
+kernel, the exchange's result stood in by a copy of its parts (or sums)
+S times, and the apply kernel with whatever torch ops the checkout puts
+between them; both designs' entries are read, so `--repo` can time the
+parent's package beside this one's.
 """
 from __future__ import annotations
 
@@ -78,10 +86,117 @@ def eval_profiles(torch, dev, card, cs):
     return out
 
 
+ACROSS_RANKS = {"custom.yml": 4, "afhq.yml": 2}  # phase 15 (c) and (e): --tp_spatial 4, --sp 2
+
+
+def across_calls(k1, s: int):
+    """(forward, backward) factories for K1 across ranks on one rank of
+    `s`, for the checkout's design: this one (the apply kernels take the
+    gathered parts and the summed sums, and combine or divide in their
+    prologue) or the one before it (Chan's combination and the divide as
+    torch ops between the kernels). Each returns (kernel call, plain call)."""
+    import inspect
+
+    fused_combine = "parts" in inspect.signature(k1.group_norm_apply).parameters
+
+    def fwd(x, w, b, eps, silu, kw):
+        def run(part, apply):
+            parts = part(x, pre_add=kw.get("pre_add"))
+            gathered = parts.expand(s, *parts.shape).contiguous()
+            if fused_combine:
+                return apply(x, w, b, gathered, eps=eps, silu=silu, **kw)
+            mean, rstd = k1.combine_group_stats(gathered, eps)
+            return apply(x, w, b, mean, rstd, silu=silu, **kw)
+
+        return (lambda: run(k1.group_norm_part_stats, k1.group_norm_apply),
+                lambda: run(k1.group_norm_part_stats_plain, k1.group_norm_apply_plain))
+
+    def bwd(x, dy, w, b, mean, rstd, count, silu):
+        def run(part, apply):
+            sums, wsum = part(x, dy, w, b, mean, rstd, silu=silu)
+            summed = s * sums
+            if fused_combine:
+                return apply(x, dy, w, b, mean, rstd, summed, count, silu=silu), wsum
+            return apply(x, dy, w, b, mean, rstd, summed / count, silu=silu), wsum
+
+        return (lambda: run(k1.group_norm_bwd_part, k1.group_norm_bwd_apply),
+                lambda: run(k1.group_norm_bwd_part_plain, k1.group_norm_bwd_apply_plain))
+
+    return fwd, bwd
+
+
+def across_rows(torch, cs, k1, seen, randn, add):
+    """`--across`: every forward and backward shape of `seen`, its rows
+    split over the family's ranks, f32 and bf16."""
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        for fam, shape, silu, eps, fused, count in fwd_rows(seen):
+            s = ACROSS_RANKS[fam]
+            shape = (shape[0], shape[1], shape[2] // s) + tuple(shape[3:])
+            bsz, c = shape[:2]
+            x = (randn(*shape) * 2.0 + 0.5).to(dtype)
+            w, b = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
+            kw, extra_bytes = {}, 0
+            if fused == "pre_add":
+                kw["pre_add"] = randn(bsz, c).to(dtype)
+                extra_bytes = bsz * c * es
+            elif fused == "scale_shift":
+                kw["scale_shift"] = (0.1 * randn(bsz, 2 * c)).to(dtype)
+                extra_bytes = 2 * bsz * c * es
+            run_k, run_p = across_calls(k1, s)[0](x, w, b, eps, silu, kw)
+            err = cs.errs(run_k().float(), run_p().float())[1]
+            n = x.numel()
+            b_ms, b_by = cs.bound(2 * n * es + 2 * c * 4 + extra_bytes, n * (10 + 4 * silu),
+                                  cs.PEAK_FLOPS["float32"])
+            row = {"family": fam, "kernel": "K1 across", "dtype": dname, "shape": list(shape),
+                   "ranks": s, "silu": bool(silu), "eps": eps, "fused": fused,
+                   "calls_per_eval": count, "rel_err": err, "device_ms": cs.device_ms(run_k),
+                   "event_ms": cs.time_ms(run_k),
+                   "device_events_per_call": cs.device_kernels_per_call(run_k)[0],
+                   "library_device_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            add(row, count)
+            print(f"K1 across {fam} {dname} {list(shape)} of {s} ranks silu={int(silu)} "
+                  f"eps={eps:g} fused={fused} x{count}: rel err {err:.3e}; device "
+                  f"{row['device_ms']:.4f} ms, event {row['event_ms']:.4f} ms, "
+                  f"{fmt(row['device_events_per_call'])} device events per call; bound "
+                  f"{b_ms:.4f} ms ({b_by})", flush=True)
+        for fam, shape, silu, wgrad, eps, count in bwd_rows(seen):
+            s = ACROSS_RANKS[fam]
+            shape = (shape[0], shape[1], shape[2] // s) + tuple(shape[3:])
+            bsz, c = shape[:2]
+            x = (randn(*shape) * 2.0 + 0.5).to(dtype)
+            w, b = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
+            dy = randn(*shape).to(dtype)
+            mean, rstd = cs.gn_stats(x, eps=eps)
+            count_g = s * x[0, : c // 32].numel()
+            run_k, run_p = across_calls(k1, s)[1](x, dy, w, b, mean, rstd, count_g, silu)
+            got, want = run_k(), run_p()
+            err = max(cs.errs(got[0].float(), want[0].float())[1],
+                      cs.errs(got[1], want[1])[1])
+            n = x.numel()
+            b_ms, b_by = cs.bound(3 * n * es + (2 + 2 * bsz) * c * 4 + 6 * bsz * 32 * 4,
+                                  n * (17 + 10 * silu), cs.PEAK_FLOPS["float32"])
+            row = {"family": fam, "kernel": "K1-bwd across", "dtype": dname, "shape": list(shape),
+                   "ranks": s, "silu": bool(silu), "eps": eps, "calls_per_eval": count,
+                   "rel_err": err, "device_ms": cs.device_ms(run_k), "event_ms": cs.time_ms(run_k),
+                   "device_events_per_call": cs.device_kernels_per_call(run_k)[0],
+                   "library_device_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            add(row, count)
+            print(f"K1-bwd across {fam} {dname} {list(shape)} of {s} ranks silu={int(silu)} "
+                  f"eps={eps:g} x{count}: rel err {err:.3e}; device {row['device_ms']:.4f} ms, "
+                  f"event {row['event_ms']:.4f} ms, {fmt(row['device_events_per_call'])} device "
+                  f"events per call; bound {b_ms:.4f} ms ({b_by})", flush=True)
+            del got, want
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=REPO, help="take asyrp_official_torch from this checkout")
     ap.add_argument("--evals", action="store_true", help="time whole UNet evals instead")
+    ap.add_argument("--across", action="store_true",
+                    help="time K1 and K1-bwd across ranks (phase 15's splits) instead")
     ap.add_argument("--out", default=None, help="also write the rows as JSON here")
     args = ap.parse_args()
     import torch
@@ -131,7 +246,7 @@ def main() -> int:
                 s[k] = s.get(k, 0.0) + row[k] * count
 
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16) if not args.across else ():
         dname = str(dtype).split(".")[-1]
         es = torch.tensor([], dtype=dtype).element_size()
         for fam, shape, silu, eps, fused, count in fwd_rows(seen):
@@ -204,10 +319,13 @@ def main() -> int:
                   f"events per call; library {row['library_device_ms']:.4f} ms; bound "
                   f"{b_ms:.4f} ms ({b_by})", flush=True)
             del y_lib, got, want
+    if args.across:
+        across_rows(torch, cs, k1, seen, randn, add)
     for key, s in sums.items():
+        lib = s.get("library_device_ms")
         print(f"per eval, {key}: {s['calls']} calls; device {s['device_ms']:.3f} ms, event "
-              f"{s['event_ms']:.3f} ms, library {s['library_device_ms']:.3f} ms, bound "
-              f"{s['bound_ms']:.3f} ms", flush=True)
+              f"{s['event_ms']:.3f} ms, library {'none' if lib is None else f'{lib:.3f} ms'}, "
+              f"bound {s['bound_ms']:.3f} ms", flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -853,26 +853,44 @@ def test_rows_training_gradient_kernels_match_plain(request, init, tf32):
 
 # K1 across ranks and K2 with Tq != Tk: the entries spatial sharding runs
 # (S row blocks of one image, computed on one card here). The shapes are the
-# serving path's at S = 2 and 4: DDPM++ custom.yml (256^2) and afhq.yml.
+# serving path's at S = 2 and 4: DDPM++ custom.yml (256^2) and afhq.yml;
+# and the apply kernels' and the cluster plan's edges.
 _ACROSS_NORMS = [
-    # (whole NCHW shape, S, fused)
-    ((1, 128, 256, 256), 4, "pre_add"),
-    ((1, 256, 256, 256), 4, None),     # the decoder's concat at 256^2
-    ((1, 256, 64, 64), 2, "pre_add"),
-    ((1, 512, 16, 16), 4, "scale_shift"),
-    ((1, 512, 8, 8), 4, None),         # the bottleneck: 2 rows per rank
-    ((2, 384, 32, 32), 2, "scale_shift"),
+    # (whole NCHW shape, S, fused, each block a misaligned view)
+    ((1, 128, 256, 256), 4, "pre_add", False),
+    ((1, 256, 256, 256), 4, None, False),     # the decoder's concat at 256^2
+    ((1, 256, 64, 64), 2, "pre_add", False),
+    ((1, 512, 16, 16), 4, "scale_shift", False),
+    ((1, 512, 8, 8), 4, None, False),         # the bottleneck: 2 rows per rank, 16 groups a block
+    ((4, 512, 8, 8), 4, "scale_shift", False),  # 4 samples of it: groups of two samples a block
+    ((2, 384, 32, 32), 2, "scale_shift", False),
+    ((1, 64, 6, 5), 2, "pre_add", False),     # H·W 15: no 16-byte vector (the scalar instance)
+    ((1, 128, 64, 64), 2, "pre_add", True),   # 16-byte vectors refused by the views
+    ((1, 256, 512, 512), 2, None, False),     # an f32 group of 4 MiB: a cluster streams part
 ]
+
+
+def _misaligned(t):
+    """t's values in a contiguous view one element into its storage."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("shape,s,fused", _ACROSS_NORMS)
-def test_group_norm_across_kernels_match_plain(cuda_device, shape, s, fused, dtype, bound):
-    """Per row block: the part statistics kernel against the plain parts
-    (combined), and the apply kernel against the plain apply from the same
-    combined statistics; and the whole (blocks concatenated) against
-    `group_norm_plain` on the whole tensor."""
+@pytest.mark.parametrize("shape,s,fused,misaligned", _ACROSS_NORMS)
+def test_group_norm_across_kernels_match_plain(cuda_device, shape, s, fused, misaligned, dtype,
+                                               bound):
+    """Per row block: the part statistics kernel (one part per block)
+    against the plain parts; the apply kernel, which combines the S
+    gathered parts itself, against the plain apply from the same parts,
+    with and without SiLU; every block's combined statistics bit for bit
+    alike and against `combine_group_stats`; two calls bit for bit; and the
+    whole (blocks concatenated) against `group_norm_plain` on the whole
+    tensor."""
     g = torch.Generator(device=cuda_device).manual_seed(2)
     b, c = shape[:2]
     x = (torch.randn(shape, generator=g, device=cuda_device) * 3 + 4).to(dtype)
@@ -884,24 +902,37 @@ def test_group_norm_across_kernels_match_plain(cuda_device, shape, s, fused, dty
     elif fused == "scale_shift":
         kw["scale_shift"] = (0.5 * torch.randn(b, 2 * c, generator=g, device=cuda_device)).to(dtype)
     blocks = [t.contiguous() for t in x.chunk(s, dim=2)]
+    if misaligned:
+        blocks = [_misaligned(t) for t in blocks]
     n_part, n_apply = k1.group_norm.part_launches, k1.group_norm.apply_launches
     parts = torch.stack([k1.group_norm_part_stats(xb, pre_add=kw.get("pre_add")) for xb in blocks])
     parts_p = torch.stack([k1.group_norm_part_stats_plain(xb, pre_add=kw.get("pre_add"))
                            for xb in blocks])
-    mean, rstd = k1.combine_group_stats(parts, 1e-6)
-    mean_p, rstd_p = k1.combine_group_stats(parts_p, 1e-6)
-    close_to_scale(mean_p.cpu().numpy(), mean.cpu().numpy(), "across mean", bound=1e-5)
-    close_to_scale(rstd_p.cpu().numpy(), rstd.cpu().numpy(), "across rstd", bound=1e-5)
-    got = [k1.group_norm_apply(xb, w, bias, mean, rstd, silu=True, **kw) for xb in blocks]
-    for xb, yb in zip(blocks, got):
-        want = k1.group_norm_apply_plain(xb, w, bias, mean, rstd, silu=True, **kw)
-        close_to_scale(want.float().cpu().numpy(), yb.float().cpu().numpy(), "across apply",
-                       bound=bound)
-    whole = k1.group_norm_plain(x, w, bias, silu=True, **kw)
-    close_to_scale(whole.float().cpu().numpy(), torch.cat(got, dim=2).float().cpu().numpy(),
-                   "across vs whole", bound=bound)
+    assert parts.shape == parts_p.shape == (s, b, 32, 1, 3)
+    assert torch.equal(parts[..., 0], parts_p[..., 0])
+    for i, what in ((1, "mean"), (2, "M2")):
+        close_to_scale(parts_p[..., i].cpu().numpy(), parts[..., i].cpu().numpy(),
+                       f"part {what}", bound=1e-5)
+    mean_p, rstd_p = k1.combine_group_stats(parts, 1e-6)
+    for silu in (False, True):
+        outs = [k1.group_norm_apply(xb, w, bias, parts, eps=1e-6, silu=silu, stats=True, **kw)
+                for xb in blocks]
+        for _, m, r in outs:  # every rank combines the same bits
+            assert torch.equal(m, outs[0][1]) and torch.equal(r, outs[0][2])
+        close_to_scale(mean_p.cpu().numpy(), outs[0][1].cpu().numpy(), "across mean", bound=1e-5)
+        close_to_scale(rstd_p.cpu().numpy(), outs[0][2].cpu().numpy(), "across rstd", bound=1e-5)
+        for xb, (yb, _, _) in zip(blocks, outs):
+            want = k1.group_norm_apply_plain(xb, w, bias, parts, eps=1e-6, silu=silu, **kw)
+            close_to_scale(want.float().cpu().numpy(), yb.float().cpu().numpy(),
+                           f"across apply silu={silu}", bound=bound)
+        again = k1.group_norm_apply(blocks[-1], w, bias, parts, eps=1e-6, silu=silu, **kw)
+        assert torch.equal(again, outs[-1][0])
+        whole = k1.group_norm_plain(x, w, bias, silu=silu, **kw)
+        close_to_scale(whole.float().cpu().numpy(),
+                       torch.cat([o[0] for o in outs], dim=2).float().cpu().numpy(),
+                       f"across vs whole silu={silu}", bound=bound)
     assert k1.group_norm.part_launches == n_part + s
-    assert k1.group_norm.apply_launches == n_apply + s
+    assert k1.group_norm.apply_launches == n_apply + 2 * (s + 1)
 
 
 @pytest.mark.cuda
@@ -937,23 +968,28 @@ def test_attention_kv_kernel_matches_plain(cuda_device, b, tq, tk, c, heads, leg
 # the norm without SiLU, the epilogue in torch ops around it); and ragged
 # local runs (the scalar instance).
 _ACROSS_BWD = [
-    # (whole NCHW shape, S, silu)
-    ((1, 512, 8, 8), 4, True),        # the DeltaBlock's norm: [1, 512, 2, 8] per rank
-    ((1, 128, 256, 256), 4, True),    # [1, 128, 64, 256] per rank
-    ((1, 256, 256, 256), 4, True),
-    ((1, 512, 32, 32), 4, False),
-    ((1, 512, 16, 16), 2, False),     # afhq.yml's FiLM norms at S = 2
-    ((2, 384, 32, 32), 2, False),
-    ((1, 64, 6, 5), 2, True),         # 15 elements per channel: the scalar instance
+    # (whole NCHW shape, S, silu, each block a misaligned view)
+    ((1, 512, 8, 8), 4, True, False),        # the DeltaBlock's norm: [1, 512, 2, 8] per rank
+    ((4, 512, 8, 8), 4, True, False),        # 4 samples of it
+    ((1, 128, 256, 256), 4, True, False),    # [1, 128, 64, 256] per rank
+    ((1, 256, 256, 256), 4, True, False),
+    ((1, 512, 32, 32), 4, False, False),
+    ((1, 512, 16, 16), 2, False, False),     # afhq.yml's FiLM norms at S = 2
+    ((2, 384, 32, 32), 2, False, False),
+    ((1, 64, 6, 5), 2, True, False),         # 15 elements per channel: the scalar instance
+    ((1, 128, 64, 64), 2, True, True),       # 16-byte vectors refused by the views
+    ((1, 256, 512, 512), 2, True, False),    # an f32 group of 4 MiB of x and of dy: dy streams
 ]
 
 
-def _across_bwd(x, dy, w, b, s, silu, eps=1e-6):
+def _across_bwd(x, dy, w, b, s, silu, misaligned=False, eps=1e-6):
     """Per block of S: the backward part and apply kernels (the blocks' sums
     added in block order, as the all-reduce adds the ranks'), and their
     plain versions from the same combined statistics."""
     blocks = [t.contiguous() for t in x.chunk(s, dim=2)]
     dys = [t.contiguous() for t in dy.chunk(s, dim=2)]
+    if misaligned:
+        blocks, dys = [_misaligned(t) for t in blocks], [_misaligned(t) for t in dys]
     parts = torch.stack([k1.group_norm_part_stats_plain(xb) for xb in blocks])
     mean, rstd = k1.combine_group_stats(parts, eps)
     count = x[0, : x.shape[1] // 32].numel()
@@ -963,7 +999,7 @@ def _across_bwd(x, dy, w, b, s, silu, eps=1e-6):
                                k1.group_norm_bwd_apply_plain)):
         res = [part(xb, db, w, b, mean, rstd, silu=silu) for xb, db in zip(blocks, dys)]
         sums = sum(r[0] for r in res)
-        dx = torch.cat([apply(xb, db, w, b, mean, rstd, sums / count, silu=silu)
+        dx = torch.cat([apply(xb, db, w, b, mean, rstd, sums, count, silu=silu)
                         for xb, db in zip(blocks, dys)], dim=2)
         out[name] = (dx, sum(r[1] for r in res).sum(dim=0), res)
     return out
@@ -971,8 +1007,9 @@ def _across_bwd(x, dy, w, b, s, silu, eps=1e-6):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("shape,s,silu", _ACROSS_BWD)
-def test_group_norm_bwd_across_kernels_match_plain(cuda_device, shape, s, silu, dtype, bound):
+@pytest.mark.parametrize("shape,s,silu,misaligned", _ACROSS_BWD)
+def test_group_norm_bwd_across_kernels_match_plain(cuda_device, shape, s, silu, misaligned, dtype,
+                                                   bound):
     """`gn_bwd_part` (sums and per-channel partials) and `gn_bwd_apply`
     against their plain versions per block, and the blocks' dx, dw and db
     against `torch.autograd.grad` through `group_norm_plain` on the whole
@@ -983,7 +1020,7 @@ def test_group_norm_bwd_across_kernels_match_plain(cuda_device, shape, s, silu, 
     w = 1 + 0.1 * torch.randn(shape[1], generator=g, device=cuda_device)
     b = 0.1 * torch.randn(shape[1], generator=g, device=cuda_device)
     n = k1.group_norm.bwd_part_launches, k1.group_norm.bwd_apply_launches, k1.group_norm.bwd_launches
-    out = _across_bwd(x, dy, w, b, s, silu)
+    out = _across_bwd(x, dy, w, b, s, silu, misaligned)
     assert (k1.group_norm.bwd_part_launches, k1.group_norm.bwd_apply_launches,
             k1.group_norm.bwd_launches) == (n[0] + s, n[1] + s, n[2])
     (dx, dwb, res), (dx_p, dwb_p, res_p) = out["kernel"], out["plain"]
@@ -998,7 +1035,7 @@ def test_group_norm_bwd_across_kernels_match_plain(cuda_device, shape, s, silu, 
     for wnt, got, what in zip(want, (dx, dwb[0], dwb[1]), ("dx", "dw", "db")):
         close_to_scale(wnt.cpu().numpy(), got.float().cpu().numpy(), f"across {what}",
                        bound=bound)
-    again = _across_bwd(x, dy, w, b, s, silu)["kernel"]
+    again = _across_bwd(x, dy, w, b, s, silu, misaligned)["kernel"]
     assert torch.equal(again[0], dx) and torch.equal(again[1], dwb)
 
 

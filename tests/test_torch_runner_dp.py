@@ -17,10 +17,10 @@ single-device run the same way, with these tolerances):
     single-process run, the harvested rows within 2e-4 of scale (JAX's
     bound for sharded runs);
   * under each of `--dp 4 --tp_spatial` and `--dp 2 --sp 2` on 4 ranks,
-    Δ-training of a DeltaBlock (CLIP + L1) and of the Δh rows, `--lpips`,
-    `--run_fidelity` and `--diff_style`: the Δ leaves within 5e-5, every
-    grid within 2/255 and the LPIPS curves within 5e-3 of the
-    single-process run (the bounds of JAX's `tests/test_runner_dp.py`
+    Δ-training of a DeltaBlock (CLIP + L1; and L1 + the ArcFace ID term at
+    256²) and of the Δh rows, `--lpips`, `--run_fidelity` and
+    `--diff_style`: the Δ leaves within 5e-5, every grid within 2/255 and
+    the LPIPS curves within 5e-3 of the single-process run (the bounds of JAX's `tests/test_runner_dp.py`
     `test_tp_spatial_training`, `test_dp_sp_2d_mesh` and its `--lpips`
     test);
   * base training (`pipelines/base_train.py`): one `--dp 2`-style step on
@@ -37,6 +37,7 @@ import shutil
 import numpy as np
 import pytest
 import torch
+import yaml
 from PIL import Image
 
 from parity_utils import close_to_scale, tiny_lpips_ckpt
@@ -44,6 +45,7 @@ from torch_ranks import run_ranks
 
 from asyrp_official_torch.cli.main import main as port_main
 from asyrp_official_torch.compat.delta_ckpt import load_delta_checkpoint, save_delta_checkpoint
+from asyrp_official_torch.losses.id_loss import IRSE50
 from asyrp_official_torch.losses import clip_model as pm
 from asyrp_official_torch.models.delta import delta_block_init
 from asyrp_official_torch.utils import hostrng
@@ -80,6 +82,15 @@ RUNS = [
                "--save_dir", "{ws}/styled", "--n_gen_step", "6", "--hs_coeff", "0.7"]),
     ("lpips", ["--lpips", "--lpips_ckpt", "{ws}/lpips.npz", "--n_train_img", "2"]),
 ]
+# Δ-training with the ArcFace ID term (`--id_loss_w`, a random IR-SE50) on
+# the tiny DDPM++ at 256², where the face crop [35:223, 32:220] is whole;
+# three steps, so that its latent cache and its run's name are its own. It
+# is held by its Δ leaves and writes no images
+ID_TAG = "LC_CUSTOM_t999_ninv3_ngen3"
+ID_RUN = ("id", ["--config", "{ws}/tiny256.yml", "--run_train", "--train_delta_block",
+                 "--n_iter", "2", "--do_test", "0", "--save_train_image", "0", "--id_loss_w",
+                 "1", "--ir_se50_ckpt", "{ws}/ir_se50.pth", "--n_inv_step", "3",
+                 "--n_train_step", "3", "--n_test_step", "3", "--n_train_img", "2"])
 # on 4 ranks: (exp, flags, mesh flags) — serving under spatial sharding
 SPATIAL_RUNS = [
     ("multi", SERVE + MULTI + NOISE, ["--dp", "4", "--tp_spatial"]),
@@ -91,7 +102,7 @@ SPATIAL_RUNS = [
 # on 4 ranks under each spatial layout: training (blocks, rows) and the
 # other modes, from a fresh workspace
 SPATIAL_MESHES = {"tp4": ["--dp", "4", "--tp_spatial"], "sp22": ["--dp", "2", "--sp", "2"]}
-SPATIAL_TRAIN_RUNS = [RUNS[i] for i in (0, 1, 8, 9, 10)]
+SPATIAL_TRAIN_RUNS = [RUNS[i] for i in (0, 1, 8, 9, 10)] + [ID_RUN]
 
 WORKER = r'''
 import json
@@ -105,9 +116,17 @@ for argv in json.loads(ARGS[0]):
 
 def _workspace(ws):
     """The tiny workspace (4 images), seeded block checkpoints (one per
-    attribute and one plain), the tiny CLIP, content and style images and a
-    random LPIPS npz."""
+    attribute and one plain), the tiny CLIP, content and style images, a
+    random LPIPS npz, and the ID run's 256² config and random IR-SE50."""
     write_tiny_workspace(ws)
+    with open(os.path.join(ws, "tiny.yml")) as f:
+        config = yaml.safe_load(f)
+    config["data"]["image_size"] = 256
+    config["model"].update(ch_mult=[1, 1, 2], attn_resolutions=[])
+    with open(os.path.join(ws, "tiny256.yml"), "w") as f:
+        yaml.safe_dump(config, f)
+    torch.manual_seed(0)
+    torch.save(IRSE50().state_dict(), os.path.join(ws, "ir_se50.pth"))
     for i, name in enumerate(("smiling", "angry", "blk")):
         save_delta_checkpoint(os.path.join(ws, "checkpoint", f"{name}_{RUN}_0.pth"),
                               blocks=[delta_block_init(hostrng.PRNGKey(100 + i), 64, 128)],
@@ -142,7 +161,7 @@ def _one_torch_thread():
 def single(tmp_path_factory):
     ws = str(tmp_path_factory.mktemp("dp_single"))
     _workspace(ws)
-    for exp, flags in RUNS:
+    for exp, flags in RUNS + [ID_RUN]:
         assert port_main(_argv(ws, exp, flags)) == 0, exp
     return ws
 
@@ -198,7 +217,8 @@ def _grids_match(got, want, what):
 
 def _delta_leaves(ws, exp, it=1):
     d = os.path.join(ws, "checkpoint")
-    name = [c for c in os.listdir(d) if c.startswith(f"{exp}_{RUN}") and c.endswith(f"_{it}.pth")]
+    tag = ID_TAG if exp == ID_RUN[0] else RUN
+    name = [c for c in os.listdir(d) if c.startswith(f"{exp}_{tag}") and c.endswith(f"_{it}.pth")]
     assert len(name) == 1, (exp, os.listdir(d))
     loaded = load_delta_checkpoint(os.path.join(d, name[0]))
     if "blocks" in loaded:
@@ -240,13 +260,14 @@ def test_dp_harvest_and_lpips_curves_match(single, dp2):
         close_to_scale(b, a, os.path.basename(p), bound=1e-5)
 
 
-@pytest.mark.parametrize("exp", ["train", "rows"])
+@pytest.mark.parametrize("exp", ["train", "rows", "id"])
 def test_spatial_training_lands_on_the_single_process_delta(single, spatial_train, exp):
     """Each rank backpropagates its share of the loss through the exchanges'
     adjoints and the gradients are summed over the spatial ranks: the Δ
     lands where one process's does (5e-5; with the CLIP term not weighted
     1/S the block lands 2.0e-3 to 3.9e-3 off, a mutation check made on a
-    copy of the port)."""
+    copy of the port). `id`: the ArcFace term on the gathered 256² images
+    (it moves the loss, not the block: x0_t's features are detached)."""
     a, b = _delta_leaves(single, exp), _delta_leaves(spatial_train, exp)
     assert len(a) == len(b) > 0
     init = _delta_leaves(single, exp, it=0)
@@ -260,7 +281,7 @@ def test_spatial_modes_match_the_single_process_outputs(single, spatial_train):
     2/255, the `--lpips` curves within 5e-3 (JAX's bound)."""
     got = _pngs(spatial_train)
     exps = {k.split(os.sep)[0] for k in got}
-    assert exps == {f"{e}_{RUN}" for e, _ in SPATIAL_TRAIN_RUNS if e != "style"} - {
+    assert exps == {f"{e}_{RUN}" for e, _ in SPATIAL_TRAIN_RUNS if e not in ("style", "id")} - {
         f"lpips_{RUN}"}, exps
     _grids_match(got, {k: v for k, v in _pngs(single).items() if k in got}, "spatial modes")
     _grids_match(_pngs(spatial_train, "styled"), _pngs(single, "styled"), "spatial --diff_style")

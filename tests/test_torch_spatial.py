@@ -224,14 +224,14 @@ def test_group_norm_across_plain_matches_the_whole_tensor(s, fused, dtype):
     blocks = _row_blocks(x, 2, s)
     parts = torch.stack([k1.group_norm_part_stats_plain(xb, groups=32, pre_add=kw.get("pre_add"))
                          for xb in blocks])
-    mean, rstd = k1.combine_group_stats(parts, 1e-6)
-    got = torch.cat([k1.group_norm_apply_plain(xb, w, b, mean, rstd, silu=True, **kw)
+    got = torch.cat([k1.group_norm_apply_plain(xb, w, b, parts, eps=1e-6, silu=True, **kw)
                      for xb in blocks], dim=2)
     want = k1.group_norm_plain(x, w, b, groups=32, eps=1e-6, silu=True, **kw)
     close_to_scale(got.float().numpy(), want.float().numpy(), "K1 across vs whole",
                    bound=1e-5 if dtype == torch.float32 else 1e-2)
     if fused is None and dtype == torch.float32:
-        got = torch.cat([k1.group_norm_apply_plain(xb, w, b, mean, rstd) for xb in blocks], dim=2)
+        got = torch.cat([k1.group_norm_apply_plain(xb, w, b, parts, eps=1e-6) for xb in blocks],
+                        dim=2)
         ref = jcommon.group_norm({"scale": w.numpy(), "bias": b.numpy()},
                                  jnp.asarray(x.permute(0, 2, 3, 1).numpy()), groups=32, eps=1e-6)
         close_to_scale(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), "K1 across vs JAX",

@@ -179,6 +179,26 @@ with spatial.sharded(sg):
     loss.backward()
 res["id_loss"], res["id_dx0_t"] = summed(loss.detach()), whole(x0_t.grad, 1)
 
+# --remat on row blocks: the tiny DDPM++ with its resblocks recomputed in a
+# backward run on a thread of its own (as the CUDA autograd engine runs it,
+# outside this thread's `spatial.sharded` block), and without remat
+import dataclasses
+import threading
+for remat in (False, True):
+    spec = spec_from_config(meta["configs"]["ddpmpp"])
+    model = dataclasses.replace(spec, config=dataclasses.replace(spec.config, remat=remat)).build()
+    model.load_state_dict(torch.load(f"{root}/ddpmpp.pt"))
+    x = rows(inp["ddpmpp_xl"], 1).requires_grad_(True)
+    with spatial.sharded(sg):
+        eps = model.apply(x, torch.full((1,), 500.0))[0]
+    loss = (eps * rows(inp["remat_cot"], 1)).sum()
+    th = threading.Thread(target=loss.backward)
+    th.start()
+    th.join()
+    res[f"remat{int(remat)}_dx"] = whole(x.grad, 1)
+    res[f"remat{int(remat)}_dp"] = summed(torch.cat([p.grad.flatten()
+                                                     for p in model.parameters()]))
+
 # one edited timestep of make_train_step
 clip = pm.CLIP(pm.CLIPConfig(**meta["clip_cfg"]), seed=1).eval().requires_grad_(False)
 ctx = pl.CLIPContext(clip, pm.CLIPConfig(**meta["clip_cfg"]), ptok.HashTokenizer())
@@ -279,6 +299,7 @@ def setup(tmp_path_factory):
         inp[f"{name}_xl"] = wrng.randn(b, 32, 32, 3).astype(np.float32)
         inp[f"{name}_x0"] = wrng.uniform(-1, 1, (b, 32, 32, 3)).astype(np.float32)
         jax_side["configs"][name] = (jspec, pspec, params, block, tblock)
+    inp["remat_cot"] = wrng.randn(1, 32, 32, 3).astype(np.float32)
     spec = spec_from_config(TINY_DDPMPP_CONFIG)
     inp["rows"] = (0.2 * rng.randn(len(SEQ), spec.bottleneck_hw, spec.bottleneck_hw,
                                    spec.bottleneck_ch)).astype(np.float32)
@@ -458,6 +479,68 @@ def test_precompute_with_h_gathers_the_trajectory_whole(setup, port_runs, world)
     with np.load(root / f"cache_{world}" / "CUSTOM_inv4_h.npz") as cache:
         for k in ("x_lat", "h_traj"):
             np.testing.assert_array_equal(cache[k], got[f"pre_{k}"])
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_remat_on_row_blocks_matches_the_whole_tensor(setup, port_runs, world):
+    """The tiny DDPM++ on row blocks with `remat`, its backward (and so
+    the resblocks' recompute, with their halos and K1 across ranks) run on
+    another thread than the forward: the input's and every parameter's
+    gradient equal the sharded run without remat and autograd of the whole
+    tensor in one process (2e-5 of scale). Were the recompute to lose the
+    spatial group, it would run the convolutions without halos and the
+    norms on the local rows alone."""
+    root, inp = setup[0], setup[1]
+    got = port_runs[world]
+    spec = spec_from_config(TINY_DDPMPP_CONFIG)
+    model = spec.build()
+    model.load_state_dict(torch.load(root / "ddpmpp.pt"))
+    x = _t(inp["ddpmpp_xl"])
+    eps = model.apply(x, torch.full((1,), 500.0))[0]
+    (eps * torch.from_numpy(inp["remat_cot"])).sum().backward()
+    want_dp = torch.cat([p.grad.flatten() for p in model.parameters()]).numpy()
+    for r in (0, 1):
+        close_to_scale(x.grad.numpy(), got[f"remat{r}_dx"], f"remat {r} dx, {world} ranks",
+                       bound=WHOLE_TOL)
+        close_to_scale(want_dp, got[f"remat{r}_dp"], f"remat {r} d params, {world} ranks",
+                       bound=WHOLE_TOL)
+    np.testing.assert_allclose(got["remat1_dx"], got["remat0_dx"], rtol=0, atol=1e-6 * float(
+        np.abs(got["remat0_dx"]).max()))
+
+
+# Δ-training of a DeltaBlock (L1 + CLIP) through the CLI, one process
+# without --remat and 2 ranks with it
+REMAT_FLAGS = ["--run_train", "--train_delta_block", "--n_iter", "2", "--clip_loss_w", "1",
+               "--do_test", "0"]
+
+
+@pytest.fixture(scope="module")
+def remat_cli(tmp_path_factory):
+    from asyrp_official_torch.cli.main import main as port_main
+    from test_torch_runner_dp import WORKER as CLI_WORKER, _argv, _workspace
+
+    wss = {}
+    for name in ("one", "two"):
+        wss[name] = str(tmp_path_factory.mktemp(f"remat_{name}"))
+        _workspace(wss[name])
+    assert port_main(_argv(wss["one"], "train", REMAT_FLAGS)) == 0
+    run_ranks(CLI_WORKER, 2, [json.dumps([_argv(wss["two"], "train", REMAT_FLAGS + ["--remat"],
+                                                ["--dp", "2", "--tp_spatial"])])], timeout=240)
+    return wss
+
+
+def test_tp_spatial_remat_training_lands_on_the_single_process_delta(remat_cli):
+    """`--dp 2 --tp_spatial --remat` on 2 gloo ranks: the trained
+    DeltaBlock within 5e-5 of one process without remat (the bound of the
+    other spatial runs, `tests/test_torch_runner_dp.py`)."""
+    from test_torch_runner_dp import _delta_leaves
+
+    a, b = _delta_leaves(remat_cli["one"], "train"), _delta_leaves(remat_cli["two"], "train")
+    assert len(a) == len(b) > 0
+    init = _delta_leaves(remat_cli["one"], "train", it=0)
+    assert max(np.abs(x - y).max() for x, y in zip(a, init)) > 1e-4, "the Δ did not train"
+    for x, y in zip(a, b):
+        np.testing.assert_allclose(y, x, atol=5e-5)
 
 
 def _id_loss(inp, with_id=True):
