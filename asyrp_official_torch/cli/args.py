@@ -84,9 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
              "(torch.utils.checkpoint): about one extra forward of FLOPs "
              "for activation memory, so a larger --bs_train fits")
     add("--trace_dir", type=str, default=None,
-        help="write a TensorBoard-loadable jax.profiler device-timeline "
-             "trace of the whole run to this directory (the observability "
-             "tier the reference lacks — utils/profiling.trace)")
+        help="write a TensorBoard-loadable torch.profiler trace of the "
+             "whole run, host and CUDA device with the port's own spans, to "
+             "this directory as *.pt.trace.json (utils/profiling.trace)")
     add("--work_dir", type=str, default=".")
 
     # multi-chip (the reference's DataParallel analog, integrated in the

@@ -35,6 +35,7 @@ import torch
 from asyrp_official_torch.ops import ddim_step as k3, ddpm_step as kddpm
 from asyrp_official_torch.core.schedule import Schedule
 from asyrp_official_torch.core.steptable import StepTable
+from asyrp_official_torch.utils import profiling as prof
 
 __all__ = ["sample_chain"]
 
@@ -76,9 +77,8 @@ def sample_chain(
     if dt_lambda != 1.0:
         use_dt = torch.as_tensor((np.asarray(table.t) >= dt_end).astype(np.float32), **f32)
 
-    x = x_init
-    ys = {k: [] for k in collect}
-    for i in range(table.num_steps):
+    def step(i, x):
+        """Step i from state x: the eval, the noise, the step kernel."""
         aux = {"use_delta": float(table.use_delta[i]), "delta_idx": int(table.delta_idx[i]),
                "step": i}
         out = eps_fn(x, ts[i].expand(bsz), aux)
@@ -96,6 +96,7 @@ def sample_chain(
                 noise = torch.as_tensor(noise_fn(i, tuple(x.shape))).to(device=dev, dtype=x.dtype)
             else:
                 noise = torch.randn(x.shape, generator=generator, device=dev, dtype=x.dtype)
+        x0_t = None
         if sample_type == "ddim":
             x, x0_t = k3.ddim_step(
                 x, eps, eps_mod, at[i:i + 1], at_next[i:i + 1], eta[i:i + 1], noise,
@@ -106,11 +107,19 @@ def sample_chain(
                 x0_t = (x.float() - eps.float() * torch.sqrt(1.0 - at[i])) / torch.sqrt(at[i])
             x = kddpm.ddpm_step(x, eps, logvar if learn_sigma else logvar_tab[i:i + 1],
                                 beta[i:i + 1], at[i:i + 1], ts[i:i + 1], noise)
-        if "x" in ys:
-            ys["x"].append(x)
-        if "x0_t" in ys:
-            ys["x0_t"].append(x0_t)
-        for k in extras:
-            if k in ys:
-                ys[k].append(extras[k])
+        return x, x0_t, extras
+
+    x = x_init
+    ys = {k: [] for k in collect}
+    with prof.span(prof.CHAIN):
+        for i in range(table.num_steps):
+            with prof.span(prof.STEP):
+                x, x0_t, extras = step(i, x)
+            if "x" in ys:
+                ys["x"].append(x)
+            if "x0_t" in ys:
+                ys["x0_t"].append(x0_t)
+            for k in extras:
+                if k in ys:
+                    ys[k].append(extras[k])
     return x, {k: torch.stack(v) for k, v in ys.items() if v}

@@ -28,6 +28,7 @@ from torch import nn
 
 from asyrp_official_torch.ops import groupnorm as _k1
 from asyrp_official_torch.parallel import spatial
+from asyrp_official_torch.utils import profiling as prof
 
 __all__ = [
     "GroupNorm",
@@ -96,7 +97,12 @@ def remat(block: nn.Module, *args):
 
 
 def _cast(p, dtype):
-    return p if p.dtype == dtype else p.to(dtype)
+    """A weight in the activation dtype: converted at each use (and counted
+    while a profiler records) where the dtypes differ."""
+    if p.dtype == dtype:
+        return p
+    prof.count(prof.WEIGHT_CASTS)
+    return p.to(dtype)
 
 
 def conv2d(conv: nn.Conv2d, x, *, stride: int = 1, padding=1):

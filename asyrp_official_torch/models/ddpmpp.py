@@ -34,6 +34,7 @@ from asyrp_official_torch.models.delta import EditState, apply_edit
 from asyrp_official_torch.ops import attention as _k2
 from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import hostrng
+from asyrp_official_torch.utils import profiling as prof
 
 __all__ = ["DDPMppConfig", "CELEBA_CONFIG", "DDPMpp", "init_params"]
 
@@ -81,7 +82,8 @@ def _nhwc(x):
 
 def _lin1x1(conv: nn.Conv2d, flat):
     """A 1x1 conv applied to [B, T, C] tokens."""
-    return F.linear(flat, conv.weight[:, :, 0, 0].to(flat.dtype), conv.bias.to(flat.dtype))
+    return F.linear(flat, cm._cast(conv.weight[:, :, 0, 0], flat.dtype),
+                    cm._cast(conv.bias, flat.dtype))
 
 
 class ResnetBlock(nn.Module):
@@ -115,15 +117,16 @@ class AttnBlock(nn.Module):
         self.proj_out = nn.Conv2d(ch, ch, 1)
 
     def forward(self, x):
-        b, c, hh, ww = x.shape
-        flat = self.norm(x).flatten(2).transpose(1, 2)  # [B, T, C]
-        q, k, v = (_lin1x1(conv, flat) for conv in (self.q, self.k, self.v))
-        sg = spatial.active()
-        if sg is not None:  # this rank's query rows against the whole image's keys
-            k, v = spatial.gather(k, 1, sg), spatial.gather(v, 1, sg)
-        out = _k2.attention(q, k, v)
-        out = _lin1x1(self.proj_out, out)
-        return x + out.transpose(1, 2).reshape(b, c, hh, ww)
+        with prof.span(prof.ATTN):
+            b, c, hh, ww = x.shape
+            flat = self.norm(x).flatten(2).transpose(1, 2)  # [B, T, C]
+            q, k, v = (_lin1x1(conv, flat) for conv in (self.q, self.k, self.v))
+            sg = spatial.active()
+            if sg is not None:  # this rank's query rows against the whole image's keys
+                k, v = spatial.gather(k, 1, sg), spatial.gather(v, 1, sg)
+            out = _k2.attention(q, k, v)
+            out = _lin1x1(self.proj_out, out)
+            return x + out.transpose(1, 2).reshape(b, c, hh, ww)
 
 
 class _Resample(nn.Module):
@@ -206,11 +209,13 @@ class DDPMpp(nn.Module):
         """An encoder or decoder resblock, recomputed in the backward under
         `cfg.remat` (the JAX `_block_fn`; the middle blocks, where Δh
         enters, are never wrapped)."""
-        return cm.remat(block, x, temb) if self.cfg.remat else block(x, temb)
+        with prof.span(prof.RES):
+            return cm.remat(block, x, temb) if self.cfg.remat else block(x, temb)
 
     def _encode(self, x, temb):
         cfg = self.cfg
-        hs = [cm.conv2d(self.conv_in, x)]
+        with prof.span(prof.CONV):
+            hs = [cm.conv2d(self.conv_in, x)]
         for i_level in range(cfg.num_resolutions):
             lvl = self.down[i_level]
             for i_block in range(cfg.num_res_blocks):
@@ -219,32 +224,38 @@ class DDPMpp(nn.Module):
                     h = lvl.attn[i_block](h)
                 hs.append(h)
             if i_level != cfg.num_resolutions - 1:
-                hs.append(
-                    cm.downsample_pad_conv(lvl.downsample.conv, hs[-1])
-                    if cfg.resamp_with_conv
-                    else cm.avg_pool_2x(hs[-1])
-                )
+                with prof.span(prof.RESAMPLE):
+                    hs.append(
+                        cm.downsample_pad_conv(lvl.downsample.conv, hs[-1])
+                        if cfg.resamp_with_conv
+                        else cm.avg_pool_2x(hs[-1])
+                    )
         return hs
 
     def _middle(self, h, temb):
-        h = self.mid.block_1(h, temb)
+        with prof.span(prof.RES):
+            h = self.mid.block_1(h, temb)
         h = self.mid.attn_1(h)
-        return self.mid.block_2(h, temb)
+        with prof.span(prof.RES):
+            return self.mid.block_2(h, temb)
 
     def _decode(self, h, hs, temb):
         cfg = self.cfg
         hs = list(hs)
-        for i_level in reversed(range(cfg.num_resolutions)):
-            lvl = self.up[i_level]
-            for i_block in range(cfg.num_res_blocks + 1):
-                h = self._resblock(lvl.block[i_block], torch.cat([h, hs.pop()], dim=1), temb)
-                if len(lvl.attn):
-                    h = lvl.attn[i_block](h)
-            if i_level != 0:
-                h = cm.upsample_nearest_2x(h)
-                if cfg.resamp_with_conv:
-                    h = cm.conv2d(lvl.upsample.conv, h)
-        return cm.conv2d(self.conv_out, self.norm_out(h, silu=True))
+        with prof.span(prof.DECODE):
+            for i_level in reversed(range(cfg.num_resolutions)):
+                lvl = self.up[i_level]
+                for i_block in range(cfg.num_res_blocks + 1):
+                    h = self._resblock(lvl.block[i_block], torch.cat([h, hs.pop()], dim=1), temb)
+                    if len(lvl.attn):
+                        h = lvl.attn[i_block](h)
+                if i_level != 0:
+                    with prof.span(prof.RESAMPLE):
+                        h = cm.upsample_nearest_2x(h)
+                        if cfg.resamp_with_conv:
+                            h = cm.conv2d(lvl.upsample.conv, h)
+            with prof.span(prof.CONV):
+                return cm.conv2d(self.conv_out, self.norm_out(h, silu=True))
 
     def apply(self, x_nhwc, t, edit: Optional[EditState] = None, decode_mode: str = "auto"):
         if decode_mode not in ("auto", "split"):
@@ -260,8 +271,9 @@ class DDPMpp(nn.Module):
         with torch.no_grad() if split else contextlib.nullcontext():
             # the embedding MLP runs in f32; cast so a bf16 network stays bf16
             temb = self.get_temb(t).to(x.dtype)
-            hs = self._encode(x, temb)
-            h = self._middle(hs[-1], temb)
+            with prof.span(prof.ENCODE):
+                hs = self._encode(x, temb)
+                h = self._middle(hs[-1], temb)
             eps = self._decode(h, hs, temb) if split else None
         if edit is None:
             return _nhwc(self._decode(h, hs, temb)), None, None, _nhwc(h)

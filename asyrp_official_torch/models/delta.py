@@ -34,6 +34,7 @@ from asyrp_official_torch.models import common as cm
 from asyrp_official_torch.models import hostinit
 from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import hostrng
+from asyrp_official_torch.utils import profiling as prof
 
 __all__ = ["DeltaBlock", "OpenAIDeltaBlock", "DeltaBlockGlobal", "EditState", "apply_edit",
            "delta_block_init", "delta_block_global_init", "delta_block_from_tree",
@@ -314,6 +315,11 @@ def _input_edit(edit: EditState, h, hs_coeff, c):
 def apply_edit(edit: EditState, h, temb):
     """The edited bottleneck h2 and the Δh used (the last block's, or the
     step's row), gated by `edit.use_delta`. h is NCHW."""
+    with prof.span(prof.DELTA):
+        return _edit(edit, h, temb)
+
+
+def _edit(edit: EditState, h, temb):
     hs_coeff = edit.hs_coeff
     if hs_coeff is None:
         hs_coeff = torch.ones(len(edit.blocks) + 1)

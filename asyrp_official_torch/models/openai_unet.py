@@ -40,6 +40,7 @@ from asyrp_official_torch.models.delta import EditState, apply_edit
 from asyrp_official_torch.ops import attention as _k2
 from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import hostrng
+from asyrp_official_torch.utils import profiling as prof
 
 __all__ = ["OpenAIUNetConfig", "AFHQ_CONFIG", "METFACE_CONFIG", "IMAGENET_CONFIG", "build_plan",
            "OpenAIUNet", "init_params"]
@@ -157,6 +158,7 @@ class ResBlock(nn.Module):
     """GN+SiLU → (avg-pool | nearest-up of h and x) → 3x3 conv; + emb
     (scale-shift: GN, then h * (1 + scale) + shift) → SiLU → 3x3 conv; the
     1x1 skip when cin != cout (improved_ddpm/unet.py:278-298)."""
+    SPAN = prof.RES
 
     def __init__(self, spec: dict, cfg: OpenAIUNetConfig):
         super().__init__()
@@ -195,6 +197,7 @@ class AttentionBlock(nn.Module):
     """GN → qkv (1-D 1x1 conv) → multi-head attention with the legacy scale
     → proj_out, residual (improved_ddpm/unet.py:301-347). The qkv channels
     are [H][3][d] (legacy order) or [3][H][d] (`use_new_attention_order`)."""
+    SPAN = prof.ATTN
 
     def __init__(self, spec: dict, cfg: OpenAIUNetConfig):
         super().__init__()
@@ -208,7 +211,8 @@ class AttentionBlock(nn.Module):
         b, c, hh, ww = x.shape
         t, d = hh * ww, c // self.heads
         flat = self.norm(x).flatten(2).transpose(1, 2)  # [B, T, C]
-        qkv = F.linear(flat, self.qkv.weight[:, :, 0].to(flat.dtype), self.qkv.bias.to(flat.dtype))
+        qkv = F.linear(flat, cm._cast(self.qkv.weight[:, :, 0], flat.dtype),
+                       cm._cast(self.qkv.bias, flat.dtype))
         if self.new_order:
             q, k, v = qkv.reshape(b, t, 3, self.heads, d).unbind(2)
         else:
@@ -218,13 +222,14 @@ class AttentionBlock(nn.Module):
         if sg is not None:  # this rank's query rows against the whole image's keys
             k, v = spatial.gather(k, 1, sg), spatial.gather(v, 1, sg)
         out = _k2.attention(q, k, v, num_heads=self.heads, legacy_scale=True)
-        out = F.linear(out, self.proj_out.weight[:, :, 0].to(out.dtype),
-                       self.proj_out.bias.to(out.dtype))
+        out = F.linear(out, cm._cast(self.proj_out.weight[:, :, 0], out.dtype),
+                       cm._cast(self.proj_out.bias, out.dtype))
         return x + out.transpose(1, 2).reshape(b, c, hh, ww)
 
 
 class _InConv(nn.Conv2d):
     """input_blocks.0.0: the bare 3x3 conv."""
+    SPAN = prof.CONV
 
     def forward(self, x, emb=None):
         return cm.conv2d(self, x)
@@ -232,6 +237,7 @@ class _InConv(nn.Conv2d):
 
 class Downsample(nn.Module):
     """The stride-2 3x3 conv, padded (1, 1) as torch pads it."""
+    SPAN = prof.RESAMPLE
 
     def __init__(self, ch: int):
         super().__init__()
@@ -242,6 +248,8 @@ class Downsample(nn.Module):
 
 
 class Upsample(nn.Module):
+    SPAN = prof.RESAMPLE
+
     def __init__(self, ch: int):
         super().__init__()
         self.conv = nn.Conv2d(ch, ch, 3, padding=1)
@@ -306,29 +314,33 @@ class OpenAIUNet(nn.Module):
         return emb
 
     def _layer(self, layer, h, emb):
-        """One layer; a resblock recomputed in the backward under
-        `cfg.remat` (the JAX `_apply_layer`)."""
-        if self.cfg.remat and isinstance(layer, ResBlock):
-            return cm.remat(layer, h, emb)
-        return layer(h, emb)
+        """One layer, in its span; a resblock recomputed in the backward
+        under `cfg.remat` (the JAX `_apply_layer`)."""
+        with prof.span(layer.SPAN):
+            if self.cfg.remat and isinstance(layer, ResBlock):
+                return cm.remat(layer, h, emb)
+            return layer(h, emb)
 
     def _encode(self, x, emb):
         hs, h = [], x
-        for block in self.input_blocks:
-            for layer in block:
+        with prof.span(prof.ENCODE):
+            for block in self.input_blocks:
+                for layer in block:
+                    h = self._layer(layer, h, emb)
+                hs.append(h)
+            for layer in self.middle_block:
                 h = self._layer(layer, h, emb)
-            hs.append(h)
-        for layer in self.middle_block:
-            h = self._layer(layer, h, emb)
         return h, hs
 
     def _decode(self, h, hs, emb):
         hs = list(hs)
-        for block in self.output_blocks:
-            h = torch.cat([h, hs.pop()], dim=1)
-            for layer in block:
-                h = self._layer(layer, h, emb)
-        return cm.conv2d(self.out[2], self.out[0](h, silu=True))
+        with prof.span(prof.DECODE):
+            for block in self.output_blocks:
+                h = torch.cat([h, hs.pop()], dim=1)
+                for layer in block:
+                    h = self._layer(layer, h, emb)
+            with prof.span(prof.CONV):
+                return cm.conv2d(self.out[2], self.out[0](h, silu=True))
 
     def apply(self, x_nhwc, t, edit: Optional[EditState] = None, y=None,
               decode_mode: str = "auto"):

@@ -32,6 +32,7 @@ from asyrp_official_torch.models.delta import EditState
 from asyrp_official_torch.models.registry import ModelSpec
 from asyrp_official_torch.core.schedule import Schedule
 from asyrp_official_torch.core.steptable import StepTable, generation_table, inversion_table
+from asyrp_official_torch.utils import profiling as prof
 
 __all__ = ["make_invert", "make_generate", "make_edit_generate", "make_invert_edit",
            "make_invert_with_h", "make_image_noise_generate"]
@@ -42,10 +43,11 @@ def _plain_eps(spec: ModelSpec, model, compute_dtype, want_h: bool = False):
     extra "h" ([B, C, h, w] f32)."""
 
     def eps_fn(x, t, aux):
-        eps, _, _, h = spec.apply(model, x.to(compute_dtype), t)
-        if not want_h:
-            return eps.float(), None
-        return eps.float(), None, {"h": h.permute(0, 3, 1, 2).float()}
+        with prof.span(prof.EVAL, edited=False):
+            eps, _, _, h = spec.apply(model, x.to(compute_dtype), t)
+            if not want_h:
+                return eps.float(), None
+            return eps.float(), None, {"h": h.permute(0, 3, 1, 2).float()}
 
     return eps_fn
 
@@ -58,16 +60,18 @@ def _gated_eps(spec: ModelSpec, model, edit: EditState, compute_dtype, want_delt
     gated-off step."""
 
     def eps_fn(x, t, aux):
-        if aux["use_delta"] > 0:
-            eps, eps_mod, delta_h, _ = spec.apply(model, x.to(compute_dtype), t,
-                                                  edit=edit.at_step(aux))
-            eps_mod = eps_mod.float()
-        else:
-            eps, _, _, h = spec.apply(model, x.to(compute_dtype), t)
-            eps_mod, delta_h = None, torch.zeros_like(h) if want_delta else None
-        if not want_delta:
-            return eps.float(), eps_mod
-        return eps.float(), eps_mod, {"delta_h": delta_h.float()}
+        edited = aux["use_delta"] > 0
+        with prof.span(prof.EVAL, edited=edited):
+            if edited:
+                eps, eps_mod, delta_h, _ = spec.apply(model, x.to(compute_dtype), t,
+                                                      edit=edit.at_step(aux))
+                eps_mod = eps_mod.float()
+            else:
+                eps, _, _, h = spec.apply(model, x.to(compute_dtype), t)
+                eps_mod, delta_h = None, torch.zeros_like(h) if want_delta else None
+            if not want_delta:
+                return eps.float(), eps_mod
+            return eps.float(), eps_mod, {"delta_h": delta_h.float()}
 
     return eps_fn
 
@@ -146,9 +150,10 @@ def make_invert_edit(spec: ModelSpec, schedule: Schedule, seq_inv, seq_gen, *, t
 
     @torch.no_grad()
     def run(model, edit, x0, generator=None, noise_fn=None):
-        x_lat, _ = sample_chain(_plain_eps(spec, model, compute_dtype), schedule, inv_table, x0,
-                                learn_sigma=spec.learn_sigma)
-        x_edit, _ = gen_chain(model, edit, x_lat, generator, noise_fn)
+        with prof.span(prof.REQUEST):
+            x_lat, _ = sample_chain(_plain_eps(spec, model, compute_dtype), schedule, inv_table,
+                                    x0, learn_sigma=spec.learn_sigma)
+            x_edit, _ = gen_chain(model, edit, x_lat, generator, noise_fn)
         return x_edit
 
     return run

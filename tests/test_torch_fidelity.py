@@ -14,7 +14,8 @@ CPU, against the JAX package:
     exactly 0;
   * the alignment tests of tests/test_utils_aux.py against the port's
     `utils/align.py`;
-  * `--trace_dir`: a tiny `--run_test` writes a torch.profiler trace.
+  * `--trace_dir`: a tiny `--run_test` writes a torch.profiler trace that
+    holds the port's spans.
 """
 import json
 import os
@@ -189,6 +190,8 @@ def test_trace_dir_writes_a_trace(trained):
     assert len(traces) == 1, os.listdir(trace_dir)
     events = json.load(open(trace_dir / traces[0]))["traceEvents"]
     assert any("conv2d" in e.get("name", "") for e in events)
+    # the port's own spans, on the same clock
+    assert {"asyrp.step", "asyrp.eval"} <= {e.get("name") for e in events}
 
 
 # --- the alignment tests of tests/test_utils_aux.py, on the port's copy ---
