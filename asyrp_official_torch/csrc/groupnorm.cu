@@ -1,4 +1,5 @@
-// K1: GroupNorm (+ optional SiLU) over NCHW activations, f32 or bf16 I/O,
+// K1: GroupNorm (+ optional SiLU) over NCHW activations (and, forward only,
+// channels-last ones: the NHWC section below), f32 or bf16 I/O,
 // forward and backward (K1-bwd), for Hopper (sm_90a).
 //
 // Replaces: the JAX functions `models/common.py` `group_norm` /
@@ -1200,6 +1201,610 @@ int launch_apply_planned(K kernel, const P& prm, const ApplyPlan& pl, cudaStream
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// channels-last (NHWC): the forward on activations whose channels are
+// innermost (the OpenAI UNet's bf16 serving route, where cuDNN's bf16
+// convolutions read and write NHWC). It stands for the same JAX function as
+// the NCHW forward (`models/common.py` `group_norm`, whose arrays are NHWC)
+// and replaces no TPU kernel of its own: it was added so that the route
+// needs no layout change around K1.
+//
+// In NHWC a (sample, group) is no contiguous run: a sample is H*W rows of C
+// channels, and a group is C/G channels of each row (8 bytes of a 256-byte
+// row at C = 128 in bf16), so the cluster design above, which keeps a
+// group resident, does not carry over. Here a block reads whole rows as
+// 16-byte vectors of consecutive channels: thread t keeps one column of
+// VEC channels (t % (C / VEC)) over every (NT / (C / VEC))-th row, so a
+// warp's loads are consecutive and a block's cover one contiguous range.
+// Each thread keeps the count, mean and centred sum of squares (M2) of each
+// of its VEC channels over its rows, a chunk of kNhwcUnroll rows at a time
+// (the chunk's mean, then its centred squares; the chunk merged by Chan's
+// formula); the block combines its threads' channel parts into each
+// group's (count, mean, M2), a warp per group in a fixed order.
+//
+// A map of at most 2048 pixels (the 8^2-32^2 maps) takes one launch,
+// gn_fwd_nhwc_slab: a block per (sample, slab of whole groups of channels),
+// over all the rows, each thread's at most kNhwcUnroll vectors held in
+// registers from the load to the store; a group's parts are all in its
+// block, so no block waits on another. The slab is the narrowest whose rows
+// give 32 bytes and whose block holds 16 KB. x crosses device memory once
+// and y once. (A cluster per sample with its rows resident in shared
+// memory took 15-90 us a call at these shapes: its few blocks spent their
+// time on the epilogue's arithmetic.)
+//
+// A larger sample takes two kernels, as across ranks (gn_part / gn_apply):
+//   gn_fwd_nhwc_stats, grid (S slices of the rows, B): the parts of its
+//     slice, written as part s of [S, B * G, 3];
+//   gn_fwd_nhwc_apply, one block per chunk of rows: its first loads in
+//     flight while each group's S parts are combined by Chan's formula
+//     (tpg lanes per group, each taking its slices in order, then their
+//     butterfly: the same order in every block), then the epilogue, over
+//     `rounds` rounds of loads. That moves 3n bytes against the 2n bound
+//     (x read by each kernel); the apply grid takes first the chunks the
+//     stats kernel read last (the end of every slice, then the chunk before
+//     it, ...), so its first reads find x in the L2.
+// The epilogue: the pre-add, the affine, the FiLM epilogue and SiLU,
+// rounded as in gn_fwd's pass 3. In bf16 its arithmetic, not its bytes,
+// set the pace at first: it rounds two values per conversion and takes
+// SiLU's fast exponential and divide. No atomics: every run gives the same
+// bits.
+// ---------------------------------------------------------------------------
+
+constexpr int kNhwcThreads = 256;
+constexpr int kNhwcUnroll = 8;              // rows of a statistics chunk, in flight per thread
+constexpr int kNhwcVecs = 8;                // apply: vectors per thread in flight, one round
+constexpr int kNhwcMaxRounds = 4;           // apply: rounds per block at most
+constexpr int kNhwcMaxSlices = 64;          // statistics parts per (sample, group) at most
+constexpr int64_t kNhwcStatsBlocks = 528;   // about four blocks per SM
+constexpr int64_t kNhwcMinSliceBytes = 64 * 1024;  // no thinner slices to fill the card
+constexpr int64_t kNhwcApplyBlocks = 264;   // fewer vectors per thread below this
+// slab: a block's bytes at least, and a row's bytes of the slab at least
+constexpr int64_t kSlabBytes = 16 * 1024;
+constexpr int kSlabRowBytes = 32;
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+struct NhwcPlan {
+  int vec, vpr, rps, lanes, vpt, rounds, rows_a, chunks_ps, slices, tpg;
+  int64_t rows_s;
+  int slab;  // channels per block of the one-launch kernel, else 0
+};
+
+// vec: elements per vector; vpr: vectors per row; rps: rows per block step
+// (lanes = rps * vpr threads take part), of the whole row or, with `slab`,
+// of a slab of that many channels (one launch, C / slab blocks per sample,
+// at most kNhwcUnroll rows per thread). Else: apply
+// vpt vectors per thread in flight, `rounds` times, rows_a = rps * vpt *
+// rounds rows per block; rows_s = chunks_ps * rows_a rows per statistics
+// slice; tpg: threads per group in the apply's combine.
+bool make_nhwc_plan(int batch, int channels, int64_t hw, int groups, int es, bool aligned,
+                    NhwcPlan* pl) {
+  if (batch < 1 || batch > 65535 || groups < 1 || channels % groups != 0 || hw < 1) return false;
+  *pl = NhwcPlan{};
+  const int vmax = 16 / es;
+  pl->vec = (aligned && channels % vmax == 0) ? vmax : 1;
+  pl->vpr = channels / pl->vec;
+  if (pl->vpr > kNhwcThreads) return false;
+  pl->rps = kNhwcThreads / pl->vpr;
+  pl->lanes = pl->rps * pl->vpr;
+  const int64_t sample = hw * channels * es;
+  // the slab kernel: the narrowest slab of whole groups and vectors whose
+  // rows give kSlabRowBytes and whose block holds kSlabBytes, where each
+  // thread's rows fit kNhwcUnroll
+  const int cpg = channels / groups;
+  int unit = cpg;
+  while (unit % pl->vec) unit += cpg;
+  for (int wc = unit; wc <= channels && wc / pl->vec <= kNhwcThreads; wc += unit) {
+    if (channels % wc) continue;
+    const int rps = kNhwcThreads / (wc / pl->vec);
+    if (hw > (int64_t)rps * kNhwcUnroll) break;  // wider slabs only take more rows a thread
+    if (wc < channels && (wc * es < kSlabRowBytes || hw * wc * es < kSlabBytes)) continue;
+    pl->slab = wc;
+    pl->vpr = wc / pl->vec;
+    pl->rps = rps;
+    pl->lanes = rps * pl->vpr;
+    pl->slices = channels / wc;
+    pl->rows_s = hw;
+    return true;
+  }
+  auto blocks = [&](int64_t rows) { return batch * ((hw + rows - 1) / rows); };
+  int vpt = kNhwcVecs, rounds = 1;
+  while (vpt > 1 && blocks((int64_t)pl->rps * vpt) < kNhwcApplyBlocks) vpt /= 2;
+  while (rounds < kNhwcMaxRounds &&
+         blocks((int64_t)pl->rps * vpt * rounds * 2) >= 2 * kNhwcApplyBlocks)
+    rounds *= 2;
+  pl->vpt = vpt;
+  pl->rounds = rounds;
+  pl->rows_a = pl->rps * vpt * rounds;
+  // slices: about kNhwcStatsBlocks blocks, none under kNhwcMinSliceBytes
+  // (a small map's blocks would spend their time combining, not reading)
+  int64_t s = (kNhwcStatsBlocks + batch - 1) / batch;
+  const int64_t by_bytes = (sample + kNhwcMinSliceBytes - 1) / kNhwcMinSliceBytes;
+  s = s > by_bytes ? by_bytes : s;
+  s = s < 1 ? 1 : s > kNhwcMaxSlices ? kNhwcMaxSlices : s;
+  const int64_t per = (hw + s - 1) / s;
+  const int64_t chunks = (per + pl->rows_a - 1) / pl->rows_a;
+  pl->rows_s = chunks * pl->rows_a;
+  pl->slices = (int)((hw + pl->rows_s - 1) / pl->rows_s);
+  if ((int64_t)batch * pl->slices * chunks >= ((int64_t)1 << 31) - 1) return false;
+  pl->chunks_ps = (int)chunks;
+  int tpg = 32;
+  while (tpg > 1 && tpg * groups > kNhwcThreads) tpg /= 2;
+  pl->tpg = tpg;
+  return true;
+}
+
+struct NhwcParams {
+  const void* x;
+  void* y;
+  const float* w;
+  const float* b;
+  const void* pre_add;      // [B, C] in the I/O dtype, or null
+  const void* scale_shift;  // [B, 2C] in the I/O dtype, or null
+  float* parts;             // [S, B * G, 3]: (count, mean, M2) per slice and (sample, group)
+  float* mean_out;          // [B * G], or null
+  float* rstd_out;
+  int64_t hw, rows_s;
+  int batch, channels, groups, cpg, nbg;
+  int vpr, rps, lanes, vpt, rounds, rows_a, chunks_ps, slices, tpg;
+  int slab;
+  float eps;
+  int silu;
+};
+
+// one thread's column over the rows lo + t / vpr + k * rps < hi, each row's
+// vector from `fetch(row)`, with the pre-add rounded to T: per channel the
+// count (n, the same for all), mean and M2, merged a chunk of U rows at a time
+template <typename T, int VEC, typename F>
+__device__ __forceinline__ void column_stats(const NhwcParams& p, int64_t lo, int64_t hi,
+                                             const float (&pa)[VEC], bool pre, F fetch,
+                                             float& n, float (&mean)[VEC], float (&m2)[VEC]) {
+  using R = Raw<T, VEC>;
+  constexpr int U = kNhwcUnroll;
+  auto value = [&](R raw, float (&f)[VEC]) {
+    unpack<T, VEC>(raw, f);
+    if (pre) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) f[k] = round_to<T>(f[k] + pa[k]);
+    }
+  };
+  const int64_t step = (int64_t)p.rps * U;
+  for (int64_t r = lo + threadIdx.x / p.vpr; r < hi; r += step) {
+    R raw[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (r + (int64_t)u * p.rps < hi) raw[u] = fetch(r + (int64_t)u * p.rps);
+    // the chunk: its valid rows are a prefix of the U
+    const int cnt = (int)min64(U, (hi - r + p.rps - 1) / p.rps);
+    const float inv = 1.0f / (float)cnt;
+    float cm[VEC], q[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) cm[k] = q[k] = 0.f;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < cnt) {
+        float f[VEC];
+        value(raw[u], f);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) cm[k] += f[k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) cm[k] *= inv;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < cnt) {
+        float f[VEC];
+        value(raw[u], f);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          const float d = f[k] - cm[k];
+          q[k] += d * d;
+        }
+      }
+    }
+    const float nn = n + (float)cnt, fa = (float)cnt / nn, fb = n * fa;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const float d = cm[k] - mean[k];
+      mean[k] += d * fa;
+      m2[k] += q[k] + d * d * fb;
+    }
+    n = nn;
+  }
+}
+
+// The block's parts per group, from each thread's column parts (shared
+// arrays sn [NT], smean / sm2 [NT * VEC], filled and synchronized): a warp
+// per group, its cpg channels in each of the rps row slots in a fixed
+// order; (count, mean, M2) of group g to out + g * stride (lane 0).
+template <int VEC>
+__device__ __forceinline__ void block_group_parts(const NhwcParams& p, const float* sn,
+                                                  const float* smean, const float* sm2,
+                                                  float* out, int64_t stride) {
+  constexpr int NW = kNhwcThreads / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, nparts = p.cpg * p.rps;
+  for (int g = warp; g < p.groups; g += NW) {
+    float a = 0.f, am = 0.f;
+    for (int q = lane; q < nparts; q += 32) {
+      const int c = g * p.cpg + q % p.cpg, tt = (q / p.cpg) * p.vpr + c / VEC;
+      a += sn[tt];
+      am += sn[tt] * smean[tt * VEC + c % VEC];
+    }
+    a = warp_sum(a);
+    am = warp_sum(am);
+    const float gm = a > 0.f ? am / a : 0.f;
+    float q2 = 0.f;
+    for (int q = lane; q < nparts; q += 32) {
+      const int c = g * p.cpg + q % p.cpg, tt = (q / p.cpg) * p.vpr + c / VEC;
+      const float d = smean[tt * VEC + c % VEC] - gm;
+      q2 += sm2[tt * VEC + c % VEC] + sn[tt] * (d * d);
+    }
+    q2 = warp_sum(q2);
+    if (lane == 0) {
+      float* o = out + g * stride;
+      o[0] = a;
+      o[1] = gm;
+      o[2] = q2;
+    }
+  }
+}
+
+// the sum over each aligned segment of `width` lanes (a power of two), on
+// every lane of it
+__device__ __forceinline__ float segment_sum(float v, int width) {
+  for (int o = width / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// each of f rounded to T (round to nearest even) and back, as round_to; in
+// bf16 two at a time (one cvt.rn.bf16x2 per pair: a quarter-rate instruction)
+template <typename T, int VEC>
+__device__ __forceinline__ void round_all(float (&f)[VEC]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if constexpr (VEC % 2 == 0) {
+#pragma unroll
+      for (int k = 0; k < VEC; k += 2) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[k], f[k + 1]);
+        f[k] = __low2float(h);
+        f[k + 1] = __high2float(h);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) f[k] = round_to<T>(f[k]);
+    }
+  }
+}
+
+// pack, two elements per conversion in bf16 (the same bits)
+template <typename T, int VEC>
+__device__ __forceinline__ Raw<T, VEC> pack_pairs(const float (&f)[VEC]) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && VEC == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&h);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+    return pack<T, VEC>(f);
+  }
+}
+
+// SiLU z / (1 + exp(-z)): in f32 as gn_fwd computes it; for a bf16 output
+// with the fast exponential and divide (a few f32 ulps, far below the bf16
+// rounding that follows)
+template <typename T>
+__device__ __forceinline__ float silu_of(float z) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __fdividef(z, 1.0f + __expf(-z));
+  } else {
+    return z / (1.0f + expf(-z));
+  }
+}
+
+// A thread's channel terms for the epilogue (PRE: the pre-add; FILM: the
+// FiLM epilogue, as the call has them), and its groups' statistics.
+template <typename T, int VEC, bool PRE, bool FILM>
+struct Terms {
+  float w[VEC], b[VEC], pa[VEC], s1[VEC], sh[VEC], mean[VEC], rstd[VEC];
+
+  __device__ __forceinline__ void load(const NhwcParams& p, int bi, int c0) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int c = c0 + k;
+      w[k] = p.w[c];
+      b[k] = p.b[c];
+      if constexpr (PRE)
+        pa[k] = to_f(static_cast<const T*>(p.pre_add)[(int64_t)bi * p.channels + c]);
+      if constexpr (FILM) {
+        const T* ss = static_cast<const T*>(p.scale_shift) + (int64_t)bi * 2 * p.channels;
+        s1[k] = round_to<T>(1.0f + to_f(ss[c]));
+        sh[k] = to_f(ss[p.channels + c]);
+      }
+    }
+  }
+
+  // the groups' mean and rstd from tables per group (shared memory)
+  __device__ __forceinline__ void stats(const float* sm, const float* sr, int c0, int cpg) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      const int g = (c0 + k) / cpg;
+      mean[k] = sm[g];
+      rstd[k] = sr[g];
+    }
+  }
+
+  // y of one vector, each step rounded to T where gn_fwd's pass 3 rounds it
+  __device__ __forceinline__ Raw<T, VEC> apply(Raw<T, VEC> raw, int silu) const {
+    float f[VEC];
+    unpack<T, VEC>(raw, f);
+    if constexpr (PRE) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) f[k] = f[k] + pa[k];
+      round_all<T, VEC>(f);
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k)
+      f[k] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(f[k], mean[k]), rstd[k]), w[k]), b[k]);
+    if constexpr (FILM) {
+      round_all<T, VEC>(f);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) f[k] = __fmul_rn(f[k], s1[k]);
+      round_all<T, VEC>(f);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) f[k] = __fadd_rn(f[k], sh[k]);
+      round_all<T, VEC>(f);
+    }
+    if (silu) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) f[k] = silu_of<T>(f[k]);
+    }
+    return pack_pairs<T, VEC>(f);
+  }
+};
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kNhwcThreads) gn_fwd_nhwc_stats(const NhwcParams p) {
+  constexpr int NT = kNhwcThreads;
+  __shared__ float sn[NT];
+  __shared__ float smean[NT * VEC], sm2[NT * VEC];
+  const int s = blockIdx.x, bi = blockIdx.y, t = threadIdx.x;
+  const int j = t % p.vpr;
+  const int64_t lo = (int64_t)s * p.rows_s, hi = min64(lo + p.rows_s, p.hw);
+  const T* xs = static_cast<const T*>(p.x) + (int64_t)bi * p.hw * p.channels;
+  const bool pre = p.pre_add != nullptr;
+  float n = 0.f, mean[VEC], m2[VEC], pa[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) mean[k] = m2[k] = pa[k] = 0.f;
+  if (t < p.lanes) {
+    if (pre) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k)
+        pa[k] = to_f(static_cast<const T*>(p.pre_add)[(int64_t)bi * p.channels + j * VEC + k]);
+    }
+    column_stats<T, VEC>(p, lo, hi, pa, pre,
+                         [&](int64_t r) { return ld_vec<T, VEC>(xs + r * p.channels, j); }, n,
+                         mean, m2);
+  }
+  sn[t] = n;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    smean[t * VEC + k] = mean[k];
+    sm2[t * VEC + k] = m2[k];
+  }
+  __syncthreads();
+  block_group_parts<VEC>(p, sn, smean, sm2,
+                         p.parts + ((int64_t)s * p.nbg + (int64_t)bi * p.groups) * 3, 3);
+}
+
+template <typename T, int VEC, bool PRE, bool FILM>
+__global__ void __launch_bounds__(kNhwcThreads) gn_fwd_nhwc_apply(const NhwcParams p) {
+  using R = Raw<T, VEC>;
+  constexpr int NT = kNhwcThreads;
+  extern __shared__ float stab[];  // per group: mean, then rstd
+  // block i: chunk (chunks_ps - 1 - i / (S * B)) of slice i % S of sample (i / S) % B
+  const int64_t i = blockIdx.x;
+  const int k_back = (int)(i / ((int64_t)p.slices * p.batch));
+  const int s = (int)(i % p.slices), bi = (int)((i / p.slices) % p.batch);
+  const int64_t row0 = (int64_t)s * p.rows_s + (int64_t)(p.chunks_ps - 1 - k_back) * p.rows_a;
+  if (row0 >= p.hw) return;  // past the last slice's rows: the whole block
+  const int64_t hi = min64(row0 + p.rows_a, p.hw);
+  const int t = threadIdx.x, j = t % p.vpr;
+  const bool act = t < p.lanes;
+  const int64_t r0 = row0 + t / p.vpr, round_rows = (int64_t)p.rps * p.vpt;
+  const int64_t sample = (int64_t)bi * p.hw * p.channels;
+  const T* xs = static_cast<const T*>(p.x) + sample;
+  T* ys = static_cast<T*>(p.y) + sample;
+  R raw[kNhwcVecs];
+  auto load = [&](int64_t base) {
+#pragma unroll
+    for (int u = 0; u < kNhwcVecs; ++u) {
+      const int64_t r = base + (int64_t)u * p.rps;
+      if (act && u < p.vpt && r < hi) raw[u] = ld_vec<T, VEC>(xs + r * p.channels, j);
+    }
+  };
+  load(r0);  // the first round in flight with the prologue
+  Terms<T, VEC, PRE, FILM> tm;
+  tm.load(p, bi, act ? j * VEC : 0);
+  // each group's S parts combined by Chan's formula on a segment of tpg
+  // lanes: lane `sub` takes slices sub, sub + tpg, ... in order, then the
+  // segment's butterfly; the same order in every block
+  float* sm = stab;
+  float* sr = stab + p.groups;
+  const int tpg = p.tpg, sub = t % tpg;
+  for (int g0 = 0; g0 < p.groups; g0 += NT / tpg) {
+    const int g = g0 + t / tpg;
+    const bool mine = g < p.groups;
+    const float* q = p.parts + ((int64_t)bi * p.groups + (mine ? g : 0)) * 3;
+    const int64_t stride = (int64_t)p.nbg * 3;
+    float nsum = 0.f, nm = 0.f;
+    for (int k = sub; mine && k < p.slices; k += tpg) {
+      const float a = q[k * stride];
+      nsum += a;
+      nm += a * q[k * stride + 1];
+    }
+    nsum = segment_sum(nsum, tpg);
+    nm = segment_sum(nm, tpg);
+    const float mean = mine ? nm / nsum : 0.f;
+    float m2 = 0.f;
+    for (int k = sub; mine && k < p.slices; k += tpg) {
+      const float d = q[k * stride + 1] - mean;
+      m2 += q[k * stride + 2] + q[k * stride] * (d * d);
+    }
+    m2 = segment_sum(m2, tpg);
+    if (mine && sub == 0) {
+      const float rstd = 1.0f / sqrtf(m2 / nsum + p.eps);
+      sm[g] = mean;
+      sr[g] = rstd;
+      if (p.mean_out != nullptr && row0 == 0) {
+        p.mean_out[bi * p.groups + g] = mean;
+        p.rstd_out[bi * p.groups + g] = rstd;
+      }
+    }
+  }
+  __syncthreads();
+  if (!act) return;
+  tm.stats(sm, sr, j * VEC, p.cpg);
+  for (int rd = 0; rd < p.rounds; ++rd) {
+    const int64_t base = r0 + rd * round_rows;
+    if (rd > 0) load(base);
+#pragma unroll
+    for (int u = 0; u < kNhwcVecs; ++u) {
+      const int64_t r = base + (int64_t)u * p.rps;
+      if (u >= p.vpt || r >= hi) continue;
+      st_vec<T, VEC>(ys + r * p.channels, j, tm.apply(raw[u], p.silu));
+    }
+  }
+}
+
+template <typename T, int VEC, bool PRE, bool FILM>
+__global__ void __launch_bounds__(kNhwcThreads) gn_fwd_nhwc_slab(const NhwcParams p) {
+  using R = Raw<T, VEC>;
+  constexpr int NT = kNhwcThreads, U = kNhwcUnroll;
+  __shared__ float sn[NT];
+  __shared__ float smean[NT * VEC], sm2[NT * VEC];
+  extern __shared__ float stab[];  // per group of the slab: its (count, mean, M2), mean, rstd
+  const int k = blockIdx.x, bi = blockIdx.y, t = threadIdx.x;
+  const int j = t % p.vpr, sg = p.slab / p.cpg;  // sg: the slab's groups
+  const bool act = t < p.lanes;
+  const int c0 = k * p.slab + j * VEC;  // this thread's first channel
+  const int64_t sample = (int64_t)bi * p.hw * p.channels + c0;
+  const T* xs = static_cast<const T*>(p.x) + sample;
+  R raw[U];
+  int cnt = 0;  // this thread's rows: t / vpr + u * rps for u < cnt
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t r = t / p.vpr + (int64_t)u * p.rps;
+    if (act && r < p.hw) {
+      raw[u] = ld_vec<T, VEC>(xs + r * p.channels, 0);
+      cnt = u + 1;
+    }
+  }
+  float pa[VEC], mean[VEC], m2[VEC];
+#pragma unroll
+  for (int kk = 0; kk < VEC; ++kk) {
+    pa[kk] = PRE && act ? to_f(static_cast<const T*>(p.pre_add)[(int64_t)bi * p.channels + c0 + kk])
+                        : 0.f;
+    mean[kk] = m2[kk] = 0.f;
+  }
+  // the rows' mean, then their centred squares, per channel
+  auto value = [&](R r, float (&f)[VEC]) {
+    unpack<T, VEC>(r, f);
+    if (PRE) {
+#pragma unroll
+      for (int kk = 0; kk < VEC; ++kk) f[kk] = round_to<T>(f[kk] + pa[kk]);
+    }
+  };
+  if (cnt > 0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < cnt) {
+        float f[VEC];
+        value(raw[u], f);
+#pragma unroll
+        for (int kk = 0; kk < VEC; ++kk) mean[kk] += f[kk];
+      }
+    }
+    const float inv = 1.0f / (float)cnt;
+#pragma unroll
+    for (int kk = 0; kk < VEC; ++kk) mean[kk] *= inv;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (u < cnt) {
+        float f[VEC];
+        value(raw[u], f);
+#pragma unroll
+        for (int kk = 0; kk < VEC; ++kk) {
+          const float d = f[kk] - mean[kk];
+          m2[kk] += d * d;
+        }
+      }
+    }
+  }
+  sn[t] = (float)cnt;
+#pragma unroll
+  for (int kk = 0; kk < VEC; ++kk) {
+    smean[t * VEC + kk] = mean[kk];
+    sm2[t * VEC + kk] = m2[kk];
+  }
+  __syncthreads();
+  NhwcParams q = p;  // the slab's groups, numbered from its first channel
+  q.groups = sg;
+  block_group_parts<VEC>(q, sn, smean, sm2, stab, 3);
+  __syncthreads();
+  float* sm = stab + 3 * sg;
+  float* sr = sm + sg;
+  for (int g = t; g < sg; g += NT) {
+    const float rstd = 1.0f / sqrtf(stab[3 * g + 2] / stab[3 * g] + p.eps);
+    sm[g] = stab[3 * g + 1];
+    sr[g] = rstd;
+    if (p.mean_out != nullptr) {
+      p.mean_out[bi * p.groups + k * sg + g] = sm[g];
+      p.rstd_out[bi * p.groups + k * sg + g] = rstd;
+    }
+  }
+  Terms<T, VEC, PRE, FILM> tm;
+  tm.load(p, bi, act ? c0 : 0);
+  __syncthreads();
+  if (!act) return;
+  tm.stats(sm, sr, c0 - k * p.slab, p.cpg);
+  T* ys = static_cast<T*>(p.y) + sample;
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (u < cnt)
+      st_vec<T, VEC>(ys + (t / p.vpr + (int64_t)u * p.rps) * p.channels, 0,
+                     tm.apply(raw[u], p.silu));
+}
+
+template <typename T, int VEC, bool PRE, bool FILM>
+int launch_nhwc_epi(const NhwcParams& prm, cudaStream_t stream) {
+  if (prm.slab > 0) {
+    gn_fwd_nhwc_slab<T, VEC, PRE, FILM>
+        <<<dim3(prm.slices, prm.batch), kNhwcThreads, 5 * (prm.slab / prm.cpg) * sizeof(float),
+           stream>>>(prm);
+    return (int)cudaGetLastError();
+  }
+  gn_fwd_nhwc_stats<T, VEC><<<dim3(prm.slices, prm.batch), kNhwcThreads, 0, stream>>>(prm);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((int64_t)prm.batch * prm.slices * prm.chunks_ps));
+  gn_fwd_nhwc_apply<T, VEC, PRE, FILM>
+      <<<grid, kNhwcThreads, 2 * prm.groups * sizeof(float), stream>>>(prm);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int VEC>
+int launch_nhwc(const NhwcParams& prm, cudaStream_t stream) {
+  switch ((prm.pre_add != nullptr ? 1 : 0) + (prm.scale_shift != nullptr ? 2 : 0)) {
+    case 0: return launch_nhwc_epi<T, VEC, false, false>(prm, stream);
+    case 1: return launch_nhwc_epi<T, VEC, true, false>(prm, stream);
+    case 2: return launch_nhwc_epi<T, VEC, false, true>(prm, stream);
+    default: return launch_nhwc_epi<T, VEC, true, true>(prm, stream);
+  }
+}
+
 }  // namespace
 
 // Across ranks, step 1: parts float32 [B * G, 3] output, per (sample,
@@ -1456,4 +2061,73 @@ extern "C" int asyrp_group_norm_bwd_apply(const void* x, const void* dy, const v
                        : launch_apply_planned(gn_bwd_apply<float, 4>, prm, pl, s);
   return pl.vec == 1 ? launch_apply_planned(gn_bwd_apply<B16, 1>, prm, pl, s)
                      : launch_apply_planned(gn_bwd_apply<B16, 8>, prm, pl, s);
+}
+
+// Channels-last: x, y [B, H*W, C] in memory (a channels-last NCHW tensor) in
+// the I/O dtype (0 = float32, 1 = bfloat16), pre_add [B, C] and
+// scale_shift [B, 2C] optional; w, b float32 [C]; mean, rstd float32
+// [B * G] outputs, or both null; parts float32 scratch of
+// 64 * B * G * 3. One kernel launch (gn_fwd_nhwc_slab) on a map of at most 2048
+// pixels, else two (gn_fwd_nhwc_stats, gn_fwd_nhwc_apply).
+extern "C" int asyrp_group_norm_nhwc(const void* x, const void* w, const void* b, void* y,
+                                     const void* pre_add, const void* scale_shift, void* mean,
+                                     void* rstd, void* parts, int batch, int channels, int64_t hw,
+                                     int groups, float eps, int silu, int dtype, void* stream) {
+  NhwcPlan pl;
+  if ((dtype != 0 && dtype != 1) ||
+      !make_nhwc_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2,
+                      aligned16(x) && aligned16(y), &pl))
+    return (int)cudaErrorInvalidValue;
+  NhwcParams prm = {};
+  prm.x = x;
+  prm.y = y;
+  prm.w = static_cast<const float*>(w);
+  prm.b = static_cast<const float*>(b);
+  prm.pre_add = pre_add;
+  prm.scale_shift = scale_shift;
+  prm.parts = static_cast<float*>(parts);
+  prm.mean_out = static_cast<float*>(mean);
+  prm.rstd_out = static_cast<float*>(rstd);
+  prm.hw = hw;
+  prm.rows_s = pl.rows_s;
+  prm.batch = batch;
+  prm.channels = channels;
+  prm.groups = groups;
+  prm.cpg = channels / groups;
+  prm.nbg = batch * groups;
+  prm.vpr = pl.vpr;
+  prm.rps = pl.rps;
+  prm.lanes = pl.lanes;
+  prm.vpt = pl.vpt;
+  prm.rounds = pl.rounds;
+  prm.tpg = pl.tpg;
+  prm.rows_a = pl.rows_a;
+  prm.chunks_ps = pl.chunks_ps;
+  prm.slices = pl.slices;
+  prm.slab = pl.slab;
+  prm.eps = eps;
+  prm.silu = silu;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B16 = __nv_bfloat16;
+  if (dtype == 0)
+    return pl.vec == 1 ? launch_nhwc<float, 1>(prm, s) : launch_nhwc<float, 4>(prm, s);
+  return pl.vec == 1 ? launch_nhwc<B16, 1>(prm, s) : launch_nhwc<B16, 8>(prm, s);
+}
+
+// The channels-last plan (for reports): out = {vector width, channels per
+// slab (0 for the two kernels), slices per sample (slabs of the one-launch
+// kernel), rows per slice, apply blocks, vectors per thread in the apply,
+// rows per apply block}. Returns 0, or cudaErrorInvalidValue.
+extern "C" int asyrp_group_norm_nhwc_plan(int batch, int channels, int64_t hw, int groups,
+                                          int dtype, int64_t* out) {
+  NhwcPlan pl;
+  if ((dtype != 0 && dtype != 1) ||
+      !make_nhwc_plan(batch, channels, hw, groups, dtype == 0 ? 4 : 2, true, &pl))
+    return (int)cudaErrorInvalidValue;
+  const bool res = pl.slab > 0;
+  const int64_t v[7] = {pl.vec, pl.slab, pl.slices, pl.rows_s,
+                        res ? 0 : (int64_t)batch * pl.slices * pl.chunks_ps,
+                        res ? 0 : (int64_t)pl.vpt * pl.rounds, res ? 0 : pl.rows_a};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }

@@ -8,6 +8,14 @@ linears) and cast to the activation dtype at use, as the JAX layers cast
 their params. Convolutions and plain GEMMs go to `F.conv2d` / `F.linear`;
 GroupNorm and attention go to the kernels in `asyrp_official_torch.ops`.
 
+Activations may also be channels-last (`torch.channels_last`: NCHW shapes,
+NHWC in memory; the OpenAI UNet's bf16 serving route): a convolution handed
+one takes its weight cast to channels-last in the same cast and is counted
+(`channels_last_convs`); the upsample, the pooling and `cat` work on the
+NHWC view, where torch's own ops would give NCHW (`repeat_interleave`) or
+take a kernel 1.5-3.4x slower on the card (`avg_pool2d`, `torch.cat` along
+the channels); the other ops keep the layout by themselves.
+
 Inside a `parallel.spatial.sharded` block the activations are row blocks
 of the image: a 3x3 convolution takes its neighbours' halo rows, the
 downsample convolutions the one row they reach across the block's edge,
@@ -26,6 +34,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from asyrp_official_torch.ops import channels_last
 from asyrp_official_torch.ops import groupnorm as _k1
 from asyrp_official_torch.parallel import spatial
 from asyrp_official_torch.utils import profiling as prof
@@ -41,6 +50,7 @@ __all__ = [
     "upsample_nearest_2x",
     "downsample_pad_conv",
     "avg_pool_2x",
+    "cat",
 ]
 
 
@@ -96,13 +106,26 @@ def remat(block: nn.Module, *args):
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
-def _cast(p, dtype):
+def _cast(p, dtype, nhwc: bool = False):
     """A weight in the activation dtype: converted at each use (and counted
-    while a profiler records) where the dtypes differ."""
+    while a profiler records) where the dtypes differ; with `nhwc` a conv
+    filter is written channels-last by that same conversion, so cuDNN takes
+    it as it is."""
     if p.dtype == dtype:
         return p
     prof.count(prof.WEIGHT_CASTS)
+    if nhwc and p.dim() == 4:
+        return p.to(dtype, memory_format=torch.channels_last)
     return p.to(dtype)
+
+
+def _conv_weights(conv, x):
+    """The conv's weight and bias in x's dtype, the weight channels-last
+    where x is (such a conv counted while a profiler records)."""
+    nhwc = channels_last(x)
+    if nhwc:
+        prof.count(prof.CHANNELS_LAST_CONVS)
+    return _cast(conv.weight, x.dtype, nhwc), _cast(conv.bias, x.dtype)
 
 
 def conv2d(conv: nn.Conv2d, x, *, stride: int = 1, padding=1):
@@ -110,7 +133,7 @@ def conv2d(conv: nn.Conv2d, x, *, stride: int = 1, padding=1):
     On a row block (spatial sharding) a 3x3 conv with padding 1 takes the
     neighbours' halo rows (stride 2, the OpenAI Downsample: only the row
     above reaches across the block)."""
-    w, b = _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype)
+    w, b = _conv_weights(conv, x)
     sg = spatial.active()
     if sg is None or w.shape[-2] == 1:
         return F.conv2d(x, w, b, stride=stride, padding=padding)
@@ -123,7 +146,7 @@ def conv2d(conv: nn.Conv2d, x, *, stride: int = 1, padding=1):
 
 def mat1x1(conv: nn.Conv2d, x):
     """1x1 conv as a channel matmul (JAX `common.mat1x1`)."""
-    return F.conv2d(x, _cast(conv.weight, x.dtype), _cast(conv.bias, x.dtype))
+    return F.conv2d(x, *_conv_weights(conv, x))
 
 
 def linear(lin: nn.Linear, x):
@@ -155,6 +178,12 @@ def timestep_embedding_openai(t, dim: int, max_period: int = 10000):
 
 
 def upsample_nearest_2x(x):
+    """Each pixel repeated 2x2; a channels-last x gives a channels-last
+    result (`repeat_interleave` would give NCHW), the same values."""
+    if channels_last(x):
+        b, c, h, w = x.shape
+        up = x.permute(0, 2, 3, 1)[:, :, None, :, None].expand(b, h, 2, w, 2, c)
+        return up.reshape(b, 2 * h, 2 * w, c).permute(0, 3, 1, 2)
     return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
 
 
@@ -170,4 +199,20 @@ def downsample_pad_conv(conv: nn.Conv2d, x):
 
 
 def avg_pool_2x(x):
+    """2x2 average pooling; a channels-last x as the mean over each window
+    of its NHWC view, channels-last (in bf16 the same bits; in f32 the four
+    terms may be summed in another order)."""
+    if channels_last(x):
+        b, c, h, w = x.shape
+        return x.permute(0, 2, 3, 1).reshape(b, h // 2, 2, w // 2, 2, c).mean((2, 4)).permute(
+            0, 3, 1, 2)
     return F.avg_pool2d(x, 2)
+
+
+def cat(tensors, dim: int = 1):
+    """`torch.cat(tensors, dim)`; channels-last 4-D tensors joined as their
+    NHWC views (the same values, channels-last)."""
+    if all(channels_last(t) for t in tensors):
+        nhwc = [t.permute(0, 2, 3, 1) for t in tensors]
+        return torch.cat(nhwc, (0, 3, 1, 2)[dim]).permute(0, 3, 1, 2)
+    return torch.cat(tensors, dim)

@@ -10,8 +10,14 @@ out_layers.{0,3}, skip_connection}`, `...qkv` / `...proj_out` as 1-D convs
 `state_dict()` to the JAX params. The same static `build_plan` as the JAX
 package drives the module, `init_params` and the weight bridge.
 
-Inside it is NCHW; the public boundary of `apply` is NHWC like the JAX
-function's. Every GroupNorm (GN32, eps 1e-5, f32 statistics) is kernel K1 —
+Inside it is NCHW by shape; the public boundary of `apply` is NHWC like the
+JAX function's. On the bf16 serving route (`channels_last_route`: bf16
+activations, no gradient tracked, no row-sharding group) the activations are
+channels-last from `apply`'s input to its outputs (`torch.channels_last`:
+NHWC in memory, the layout cuDNN's bf16 convolutions take on Hopper), so no
+convolution converts a layout and the outputs leave without a copy; K1 then
+takes its channels-last kernels. Every other route keeps NCHW-contiguous
+activations. Every GroupNorm (GN32, eps 1e-5, f32 statistics) is kernel K1 —
 the attention norm too, since GroupNorm over the flattened [B, T, C] map is
 the same function as over the NCHW map — and every attention is kernel K2
 with `num_heads` heads and `legacy_scale`.
@@ -43,7 +49,7 @@ from asyrp_official_torch.utils import hostrng
 from asyrp_official_torch.utils import profiling as prof
 
 __all__ = ["OpenAIUNetConfig", "AFHQ_CONFIG", "METFACE_CONFIG", "IMAGENET_CONFIG", "build_plan",
-           "OpenAIUNet", "init_params"]
+           "OpenAIUNet", "init_params", "channels_last_route"]
 
 _EPS = 1e-5  # GroupNorm32 (models/improved_ddpm/nn.py:17-19)
 
@@ -145,7 +151,16 @@ def build_plan(cfg: OpenAIUNetConfig) -> Dict[str, Any]:
 
 
 def _nhwc(x):
-    return x.permute(0, 2, 3, 1).contiguous()
+    return x.permute(0, 2, 3, 1).contiguous()  # no copy for a channels-last x
+
+
+def channels_last_route(x) -> bool:
+    """Whether `apply` keeps x's activations channels-last: bf16, with no
+    gradient tracked and no row-sharding group active. cuDNN's f32
+    convolutions (TF32 off) are NCHW-native, and K1's backward and its
+    across-ranks kernels take NCHW alone."""
+    return (x.dtype == torch.bfloat16 and not torch.is_grad_enabled()
+            and spatial.active() is None)
 
 
 def _slot():
@@ -210,7 +225,8 @@ class AttentionBlock(nn.Module):
     def forward(self, x, emb=None):
         b, c, hh, ww = x.shape
         t, d = hh * ww, c // self.heads
-        flat = self.norm(x).flatten(2).transpose(1, 2)  # [B, T, C]
+        # [B, T, C]; a free view where x is channels-last
+        flat = self.norm(x).flatten(2).transpose(1, 2)
         qkv = F.linear(flat, cm._cast(self.qkv.weight[:, :, 0], flat.dtype),
                        cm._cast(self.qkv.bias, flat.dtype))
         if self.new_order:
@@ -336,7 +352,7 @@ class OpenAIUNet(nn.Module):
         hs = list(hs)
         with prof.span(prof.DECODE):
             for block in self.output_blocks:
-                h = torch.cat([h, hs.pop()], dim=1)
+                h = cm.cat([h, hs.pop()], dim=1)
                 for layer in block:
                     h = self._layer(layer, h, emb)
             with prof.span(prof.CONV):
@@ -349,7 +365,9 @@ class OpenAIUNet(nn.Module):
         size = self.cfg.image_size
         if x_nhwc.shape[1] != spatial.local_height(size) or x_nhwc.shape[2] != size:
             raise ValueError(f"expected {size}^2 input, got {tuple(x_nhwc.shape)}")
-        x = x_nhwc.permute(0, 3, 1, 2).contiguous()
+        x = x_nhwc.permute(0, 3, 1, 2)  # channels-last already, where x_nhwc is contiguous
+        x = (x.contiguous(memory_format=torch.channels_last) if channels_last_route(x)
+             else x.contiguous())
         split = edit is not None and (x.shape[0] == 1 or decode_mode == "split")
         # split: only the edited decode, from h + Δh, carries a graph
         with torch.no_grad() if split else contextlib.nullcontext():
@@ -363,7 +381,7 @@ class OpenAIUNet(nn.Module):
         if split:
             eps_mod = self._decode(h2, hs, emb)
         else:
-            out = self._decode(torch.cat([h, h2]), [torch.cat([s, s]) for s in hs],
+            out = self._decode(cm.cat([h, h2], dim=0), [cm.cat([s, s], dim=0) for s in hs],
                                torch.cat([emb, emb]))
             eps, eps_mod = out.chunk(2)
         return (_nhwc(eps), _nhwc(eps_mod),

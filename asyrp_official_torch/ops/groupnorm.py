@@ -17,6 +17,15 @@ exactly those ops).
 `group_norm` dispatches on the tensor's device: a CPU tensor takes the plain
 versions, a CUDA tensor launches the kernels, anything else raises. Without
 a gradient to track, a CUDA call is one kernel launch, fused ops included.
+
+The forward also takes a channels-last tensor (`torch.channels_last`: NHWC
+in memory, the OpenAI UNet's bf16 serving route) and returns one: on CUDA
+the NHWC kernels (`gn_fwd_nhwc_slab`, one launch, on a map of at most 2048
+pixels; else `gn_fwd_nhwc_stats` and `gn_fwd_nhwc_apply`; every epilogue and
+the statistics out), a call counted in `group_norm.launches` and
+`group_norm.nhwc_launches`; on the CPU the plain version, which returns its
+input's memory format with the NCHW result's bits. The backward and the
+across-ranks kernels take NCHW alone.
 When a gradient is needed it takes `group_norm_unfused`: the torch ops
 around K1's `torch.autograd.Function`, whose forward also keeps each group's
 mean and rstd (f32) and whose backward computes dx, and dweight/dbias when
@@ -52,15 +61,17 @@ import torch.nn.functional as F
 
 from typing import Optional
 
-from asyrp_official_torch.ops import _build, traced
+from asyrp_official_torch.ops import _build, channels_last, traced
 
 __all__ = ["group_norm", "group_norm_plain", "group_norm_unfused", "group_norm_backward",
-           "group_norm_backward_plain", "group_norm_plan", "group_norm_across",
+           "group_norm_backward_plain", "group_norm_plan", "group_norm_nhwc_plan",
+           "group_norm_across",
            "group_norm_part_stats", "group_norm_part_stats_plain", "combine_group_stats",
            "group_norm_apply", "group_norm_apply_plain", "group_norm_bwd_part",
            "group_norm_bwd_part_plain", "group_norm_bwd_apply", "group_norm_bwd_apply_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NHWC_MAX_SLICES = 64  # csrc/groupnorm.cu kNhwcMaxSlices: the parts scratch's slices
 
 
 def _bshape(x):
@@ -70,6 +81,11 @@ def _bshape(x):
 def _per_channel(t, x):
     """[B, C] -> [B, C, 1, ...] against x."""
     return t.reshape(t.shape[:2] + (1,) * (x.dim() - 2))
+
+
+def _like(y, x):
+    """y (NCHW-contiguous) in x's memory format."""
+    return y.contiguous(memory_format=torch.channels_last) if channels_last(x) else y
 
 
 def _plain_with_stats(x, weight, bias, groups, eps, silu):
@@ -82,7 +98,7 @@ def _plain_with_stats(x, weight, bias, groups, eps, silu):
     y = y * weight.float().reshape(_bshape(x)) + bias.float().reshape(_bshape(x))
     if silu:
         y = y * torch.sigmoid(y)
-    return y.to(x.dtype), mean.reshape(b, groups), rstd.reshape(b, groups)
+    return _like(y.to(x.dtype), x), mean.reshape(b, groups), rstd.reshape(b, groups)
 
 
 def _film(y, scale_shift, silu):
@@ -97,12 +113,14 @@ def group_norm_plain(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, si
     """The reference math on any device, in plain PyTorch. `pre_add` [B, C]
     is added to x in x's dtype before the statistics; `scale_shift` [B, 2C]
     turns the norm's output y into y * (1 + scale) + shift, then SiLU if
-    `silu` (without it, `silu` is the fused GroupNorm+SiLU)."""
+    `silu` (without it, `silu` is the fused GroupNorm+SiLU). The result
+    has x's memory format."""
     if pre_add is not None:
         x = x + _per_channel(pre_add, x)
     if scale_shift is None:
         return _plain_with_stats(x, weight, bias, groups, eps, silu)[0]
-    return _film(_plain_with_stats(x, weight, bias, groups, eps, False)[0], scale_shift, silu)
+    y = _film(_plain_with_stats(x, weight, bias, groups, eps, False)[0], scale_shift, silu)
+    return _like(y, x)
 
 
 def group_norm_backward_plain(x, dy, weight, bias, mean, rstd, *, groups: int = 32,
@@ -146,6 +164,8 @@ _ARGS = {
     "asyrp_group_norm_apply": [_P] * 9 + [_I, _I, _I, _L, _I, ctypes.c_float, _I, _I, _P],
     "asyrp_group_norm_bwd_part": [_P] * 8 + [_I, _I, _L, _I, _I, _I, _P],
     "asyrp_group_norm_bwd_apply": [_P] * 8 + [ctypes.c_float, _I, _I, _L, _I, _I, _I, _P],
+    "asyrp_group_norm_nhwc": [_P] * 9 + [_I, _I, _L, _I, ctypes.c_float, _I, _I, _P],
+    "asyrp_group_norm_nhwc_plan": [_I, _I, _L, _I, _I, ctypes.POINTER(_L)],
 }
 _lib = None
 
@@ -171,11 +191,14 @@ def _launch(fn, x, *args):
         return fn(*args, torch._C._cuda_getCurrentRawStream(idx))
 
 
-def _check_input(x, weight, bias, groups):
+def _check_input(x, weight, bias, groups, nhwc: bool = False):
+    """[B, C, H*W] of a contiguous NCHW x, or with `nhwc` of a channels-last
+    one too; raises otherwise."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"group_norm kernel takes float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("group_norm kernel needs a contiguous NCHW tensor")
+    if not (x.is_contiguous() or (nhwc and channels_last(x))):
+        raise ValueError("group_norm kernel needs a contiguous NCHW tensor"
+                         + (" or a channels-last one" if nhwc else ""))
     shape = x.shape
     b, c = shape[0], shape[1]
     if c % groups:
@@ -206,19 +229,26 @@ def _check_per_channel(t, x, width, what):
 
 def _group_norm_cuda(x, weight, bias, groups, eps, silu, stats: bool, pre_add=None,
                      scale_shift=None):
-    b, c, hw = _check_input(x, weight, bias, groups)
+    b, c, hw = _check_input(x, weight, bias, groups, nhwc=True)
     pre_add = _check_per_channel(pre_add, x, 1, "pre_add")
     scale_shift = _check_per_channel(scale_shift, x, 2, "scale_shift")
-    y = torch.empty_like(x)
+    y = torch.empty_like(x)  # x's memory format
     mean = rstd = None
     if stats:
         mean, rstd = torch.empty(2, b, groups, device=x.device, dtype=torch.float32)
-    code = _launch(
-        _kernels().asyrp_group_norm, x, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-        y.data_ptr(), None if pre_add is None else pre_add.data_ptr(),
-        None if scale_shift is None else scale_shift.data_ptr(),
-        None if mean is None else mean.data_ptr(), None if rstd is None else rstd.data_ptr(),
-        b, c, hw, groups, eps, silu, _DTYPES[x.dtype])
+    ptrs = (weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            None if pre_add is None else pre_add.data_ptr(),
+            None if scale_shift is None else scale_shift.data_ptr(),
+            None if mean is None else mean.data_ptr(), None if rstd is None else rstd.data_ptr())
+    if x.is_contiguous():
+        code = _launch(_kernels().asyrp_group_norm, x, x.data_ptr(), *ptrs, b, c, hw, groups,
+                       eps, silu, _DTYPES[x.dtype])
+    else:  # channels-last: the two-kernel plan's parts go through this scratch
+        parts = torch.empty(_NHWC_MAX_SLICES * b * groups * 3, device=x.device,
+                            dtype=torch.float32)
+        code = _launch(_kernels().asyrp_group_norm_nhwc, x, x.data_ptr(), *ptrs,
+                       parts.data_ptr(), b, c, hw, groups, eps, silu, _DTYPES[x.dtype])
+        group_norm.nhwc_launches += 1
     _build.check(code, "group_norm kernel")
     group_norm.launches += 1
     return y, mean, rstd
@@ -262,6 +292,24 @@ def group_norm_plan(shape, dtype, *, groups: int = 32, backward: bool = False,
     _build.check(code, "group_norm plan")
     keys = ("cluster", "vec", "slice_vectors", "resident_x", "resident_dy", "smem_bytes",
             "group_vectors", "threads")
+    return dict(zip(keys, out))
+
+
+def group_norm_nhwc_plan(shape, dtype, *, groups: int = 32):
+    """The launch plan of the channels-last kernels for an NCHW `shape` (on
+    the card): {vec, slab (channels per block of the one-launch kernel, 0
+    for the two kernels), slices (statistics blocks per sample, or slabs),
+    slice_rows, apply_blocks, apply_vectors (per thread), apply_rows (per
+    block)}."""
+    b, c = shape[:2]
+    hw = 1
+    for d in shape[2:]:
+        hw *= d
+    out = (ctypes.c_int64 * 7)()
+    code = _kernels().asyrp_group_norm_nhwc_plan(b, c, hw, groups, _DTYPES[dtype], out)
+    _build.check(code, "group_norm channels-last plan")
+    keys = ("vec", "slab", "slices", "slice_rows", "apply_blocks", "apply_vectors",
+            "apply_rows")
     return dict(zip(keys, out))
 
 
@@ -369,6 +417,7 @@ def group_norm(x, weight, bias, *, groups: int = 32, eps: float = 1e-6, silu: bo
 
 
 group_norm.launches = 0
+group_norm.nhwc_launches = 0
 group_norm.bwd_launches = 0
 
 

@@ -41,7 +41,7 @@ from torch.autograd import profiler as _autograd_profiler
 
 __all__ = ["trace", "span", "count", "records", "counters", "reset", "Span",
            "REQUEST", "CHAIN", "STEP", "EVAL", "ENCODE", "DECODE", "DELTA", "RES", "ATTN",
-           "RESAMPLE", "CONV", "WEIGHT_CASTS"]
+           "RESAMPLE", "CONV", "WEIGHT_CASTS", "CHANNELS_LAST_CONVS"]
 
 REQUEST = "asyrp.request"    # one serving call (pipelines/engine.make_invert_edit)
 CHAIN = "asyrp.chain"        # one trajectory (core/sampler.sample_chain)
@@ -56,6 +56,7 @@ RESAMPLE = "asyrp.resample"  # a down- or upsampling layer
 CONV = "asyrp.conv"          # the input convolution or the output head
 
 WEIGHT_CASTS = "weight_casts"  # weights converted to the activation dtype at use
+CHANNELS_LAST_CONVS = "channels_last_convs"  # convolutions handed a channels-last input
 
 _KEPT = frozenset({EVAL})  # the spans the in-memory record keeps
 

@@ -505,6 +505,7 @@ def counters():
             "ddim_step_bwd": k3.ddim_step.bwd_launches, "ddpm_step": kddpm.ddpm_step.launches,
             "ddim_step_scalar": k3.ddim_step.scalar_launches,
             "ddpm_step_scalar": kddpm.ddpm_step.scalar_launches,
+            "group_norm_nhwc": k1.group_norm.nhwc_launches,
             "group_norm_part": k1.group_norm.part_launches,
             "group_norm_apply": k1.group_norm.apply_launches,
             "attention_kv": k2.attention.kv_launches,
@@ -517,7 +518,7 @@ def zero_counters() -> None:
     from asyrp_official_torch.ops import attention as k2, ddim_step as k3, groupnorm as k1
     from asyrp_official_torch.ops import ddpm_step as kddpm
 
-    k1.group_norm.launches = k1.group_norm.bwd_launches = 0
+    k1.group_norm.launches = k1.group_norm.bwd_launches = k1.group_norm.nhwc_launches = 0
     k1.group_norm.part_launches = k1.group_norm.apply_launches = 0
     k1.group_norm.bwd_part_launches = k1.group_norm.bwd_apply_launches = 0
     k2.attention.kv_bwd_launches = 0
@@ -721,6 +722,45 @@ def record_openai_shapes(torch, dev, cfg, names):
         training[0] = True
         block.train().requires_grad_(True)
         model.apply(x, t, edit=edit, decode_mode="split")
+    del model, block
+    torch.cuda.empty_cache()
+    return seen
+
+
+def record_nhwc_shapes(torch, dev, batch: int = 16):
+    """Shapes and calls K1 sees in one edited eval of the full-width AFHQ
+    UNet at `batch` on its bf16 channels-last route (as the bf16 cell
+    serves it: the encoder at `batch`, the dual decode stacked at twice
+    it), by (shape, silu, eps, fused op); fails if a call there is not
+    channels-last. The plain versions stand in while recording."""
+    from unittest import mock
+
+    from asyrp_official_torch.models.delta import EditState, OpenAIDeltaBlock
+    from asyrp_official_torch.models.openai_unet import AFHQ_CONFIG, OpenAIUNet
+    from asyrp_official_torch.ops import channels_last, groupnorm as k1
+
+    seen, nchw = {}, []
+
+    def gn(x, w, b, **kw):
+        if channels_last(x):
+            key = gn_fwd_key(x, kw)
+            seen[key] = seen.get(key, 0) + 1
+        else:
+            nchw.append(tuple(x.shape))
+        return k1.group_norm_plain(x, w, b, **kw)
+
+    torch.manual_seed(0)
+    cfg = AFHQ_CONFIG
+    model = OpenAIUNet(cfg).to(dev).eval().requires_grad_(False)
+    block = OpenAIDeltaBlock(cfg.bottleneck_ch, cfg.temb_ch).to(dev).eval().requires_grad_(False)
+    edit = EditState(blocks=(block,), hs_coeff=torch.tensor([1.0, 1.0], device=dev),
+                     flavor="openai")
+    x = torch.randn(batch, IMAGE, IMAGE, 3, device=dev).to(torch.bfloat16)
+    t = torch.full((batch,), 500.0, device=dev)
+    with mock.patch.object(k1, "group_norm", gn), torch.no_grad():
+        model.apply(x, t, edit=edit)
+    if nchw:
+        fail(f"the bf16 AFHQ eval at batch {batch} handed K1 NCHW tensors: {nchw}")
     del model, block
     torch.cuda.empty_cache()
     return seen
@@ -1148,6 +1188,121 @@ def kernel_rows(torch, dev, seen):
 
     out.update(step_rows(torch, dev, randn))
     return out
+
+
+def nhwc_rows(torch, dev, seen):
+    """Phase 3's channels-last K1 rows (`gn_fwd_nhwc_slab`, or
+    `gn_fwd_nhwc_stats` + `gn_fwd_nhwc_apply`) at the shapes of `seen` (`record_nhwc_shapes`: the
+    bf16 cell's eval at batch 16), f32 and bf16: against the plain version
+    on the same channels-last input (K1's tolerances), the statistics out,
+    two calls bit for bit, one `gn_fwd_nhwc` device kernel per call on a
+    slab plan, two otherwise; per call
+    and per eval the device time of the kernels, of the NCHW K1 on the same
+    values laid out NCHW (the route before), of the plain version and of
+    `F.group_norm` (+ the torch ops of the fused epilogue) on the
+    channels-last input, and the bound (2n bytes). Returns ({dtype: per-eval
+    sums}, [rows])."""
+    import torch.nn.functional as F
+
+    from asyrp_official_torch.ops import groupnorm as k1
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def library(x, w, b, eps, silu, pre_add=None, scale_shift=None):
+        if pre_add is not None:
+            x = x + pre_add[:, :, None, None]
+        y = F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps)
+        if scale_shift is not None:
+            scale, shift = (t[:, :, None, None] for t in scale_shift.chunk(2, dim=1))
+            y = y * (1.0 + scale) + shift
+        return F.silu(y) if silu else y
+
+    sums, rows = {}, []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        es = torch.tensor([], dtype=dtype).element_size()
+        tot = {"calls": 0, "device_ms": 0.0, "nchw_device_ms": 0.0, "plain_device_ms": 0.0,
+               "library_device_ms": 0.0, "bound_ms": 0.0, "max_rel_err": 0.0}
+        for key, count in sorted(seen.items(), key=lambda kv: str(kv[0])):
+            shape, silu, eps, fused = key
+            bsz, c = shape[:2]
+            x = (randn(*shape) * 2.0 + 0.5).to(dtype).contiguous(memory_format=torch.channels_last)
+            x_nchw = x.contiguous()
+            w, b = 1.0 + 0.1 * randn(c), 0.1 * randn(c)
+            kw = dict(eps=eps, silu=silu)
+            extra = 0
+            if fused == "pre_add":
+                kw["pre_add"] = randn(bsz, c).to(dtype)
+                extra = bsz * c * es
+            elif fused == "scale_shift":
+                kw["scale_shift"] = (0.1 * randn(bsz, 2 * c)).to(dtype)
+                extra = 2 * bsz * c * es
+            run_k = lambda: k1.group_norm(x, w, b, **kw)
+            run_n = lambda: k1.group_norm(x_nchw, w, b, **kw)
+            run_p = lambda: k1.group_norm_plain(x, w, b, **kw)
+            run_l = lambda: library(x, w, b, **kw)
+            label = (f"{list(shape)} silu={int(silu)} eps={eps:g}"
+                     f"{f' fused={fused}' if fused else ''}")
+            got, want = run_k(), run_p()
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                fail(f"group_norm_nhwc {label} {dname}: the result is not channels-last")
+            rel = errs(got.float(), want.float())[1]
+            y, mean, rstd = k1._group_norm_cuda(x, w, b, 32, eps, silu, stats=True)
+            _, mean_p, rstd_p = k1._plain_with_stats(x, w, b, 32, eps, silu)
+            rel_stats = max(errs(mean, mean_p)[1], errs(rstd, rstd_p)[1])
+            if not (same_bits(run_k(), got) and same_bits(
+                    k1._group_norm_cuda(x, w, b, 32, eps, silu, stats=True), (y, mean, rstd))):
+                fail(f"group_norm_nhwc {label} {dname}: two calls on the same inputs differ")
+            pl = k1.group_norm_nhwc_plan(shape, dtype)
+            events, kernels = device_kernels_per_call(run_k)
+            if events is not None and (events > (1 if pl["slab"] else 2) or any(
+                    "gn_fwd_nhwc" not in k_ for k_ in kernels)):
+                fail(f"group_norm_nhwc {label} {dname}: {events} device kernels per call "
+                     f"({kernels}), not its gn_fwd_nhwc kernel(s)")
+            dev_t = [device_ms(f, runs=ROW_DEVICE_RUNS) for f in (run_k, run_n, run_p, run_l)]
+            n = x.numel()
+            b_ms, _ = bound(2 * n * es + 2 * c * 4 + extra, n * (8 + 4 * silu),
+                            PEAK_FLOPS["float32"])
+            tol = TOL["group_norm_afhq"][dname]
+            ok = rel <= tol and rel_stats <= 1e-5
+            plan = (f"one launch, slabs of {pl['slab']} channels" if pl["slab"] else
+                    f"{pl['slices']} slices per sample, {pl['apply_blocks']} apply blocks of "
+                    f"{pl['apply_vectors']} vectors per thread")
+            phase(f"  group_norm_nhwc {dname} {label} x{count} [{plan}]: rel err {rel:.3e} (tol "
+                  f"{tol:g}), mean/rstd {rel_stats:.3e} (tol "
+                  f"1e-05); bitwise equal across two calls; "
+                  + ("device kernels per call not measured" if events is None
+                     else f"{events:g} device kernel(s) per call")
+                  + f"; device time per call, back to back: kernel {dev_t[0]:.4f} ms "
+                  f"({dev_t[0] * count:.4f} per eval), NCHW K1 {dev_t[1]:.4f} ms, plain "
+                  f"{dev_t[2]:.4f} ms, F.group_norm {dev_t[3]:.4f} ms; bound {b_ms:.4f} ms "
+                  f"(bytes, {100.0 * b_ms / dev_t[0]:.1f}% of it)"
+                  f"{'' if ok else '  <-- FAIL'}")
+            if not ok:
+                fail(f"group_norm_nhwc {label} {dname} disagrees with its plain version: "
+                     f"{rel:.3e}, statistics {rel_stats:.3e}")
+            rows.append({"dtype": dname, "shape": list(shape), "silu": bool(silu), "eps": eps,
+                         "fused": fused, "calls_per_eval": count, "rel_err": rel,
+                         "device_ms": dev_t[0], "nchw_device_ms": dev_t[1],
+                         "plain_device_ms": dev_t[2], "library_device_ms": dev_t[3],
+                         "bound_ms": b_ms, "plan": pl})
+            for k_, v_ in zip(("device_ms", "nchw_device_ms", "plain_device_ms",
+                               "library_device_ms", "bound_ms"), (*dev_t, b_ms)):
+                tot[k_] += v_ * count
+            tot["calls"] += count
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            del x, x_nchw, got, want, y
+        sums[dname] = tot
+        phase(f"  group_norm_nhwc {dname}: {tot['calls']} calls per eval at batch 16 take device "
+              f"{tot['device_ms']:.3f} ms (kernel), {tot['nchw_device_ms']:.3f} ms (NCHW K1), "
+              f"{tot['plain_device_ms']:.3f} ms (plain), {tot['library_device_ms']:.3f} ms "
+              f"(F.group_norm), bound {tot['bound_ms']:.3f} ms "
+              f"({100.0 * tot['bound_ms'] / tot['device_ms']:.1f}% of it)")
+        torch.cuda.empty_cache()
+    return sums, rows
 
 
 INSTANCES = ("scalar", "flat", "rows")
@@ -5145,6 +5300,16 @@ def build_kernels():
                   f"registers, {info.get('smem')} bytes static shared memory (+ the slice, "
                   f"dynamic); {info.get('spills')}; cluster of 1-16 blocks chosen per call "
                   f"(phase 3 rows)")
+        m = re.search(r"(gn_fwd_nhwc_\w+?)I(13__nv_bfloat16|f)Li(\d+)E(?:Lb(\d)ELb(\d)E)?", fn)
+        if m:
+            dname = "bfloat16" if m.group(2) != "f" else "float32"
+            epi = "" if m.group(4) is None else f", pre-add {m.group(4)}, FiLM {m.group(5)}"
+            phase(f"  K1 channels-last {m.group(1)} {dname}, {m.group(3)} per vector{epi}, 256 "
+                  f"threads: {info.get('registers')} registers, {info.get('smem')} bytes static "
+                  f"shared memory; {info.get('spills')}")
+            spilled = re.search(r"(\d+) bytes spill stores", info.get("spills") or "")
+            if spilled and int(spilled.group(1)):
+                fail(f"K1 channels-last {m.group(1)} {dname} spills: {info.get('spills')}")
     ptxas = _ptxas_by_entry(_build.build_log("attention"))
     entries = {}
     for fn, counts in sass_counts(_build._lib_path("attention")).items():
@@ -5220,6 +5385,11 @@ def main() -> int:
           f"{seen_imagenet['train_attention_mh_imagenet']} multi-head attention calls "
           f"({sum(seen_imagenet['attention_bwd_mh_imagenet'].values())} with a gradient)")
     rows = kernel_rows(torch, dev, {**seen, **seen_afhq, **seen_imagenet})
+    seen_nhwc = record_nhwc_shapes(torch, dev)
+    phase(f"  one edited AFHQ UNet eval at batch 16 on the bf16 channels-last route: "
+          f"{sum(seen_nhwc.values())} group_norm calls over {len(seen_nhwc)} shapes, every one "
+          "channels-last")
+    nhwc = nhwc_rows(torch, dev, seen_nhwc)
     seen_base = record_base_train_shapes(torch)
     phase("  one base-training step (every parameter trained, batch 2, t = 750 and 250): "
           + "; ".join(f"{name} {sum(v.values())} calls over {len(v)} shapes"
@@ -5458,6 +5628,7 @@ def main() -> int:
                          for d, v in r.items()},
         })
     summary = {"card": card, "attention_sass": sass, "step_rows": rows["step_rows"],
+               "group_norm_nhwc": {"per_eval": nhwc[0], "rows": nhwc[1]},
                "serving": timings,
                "invert_edit_chain_ms": chain_ms,
                "chain_rel_err": chain_err, "launches_per_invert_edit_chain": per_request,

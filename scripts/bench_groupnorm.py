@@ -2,7 +2,7 @@
 """Device time per call of GroupNorm(+SiLU) (K1) and its backward (K1-bwd)
 at every shape one 256^2 UNet eval gives them, on one NVIDIA GPU:
 
-    python3 scripts/bench_groupnorm.py [--repo DIR] [--evals | --across] [--out FILE.json]
+    python3 scripts/bench_groupnorm.py [--repo DIR] [--evals | --across | --nhwc] [--out FILE.json]
 
 The shapes and their calls per eval come from `chip_smoke.py`'s recorders:
 one edited eval (dual decode) and one training-mode eval of the full-width
@@ -28,7 +28,12 @@ shapes with the rows split as phase 15 (c) and (e) split them: DDPM++ over
 kernel, the exchange's result stood in by a copy of its parts (or sums)
 S times, and the apply kernel with whatever torch ops the checkout puts
 between them; both designs' entries are read, so `--repo` can time the
-parent's package beside this one's.
+parent's package beside this one's. `--nhwc` instead times the
+channels-last K1 (`gn_fwd_nhwc_stats` + `gn_fwd_nhwc_apply`) at every
+shape of one edited AFHQ eval at batch 16 on the bf16 channels-last route
+(the bf16 cell's), f32 and bf16: `chip_smoke.py` phase 3's rows, with the
+NCHW K1 on the same values and `F.group_norm` on the channels-last input
+beside it.
 """
 from __future__ import annotations
 
@@ -197,6 +202,8 @@ def main() -> int:
     ap.add_argument("--evals", action="store_true", help="time whole UNet evals instead")
     ap.add_argument("--across", action="store_true",
                     help="time K1 and K1-bwd across ranks (phase 15's splits) instead")
+    ap.add_argument("--nhwc", action="store_true",
+                    help="time the channels-last K1 at the bf16 cell's shapes instead")
     ap.add_argument("--out", default=None, help="also write the rows as JSON here")
     args = ap.parse_args()
     import torch
@@ -227,6 +234,14 @@ def main() -> int:
             with open(args.out, "w") as f:
                 json.dump({"card": card, "repo": os.path.abspath(args.repo),
                            "profiles": profiles}, f, indent=1)
+        return 0
+    if args.nhwc:
+        per_eval, rows = cs.nhwc_rows(torch, dev, cs.record_nhwc_shapes(torch, dev))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump({"card": card, "repo": os.path.abspath(args.repo), "rows": rows,
+                           "per_eval": per_eval}, f, indent=1)
         return 0
     seen = {**cs.record_path_shapes(torch, dev), **cs.record_afhq_shapes(torch, dev)}
     gen = torch.Generator(device=dev).manual_seed(0)

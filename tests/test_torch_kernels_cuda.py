@@ -1075,3 +1075,143 @@ def test_attention_bwd_kv_kernel_matches_autograd(cuda_device, b, tq, tk, c, hea
     second = k2.attention_backward(qd, kd, vd, o, d_o, lse, **kw)
     for a, b_ in zip(first, second):
         assert torch.equal(a, b_)
+
+
+# the channels-last K1 (`gn_fwd_nhwc_stats` + `gn_fwd_nhwc_apply`) at the bf16
+# AFHQ cell's shapes: batch 16 at every level, the dual decode's batch-32
+# concat at 256^2, the bottleneck; then odd shapes (groups across a vector,
+# one slice, the widest row a block takes)
+_NHWC_SHAPES = [(16, 128, 256, 256), (16, 128, 128, 128), (16, 256, 64, 64), (16, 256, 32, 32),
+                (16, 512, 16, 16), (16, 512, 8, 8), (32, 256, 256, 256), (3, 96, 12, 10),
+                (1, 64, 1, 7), (2, 1024, 4, 4)]
+_NHWC_EPILOGUES = ["none", "silu", "pre_add", "pre_add_silu", "scale_shift", "scale_shift_silu"]
+
+
+def _err_to_scale(want, got):
+    """max|want - got| / max|want|, on the device (the largest rows hold
+    half a billion elements)."""
+    want, got = want.float(), got.float()
+    return float((want - got).abs().max() / want.abs().max())
+
+
+def _nhwc_kw(kind, shape, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = {"eps": 1e-5, "silu": kind.endswith("silu")}
+    if kind.startswith("pre_add"):
+        kw["pre_add"] = torch.randn(shape[0], shape[1], generator=g, device=device).to(dtype)
+    elif kind.startswith("scale_shift"):
+        kw["scale_shift"] = (0.5 * torch.randn(shape[0], 2 * shape[1], generator=g,
+                                               device=device)).to(dtype)
+    return kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", _NHWC_SHAPES)
+def test_group_norm_nhwc_kernel_matches_plain(cuda_device, shape, dtype, bound):
+    """Every epilogue and the statistics out, against the plain version on
+    the same channels-last input (K1's tolerances); the result channels-last;
+    the fused epilogues within 1e-6 of scale (f32) or one bf16 step of the
+    channels-last K1 followed by the torch ops; two calls bit for bit; two
+    launches counted as one call."""
+    x, w, b, _ = _gn_inputs(shape, dtype, cuda_device, 30)
+    x = x.contiguous(memory_format=torch.channels_last)
+    for i, kind in enumerate(_NHWC_EPILOGUES):
+        kw = _nhwc_kw(kind, shape, dtype, cuda_device, 31 + i)
+        n, nh = k1.group_norm.launches, k1.group_norm.nhwc_launches
+        with torch.no_grad():
+            got = k1.group_norm(x, w, b, **kw)
+            again = k1.group_norm(x, w, b, **kw)
+        assert (k1.group_norm.launches, k1.group_norm.nhwc_launches) == (n + 2, nh + 2)
+        assert got.is_contiguous(memory_format=torch.channels_last) and got.dtype == dtype
+        assert torch.equal(got, again), kind
+        err = _err_to_scale(k1.group_norm_plain(x, w, b, **kw), got)
+        assert err <= bound, (kind, err)
+        if kind not in ("none", "silu"):
+            unfused = k1.group_norm_unfused(x, w, b, **kw)
+            if dtype == torch.float32:
+                assert _err_to_scale(unfused, got) <= 1e-6, kind
+            else:
+                assert _bf16_steps(got, unfused) <= 1, kind
+    y, mean, rstd = k1._group_norm_cuda(x, w, b, 32, 1e-5, True, stats=True)
+    y_p, mean_p, rstd_p = k1._plain_with_stats(x, w, b, 32, 1e-5, True)
+    assert _err_to_scale(y_p, y) <= bound
+    assert _err_to_scale(mean_p, mean) <= 1e-5 and _err_to_scale(rstd_p, rstd) <= 1e-5
+    two = k1._group_norm_cuda(x, w, b, 32, 1e-5, True, stats=True)
+    assert all(torch.equal(a, c) for a, c in zip((y, mean, rstd), two))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_norm_nhwc_kernel_on_a_misaligned_view(cuda_device, dtype):
+    """A channels-last view one element past a 16-byte boundary takes the
+    kernels' one-element instance."""
+    shape = (2, 64, 12, 10)
+    n = 2 * 64 * 12 * 10
+    g = torch.Generator(device=cuda_device).manual_seed(40)
+    buf = (torch.randn(n + 1, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    x = buf[1:].view(2, 12, 10, 64).permute(0, 3, 1, 2)
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
+    _, w, b, _ = _gn_inputs(shape, dtype, cuda_device, 41)
+    bound = 1e-5 if dtype == torch.float32 else 2e-2
+    for silu in (False, True):
+        with torch.no_grad():
+            got = k1.group_norm(x, w, b, silu=silu)
+        assert _err_to_scale(k1.group_norm_plain(x, w, b, silu=silu), got) <= bound
+
+
+@pytest.mark.cuda
+def test_group_norm_nhwc_refuses_a_row_wider_than_a_block(cuda_device):
+    """f32 at 2048 channels is 512 vectors a row, past the 256 threads of a
+    block: the launch is refused and the wrapper raises."""
+    x = torch.randn(1, 2048, 4, 4, device=cuda_device).contiguous(memory_format=torch.channels_last)
+    w, b = torch.ones(2048, device=cuda_device), torch.zeros(2048, device=cuda_device)
+    with pytest.raises(RuntimeError, match="group_norm kernel"):
+        k1.group_norm(x, w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 512, 8, 8), (16, 128, 256, 256)])
+def test_group_norm_layouts_launch_their_own_kernels(cuda_device, shape):
+    """An NCHW call stays one `gn_fwd` kernel; a channels-last call is its
+    `gn_fwd_nhwc` kernel (the slab plan) or two (statistics and apply), all
+    named `gn_fwd` so the benchmark files them as K1; the two layouts agree
+    within K1's bf16 tolerance."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b, _ = _gn_inputs(shape, torch.bfloat16, cuda_device, 42)
+    xl = x.contiguous(memory_format=torch.channels_last)
+    per_call = 1 if k1.group_norm_nhwc_plan(shape, torch.bfloat16)["slab"] else 2
+    for a, most, want in ((x, 1, "gn_fwd"), (xl, per_call, "gn_fwd_nhwc")):
+        k1.group_norm(a, w, b, silu=True)
+        torch.cuda.synchronize()
+        kernels = []
+        for _ in range(3):  # a profile may record no device event at all; then again
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(4):
+                    k1.group_norm(a, w, b, silu=True)
+                torch.cuda.synchronize()
+            kernels = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+            if kernels:
+                break
+        # the trace may drop an event, never add one
+        assert 0 < len(kernels) <= 4 * most and all(want in k for k in kernels), kernels
+        assert a is xl or not any("nhwc" in k for k in kernels), kernels
+    assert _err_to_scale(k1.group_norm(x, w, b, silu=True),
+                         k1.group_norm(xl, w, b, silu=True)) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_group_norm_nhwc_plans_take_both_designs(cuda_device):
+    """A map of at most 2048 pixels takes the one-launch slab kernel (a
+    block per sample and slab of whole groups, 16 KB or more); a larger one
+    the statistics and apply kernels. The rows of
+    `test_group_norm_nhwc_kernel_matches_plain` cover both."""
+    plan = lambda shape, dtype=torch.bfloat16: k1.group_norm_nhwc_plan(shape, dtype)
+    assert plan((16, 512, 8, 8))["slab"] == 128
+    assert plan((16, 512, 16, 16))["slab"] == 32
+    assert plan((32, 256, 32, 32))["slab"] == 16
+    assert plan((16, 128, 64, 64))["slab"] == 0
+    assert plan((16, 128, 256, 256))["slab"] == 0
+    assert plan((32, 256, 32, 32), torch.float32)["slab"] == 8

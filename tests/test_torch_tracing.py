@@ -180,7 +180,9 @@ def test_spans_nest_under_one_request(family):
 def test_weight_casts_count_every_converted_tensor(family, batch):
     """bf16: each eval converts the UNet's conv and linear tensors but the
     timestep MLP's (it runs in f32); an edited eval also the DeltaBlock's,
-    and at batch 1, where the dual decode is split, the decoder's again."""
+    and at batch 1, where the dual decode is split, the decoder's again. The
+    OpenAI UNet's bf16 route is channels-last: `channels_last_convs` counts
+    each of those conv calls (the 2-D convolutions among the tensors)."""
     request, model, block = _serving(family, torch.bfloat16, batch)
     request()  # no profiler: nothing counted
     assert prof.counters() == {}
@@ -191,7 +193,12 @@ def test_weight_casts_count_every_converted_tensor(family, batch):
     per_edit = _weights(block) + (decoder if batch == 1 else [])
     n_plain, n_edit = _evals()
     casts = (n_plain + n_edit) * len(unet) + n_edit * len(per_edit)
-    assert prof.counters() == {prof.WEIGHT_CASTS: casts}
+    want = {prof.WEIGHT_CASTS: casts}
+    if family == "openai":
+        convs = lambda ws: sum(w.dim() == 4 for w in ws)
+        want[prof.CHANNELS_LAST_CONVS] = ((n_plain + n_edit) * convs(unet)
+                                          + n_edit * convs(per_edit))
+    assert prof.counters() == want
 
     prof.reset()
     f32, _, _ = _serving(family, torch.float32, batch)
